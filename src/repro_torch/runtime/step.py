@@ -1,0 +1,111 @@
+"""Step machinery for the PS training loop.
+
+The PyTorch counterpart of the JAX package's ``runtime/step.py``: the
+fused BSP step (per-worker grads -> ONE masked multi-worker reduction ->
+optimizer update) and the host-side mask draws. ``draw_delivery_masks``
+and ``tile_mask_onto_plan`` are numpy, copied as they are, so both
+packages draw the same masks from the same seed.
+
+PyTorch runs eagerly, so nothing here is jit-compiled or cached. The
+async-path builders (``build_worker_grad_fn``, ``build_ef_gate_fn``,
+``build_apply_fn``) wait for the port of the cluster runtime
+(ROADMAP.md, queue 1 item 8).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch.func import grad_and_value, vmap
+
+from repro_torch.config import LTPConfig
+from repro_torch.core import ltp_sync as ls
+from repro_torch.core import packets as pk
+from repro_torch.optim import Optimizer
+from repro_torch.tree import tree_leaves, tree_map
+
+
+def build_fused_step(api, opt: Optimizer, ltp: LTPConfig, plan, w: int,
+                     protocol: str):
+    """The lockstep/BSP train step: per-worker grads via ``vmap``, one
+    fused masked reduction (the ``packet_reduce`` kernel under
+    sync_backend="cuda"/"auto" on the card), one optimizer update.
+    Signature:
+
+      step(params, opt_state, residual, batch, masks, frac, lr)
+        -> (params, opt_state, residual, mean_loss, realized_frac)
+
+    ``batch`` leaves carry the worker axis first: (W, B/W, ...).
+    """
+    use_ltp = protocol == "ltp"
+
+    def one(params, b):
+        return grad_and_value(lambda p: api.loss_fn(p, b))(params)
+
+    per_worker = vmap(one, in_dims=(None, 0))   # (W, ...) grads, (W,) losses
+
+    def step(params, opt_state, residual, batch, masks, frac, lr):
+        grads_w, losses = per_worker(params, batch)
+        flat_w = pk.flatten(plan, grads_w)       # (W, n_packets, payload)
+        if use_ltp:
+            # the PS hot loop: ONE fused masked multi-worker reduction
+            if residual is not None:
+                # error feedback materializes the gated stream anyway —
+                # gate once (dropfill under cuda), reduce the result
+                flat_w = flat_w + residual
+                sent = ls.apply_delivery(
+                    flat_w.reshape(w * plan.n_packets, plan.packet_floats),
+                    masks.reshape(-1), backend=ltp.sync_backend,
+                ).reshape(flat_w.shape)
+                new_residual = flat_w - sent
+                mean_flat = ls.reduce_packet_stream(
+                    sent, masks, ltp, w, expected_frac=frac,
+                    premasked=True)
+            else:
+                new_residual = None
+                mean_flat = ls.reduce_packet_stream(
+                    flat_w, masks, ltp, w, expected_frac=frac)
+            realized = masks.mean()
+        else:
+            mean_flat = flat_w.mean(dim=0)
+            new_residual = residual
+            realized = torch.ones((), device=flat_w.device)
+        dtypes = [x.dtype for x in tree_leaves(params)]
+        mean_grads = pk.unflatten(plan, mean_flat, dtypes)
+        updates, opt_state = opt.update(mean_grads, opt_state, params, lr)
+        params = tree_map(lambda p, u: p + u, params, updates)
+        return params, opt_state, new_residual, losses.mean(), realized
+
+    return step
+
+
+def draw_delivery_masks(plan, w: int, rng: np.random.Generator,
+                        frac: np.ndarray,
+                        mask_trace: np.ndarray = None,
+                        it: int = 0) -> np.ndarray:
+    """(W, n_packets) float32 per-(worker, packet) delivery mask.
+
+    From the DES ``mask_trace`` when given (the trace's packet stream is
+    tiled/cropped onto the plan's packets), else Bernoulli(frac) per
+    packet. Critical packets are always pinned to 1 — the CQ retransmit
+    guarantee (paper §III-E).
+    """
+    n = plan.n_packets
+    if mask_trace is not None:
+        m = mask_trace[it % len(mask_trace)]
+        reps = -(-n // m.shape[1])
+        m = np.tile(m, (1, reps))[:, :n].astype(np.float32)
+    else:
+        m = (rng.random((w, n)) < np.asarray(frac)[:, None]).astype(np.float32)
+    m[:, plan.critical] = 1.0
+    return m
+
+
+def tile_mask_onto_plan(plan, mask_row: np.ndarray) -> np.ndarray:
+    """(n_transport_pkts,) bool -> (plan.n_packets,) float32, tiled/cropped
+    with criticals pinned — one worker's DES delivery state mapped onto
+    the packet plan the aggregation kernels consume."""
+    n = plan.n_packets
+    reps = -(-n // len(mask_row))
+    m = np.tile(mask_row, reps)[:n].astype(np.float32)
+    m[plan.critical] = 1.0
+    return m
