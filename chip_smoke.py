@@ -8,19 +8,32 @@ From the root of a checkout it:
 1. builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    with ``nvcc`` for ``sm_90a`` (into the git-ignored
    ``src/repro_torch/kernels/build/``);
-2. holds each kernel against its plain PyTorch version on the card, at
-   the shapes the main path gives it and at ragged and misaligned
-   shapes that reach each branch of each kernel, and times the
-   kernel, the plain version and one PyTorch library call that computes
-   the same function (CUDA events, L2 flushed before every launch);
-3. drives the main path through the user's entry points: full-width
+2. holds each kernel (packet_reduce, dropfill, randomk) against its
+   plain PyTorch version on the card, at the shapes the main paths give
+   it and at ragged, misaligned and bfloat16 inputs that reach each
+   branch of each kernel, and times the kernel, the plain version and
+   one PyTorch library call that computes the same function (CUDA
+   events, L2 flushed before every launch);
+3. holds ``tree_reduce`` (the rack -> root reduction over the
+   packet_reduce kernel) against the flat reduction at the main path's
+   packet stream, for 4 racks of 2 and a 5 + 3 split, and checks one
+   kernel launch per rack;
+4. drives the LTP path through the user's entry points: full-width
    papernet (configs/papernet.py) trained by 8 workers and one PS over
    the LTP path, 5 steps, three times — kernels with paper
    compensation; kernels with count compensation and error feedback;
    the same again with the plain ``python`` backend on the card — and
    checks that the kernels launched once per step, that the outputs are
    sane, and that the kernel run's params match the plain run's;
-4. prints a ``kernels`` JSON line and, last, the device JSON line.
+5. drives the Fig 5 compression path (``train.compressed.
+   train_compressed``), with deterministic cuDNN convolutions:
+   full-width papernet, batch 128, 5 steps each dense, Random-k at
+   k = 0.1 through the randomk kernel, the same on the plain route on
+   the card, and Top-k at k = 0.1; checks one randomk
+   launch per step of the kernel run and none elsewhere, equal kept
+   counts and matching params between the two Random-k runs, densities
+   within 0.01 of k, and finite losses;
+6. prints a ``kernels`` JSON line and, last, the device JSON line.
 
 TF32 is switched off for cuDNN convolutions and matmuls for the whole
 run, so that float32 comparisons compare float32 arithmetic. Any
@@ -77,6 +90,16 @@ class Timer:
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def bound(n_bytes: int, n_ops: int):
+    """The least time (ms) the card could take: the larger of the bytes
+    moved over the memory rate and the float32 operations over the
+    float32 rate; and which of the two it is."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / F32_FLOPS_PER_S * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
 def check_kernels(torch, timer):
     """Every kernel against its plain version; returns (checks, entries
     for the kernels line keyed by kernel name)."""
@@ -102,18 +125,18 @@ def check_kernels(torch, timer):
 
     def record(name, shape, comp, path, err, tol, fn, plain, library,
                n_bytes, n_ops, main):
+        """One checked case; ``main`` ones are also timed, with their
+        bound the larger of bytes over the memory rate and operations
+        over the float32 rate (bytes bind for all three kernels)."""
         ok = err <= tol
         row = {"name": name, "shape": list(shape), "mode": comp,
                "branch": path, "max_abs_err": err, "tol": tol, "ok": ok}
         if main:
-            bound_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-            bound_ops = n_ops / F32_FLOPS_PER_S * 1e3
+            bound_ms, bound_by = bound(n_bytes, n_ops)
             row.update(
                 ms=timer.ms(fn), plain_ms=timer.ms(plain),
                 library_ms=None if library is None else timer.ms(library),
-                bound_ms=max(bound_bytes, bound_ops),
-                bound_by="bytes" if bound_bytes >= bound_ops else "operations",
-                bytes=n_bytes)
+                bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes)
         checks.append(row)
         if not ok:
             raise AssertionError(f"{name} {shape} {comp} ({path}): max abs "
@@ -189,7 +212,83 @@ def check_kernels(torch, timer):
             entries["dropfill"] = row
     if {r["branch"] for r in checks[n_before:]} != {"x4", "scalar"}:
         raise AssertionError("dropfill cases missed a kernel branch")
+
+    # randomk: a select, so every case agrees exactly. (n,) or shape,
+    # dtype, offset in floats, main-path or not: the Fig 5 path's flat
+    # gradient (x4 with a 2-element tail), a multiple of 4, a misaligned
+    # stream (scalar) and bf16 (always one element a thread)
+    n_before = len(checks)
+    for shape, dt, off, main in (((696234,), torch.float32, 0, True),
+                                 ((4096,), torch.float32, 0, False),
+                                 ((10001,), torch.float32, 1, False),
+                                 ((37, 23), torch.bfloat16, 0, False)):
+        x = randn_at(shape, off, dt)
+        u = torch.rand(math.prod(shape) + off, device="cuda",
+                       generator=gen)[off:].view(shape)
+        path = ("x4" if dt == torch.float32 and x.data_ptr() % 16 == 0
+                and u.data_ptr() % 16 == 0 else "scalar")
+        for k in (0.0, 0.1, 1.0):
+            got = ops.randomk_sparsify(x, u, k)
+            want = ref.randomk_ref(x, u, k)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            n = x.numel()
+            es = x.element_size()
+            row = record(
+                "randomk", shape, f"{str(dt).replace('torch.', '')} k={k}",
+                path, err, 0.0,
+                lambda: ops.randomk_sparsify(x, u, 0.1),
+                lambda: ref.randomk_ref(x, u, 0.1),
+                lambda: torch.where(u < 0.1, x, 0.0),
+                n * (2 * es + 4), n, main and k == 0.1)
+            if main and k == 0.1:
+                entries["randomk"] = row
+    if {r["branch"] for r in checks[n_before:]} != {"x4", "scalar"}:
+        raise AssertionError("randomk cases missed a kernel branch")
     return checks, entries
+
+
+def check_tree_reduce(torch, timer):
+    """tree_reduce over the packet_reduce kernel at the main path's
+    packet stream against the flat plain reduction; one launch a rack.
+    Returns the checked cases and the timed entry (4 racks, paper)."""
+    from repro_torch.kernels import packet_reduce as pr_mod
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    w, n, p = 8, 1934, 360
+    x = torch.randn(w, n, p, device="cuda", generator=gen)
+    m = (torch.rand(w, n, device="cuda", generator=gen) < 0.8).float()
+    layouts = {"4x2": (lambda f: f // 2, 4),
+               "5+3": (lambda f: 0 if f < 5 else 1, 2)}
+    rows = []
+    for label, (rack_of, n_racks) in layouts.items():
+        for comp in ("paper", "count"):
+            pr_mod.LAUNCHES = 0
+            got = pr_mod.tree_reduce(x, m, rack_of, compensation=comp)
+            launches = pr_mod.LAUNCHES
+            want = ref.packet_reduce_ref(x, m, compensation=comp)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            row = {"name": "tree_reduce", "shape": [w, n, p], "racks": label,
+                   "mode": comp, "launches": launches, "max_abs_err": err,
+                   "tol": 1e-5}
+            rows.append(row)
+            if launches != n_racks or not err <= 1e-5:
+                raise AssertionError(f"tree_reduce {label} {comp}: {row}")
+    # timed as the flat reduction is bounded: the same function of the
+    # same inputs; the plain version is the flat plain reduction
+    rack_of = layouts["4x2"][0]
+    bound_ms, bound_by = bound(4 * (w * n * p + w * n + n * p),
+                               2 * w * n * p + n * p)
+    timed = {"name": "tree_reduce", "shape": [w, n, p], "racks": "4x2",
+             "mode": "paper", "launches_per_call": 4,
+             "ms": timer.ms(lambda: pr_mod.tree_reduce(x, m, rack_of)),
+             "plain_ms": timer.ms(lambda: ref.packet_reduce_ref(x, m)),
+             "library_ms": timer.ms(
+                 lambda: torch.einsum("wnp,wn->np", x, m) / w),
+             "bound_ms": bound_ms, "bound_by": bound_by}
+    return rows, timed
 
 
 def run_main_path(torch, sync_backend: str, **ltp_kw):
@@ -218,6 +317,23 @@ def run_main_path(torch, sync_backend: str, **ltp_kw):
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
     return tr, step_s
+
+
+def run_fig5(torch, kind: str, backend: str):
+    """The Fig 5 path: full-width papernet, batch 128, lr 0.05,
+    SyntheticCIFAR(seed=3) as benchmarks/fig5_randomk_topk.py has them,
+    5 steps, 1024 test images; Random-k and Top-k at k = 0.1. Returns
+    (top1, median selection s, history, params)."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticCIFAR
+    from repro_torch.train.compressed import train_compressed
+
+    data = SyntheticCIFAR(seed=3)
+    return train_compressed(
+        get_config("papernet"), TrainConfig(batch=128, lr=0.05), data,
+        data.test_set(1024), kind, 0.1 if kind != "none" else 1.0, 5,
+        device="cuda", seed=0, backend=backend, return_params=True)
 
 
 def profile_step(torch, tr, batch):
@@ -269,6 +385,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import dropfill as df_mod
     from repro_torch.kernels import packet_reduce as pr_mod
+    from repro_torch.kernels import randomk as rk_mod
     from repro_torch.tree import tree_leaves
 
     torch.backends.cudnn.allow_tf32 = False
@@ -291,9 +408,22 @@ def main() -> int:
     timer = Timer(torch)
     checks, entries = check_kernels(torch, timer)
     print("kernel_checks " + json.dumps(checks))
+    tree_checks, tree_timed = check_tree_reduce(torch, timer)
+    print("tree_reduce_checks " + json.dumps(tree_checks))
+    print("tree_reduce " + json.dumps(tree_timed))
     del timer
 
-    # the main path: counts zeroed just before each run, read just after
+    counters = {"packet_reduce": pr_mod, "dropfill": df_mod,
+                "randomk": rk_mod}
+
+    def zero_counts():
+        for mod in counters.values():
+            mod.LAUNCHES = 0
+
+    def read_counts():
+        return {name: mod.LAUNCHES for name, mod in counters.items()}
+
+    # the LTP path: counts zeroed just before each run, read just after
     runs = {}
     for label, backend, kw in (
             ("cuda_paper", "cuda", {}),
@@ -301,11 +431,9 @@ def main() -> int:
                                        "error_feedback": True}),
             ("python_count_ef", "python", {"compensation": "count",
                                            "error_feedback": True})):
-        pr_mod.LAUNCHES = 0
-        df_mod.LAUNCHES = 0
+        zero_counts()
         tr, step_s = run_main_path(torch, backend, **kw)
-        launches = {"packet_reduce": pr_mod.LAUNCHES,
-                    "dropfill": df_mod.LAUNCHES}
+        launches = read_counts()
         runs[label] = (tr, step_s, launches)
         steady = statistics.median(step_s[1:])
         print(f"main path {label}: launches {json.dumps(launches)}; step "
@@ -314,9 +442,12 @@ def main() -> int:
               f"history {json.dumps(tr.history)}")
 
     steps = 5
-    expect = {"cuda_paper": {"packet_reduce": steps, "dropfill": 0},
-              "cuda_count_ef": {"packet_reduce": steps, "dropfill": steps},
-              "python_count_ef": {"packet_reduce": 0, "dropfill": 0}}
+    expect = {"cuda_paper": {"packet_reduce": steps, "dropfill": 0,
+                             "randomk": 0},
+              "cuda_count_ef": {"packet_reduce": steps, "dropfill": steps,
+                                "randomk": 0},
+              "python_count_ef": {"packet_reduce": 0, "dropfill": 0,
+                                  "randomk": 0}}
     for label, (tr, _, launches) in runs.items():
         if launches != expect[label]:
             raise AssertionError(f"{label}: launches {launches}, expected "
@@ -342,19 +473,74 @@ def main() -> int:
     prof = profile_step(torch, ker, SyntheticCIFAR(seed=0).train_batch(128, 5))
     print("profile cuda_count_ef step 6 " + json.dumps(prof))
 
-    main_launches = {k: runs["cuda_paper"][2][k] + runs["cuda_count_ef"][2][k]
-                     for k in ("packet_reduce", "dropfill")}
+    # the Fig 5 compression path, the same way. cuDNN's default weight
+    # gradient sums with atomics, so two runs differ in the last bits and
+    # an element can be exactly 0 in one and not in the other; with
+    # deterministic convolutions the kernel run and the plain run differ
+    # only in the randomk select, and keep the same elements.
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    fig5, fig5_params = {}, {}
+    for label, kind, backend in (("none", "none", "auto"),
+                                 ("randomk_cuda", "randomk", "cuda"),
+                                 ("randomk_python", "randomk", "python"),
+                                 ("topk", "topk", "auto")):
+        zero_counts()
+        top1, sel_s, hist, params = run_fig5(torch, kind, backend)
+        launches = read_counts()
+        step_s = statistics.median(h["seconds"] for h in hist[1:])
+        fig5[label] = {
+            "launches": launches, "top1": top1, "sel_ms": sel_s * 1e3,
+            "first_step_ms": hist[0]["seconds"] * 1e3,
+            "step_ms": step_s * 1e3, "images_per_s": 128 / step_s,
+            "loss": [h["loss"] for h in hist],
+            "density": [h["density"] for h in hist],
+            "kept": [h["kept"] for h in hist]}
+        want = {"packet_reduce": 0, "dropfill": 0,
+                "randomk": steps if label == "randomk_cuda" else 0}
+        if launches != want:
+            raise AssertionError(f"fig5 {label}: launches {launches}, "
+                                 f"expected {want}")
+        if len(hist) != steps or not all(math.isfinite(h["loss"])
+                                         for h in hist):
+            raise AssertionError(f"fig5 {label}: bad history {hist}")
+        if kind != "none" and not all(abs(h["density"] - 0.1) <= 0.01
+                                      for h in hist):
+            raise AssertionError(f"fig5 {label}: density off k = 0.1: "
+                                 f"{fig5[label]['density']}")
+        if not 0.0 <= top1 <= 1.0:
+            raise AssertionError(f"fig5 {label}: top1 {top1}")
+        fig5_params[label] = params
+    rk_ker, rk_plain = fig5["randomk_cuda"], fig5["randomk_python"]
+    if rk_ker["kept"] != rk_plain["kept"]:
+        raise AssertionError(f"fig5 Random-k kept counts differ: kernel "
+                             f"{rk_ker['kept']}, plain {rk_plain['kept']}")
+    worst_rk = 0.0
+    for x, y in zip(tree_leaves(fig5_params["randomk_cuda"]),
+                    tree_leaves(fig5_params["randomk_python"])):
+        torch.testing.assert_close(x, y, rtol=2e-4, atol=2e-5)
+        worst_rk = max(worst_rk, (x - y).abs().max().item())
+    torch.backends.cudnn.deterministic = False
+    print("fig5 " + json.dumps(fig5))
+    print(f"fig5 params, randomk kernel vs plain route after {steps} steps: "
+          f"max abs diff {worst_rk:.3e} (rtol 2e-4, atol 2e-5)")
+
+    main_launches = {
+        name: sum(r[2][name] for r in runs.values())
+        + sum(r["launches"][name] for r in fig5.values())
+        for name in counters}
     src_file = "src/repro_torch/kernels/csrc/ltp_kernels.cu"
     replaces = {"packet_reduce": "src/repro/kernels/packet_reduce.py:56",
-                "dropfill": "src/repro/kernels/dropfill.py:42"}
+                "dropfill": "src/repro/kernels/dropfill.py:42",
+                "randomk": "src/repro/kernels/randomk.py:36"}
     line = []
-    for name in ("packet_reduce", "dropfill"):
+    for name in ("packet_reduce", "dropfill", "randomk"):
         e = entries[name]
         line.append({
             "name": name, "route": "cuda", "source": src_file,
             "replaces": replaces[name], "shape": e["shape"],
             "launches": main_launches[name],
-            "max_abs_err": e["max_abs_err"], "max_err": e["max_abs_err"],
+            "max_abs_err": e["max_abs_err"],
             "ms": e["ms"], "plain_ms": e["plain_ms"],
             "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
             "library_ms": e["library_ms"]})

@@ -3,6 +3,7 @@
   packets.py      float-aligned packetization + critical packets (SIII-C/E)
   early_close.py  LT-threshold / deadline controller (SIII-B)
   ltp_sync.py     the PS host path: bubble-fill gate + masked reduction
+  compression.py  Random-k / Top-k baselines with error feedback (SII-C)
 """
 from repro_torch.core.early_close import (  # noqa: F401
     AnalyticIncastModel,

@@ -97,10 +97,13 @@ def load() -> ctypes.CDLL:
                            "available")
     lib = ctypes.CDLL(str(build()))
     vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    cf = ctypes.c_float
     lib.ltp_packet_reduce.argtypes = [vp, vp, vp, ci, ll, ll, ci, vp]
     lib.ltp_packet_reduce.restype = ci
     lib.ltp_dropfill.argtypes = [vp, vp, vp, vp, ll, ll, ci, vp]
     lib.ltp_dropfill.restype = ci
+    lib.ltp_randomk.argtypes = [vp, vp, cf, vp, ll, ci, vp]
+    lib.ltp_randomk.restype = ci
     lib.ltp_error_string.argtypes = [ci]
     lib.ltp_error_string.restype = ctypes.c_char_p
     _LIB = lib

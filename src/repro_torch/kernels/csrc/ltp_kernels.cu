@@ -1,16 +1,20 @@
-// Hand-written Hopper (sm_90a) kernels for the LTP parameter-server hot loop.
+// Hand-written Hopper (sm_90a) kernels for the LTP parameter-server hot loop
+// and the Random-k compression baseline.
 //
-// Two memory-bound passes replace the JAX package's Pallas TPU kernels:
+// Three memory-bound passes replace the JAX package's Pallas TPU kernels:
 //
 //   ltp_packet_reduce  <- src/repro/kernels/packet_reduce.py::packet_reduce
 //       paper: out[i,j] = sum_w g[w,i,j] * m[w,i] / W
 //       count: out[i,j] = sum_w g[w,i,j] * m[w,i] / max(sum_w m[w,i], 1)
 //   ltp_dropfill       <- src/repro/kernels/dropfill.py::dropfill
 //       out[i,j] = x[i,j] * (mask[i] * scale[i])   (f32 or bf16 in and out)
+//   ltp_randomk        <- src/repro/kernels/randomk.py::randomk
+//       out[i] = u[i] < k ? x[i] : 0               (f32 or bf16 x, f32 u)
 //
-// Both are bound by device-memory bytes, not by operations: packet_reduce
-// does 2 flops per 4-byte element it reads, dropfill 1. The design is the one
-// that reads each input element once and writes each output element once.
+// All three are bound by device-memory bytes, not by operations:
+// packet_reduce does 2 flops per 4-byte element it reads, dropfill 1,
+// randomk one compare per 8 bytes read. The design is the one that reads each
+// input element once and writes each output element once.
 //
 // packet_reduce: one thread owns 4 consecutive outputs of one packet (1 when
 // the payload is not a multiple of 4 or a pointer is not 16-byte aligned).
@@ -26,6 +30,15 @@
 // dropfill: an elementwise gate, 4 elements a thread on the f32 path. It may
 // run in place (out == x), which is safe because each thread reads its
 // elements before it writes them and touches no other thread's elements.
+//
+// randomk: a select over one flat stream, no padding. The TPU wrapper pads the
+// stream to (256, 512) tiles with u = 2.0; here a bounds check takes the ragged
+// end. On the f32 path a thread owns 4 elements and takes 16-byte loads of x and
+// u when x, u and out are 16-byte aligned; the last thread of a length that is
+// not a multiple of 4 (papernet's 696,234 floats leave 2) takes its 1-3
+// elements one by one. Otherwise, and for bf16, one element a thread. k arrives
+// as a float: the JAX kernel compares against k cast to float32, so an element
+// whose u equals float(k) is dropped, as there.
 //
 // Each entry point launches on the caller's stream and returns the code of
 // cudaGetLastError() right after the launch (0 on success).
@@ -146,6 +159,41 @@ dropfill_kernel(const T* x, const float* __restrict__ mask,
   out[e] = from_f32<T>(to_f32<T>(x[e]) * g);
 }
 
+// f32, 4 elements a thread with 16-byte loads; the last thread takes the
+// 1-3 elements of a length that is not a multiple of 4 one by one
+__global__ void __launch_bounds__(kThreads)
+randomk_f32x4_kernel(const float* __restrict__ x, const float* __restrict__ u,
+                     float k, float* __restrict__ out, std::int64_t n) {
+  const std::int64_t e0 =
+      (static_cast<std::int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
+  if (e0 + 4 <= n) {
+    const float4 xv = __ldg(reinterpret_cast<const float4*>(x + e0));
+    const float4 uv = __ldg(reinterpret_cast<const float4*>(u + e0));
+    float4 r;
+    r.x = uv.x < k ? xv.x : 0.f;
+    r.y = uv.y < k ? xv.y : 0.f;
+    r.z = uv.z < k ? xv.z : 0.f;
+    r.w = uv.w < k ? xv.w : 0.f;
+    *reinterpret_cast<float4*>(out + e0) = r;
+  } else {
+    for (std::int64_t e = e0; e < n; ++e) {
+      out[e] = __ldg(u + e) < k ? __ldg(x + e) : 0.f;
+    }
+  }
+}
+
+// any alignment, f32 or bf16: one element a thread; a kept element is copied
+// bit for bit, a dropped one is +0
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+randomk_kernel(const T* __restrict__ x, const float* __restrict__ u, float k,
+               T* __restrict__ out, std::int64_t n) {
+  const std::int64_t e =
+      static_cast<std::int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  out[e] = __ldg(u + e) < k ? x[e] : from_f32<T>(0.f);
+}
+
 }  // namespace
 
 extern "C" {
@@ -194,6 +242,31 @@ int ltp_dropfill(const void* x, const void* mask, const void* scale, void* out,
     dropfill_kernel<__nv_bfloat16><<<blocks_for(n_elems), kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x), m, sc,
         static_cast<__nv_bfloat16*>(out), n_elems, payload);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x, out (n,) of dtype code 0 = f32, 1 = bf16; u (n,) f32; all contiguous.
+int ltp_randomk(const void* x, const void* u, float k, void* out, long long n,
+                int dtype, void* stream) {
+  if (n == 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* uf = static_cast<const float*>(u);
+  if (dtype == 0) {
+    const auto* xi = static_cast<const float*>(x);
+    auto* o = static_cast<float*>(out);
+    if (aligned16(x) && aligned16(u) && aligned16(out)) {
+      randomk_f32x4_kernel<<<blocks_for((n + 3) / 4), kThreads, 0, s>>>(
+          xi, uf, k, o, n);
+    } else {
+      randomk_kernel<float><<<blocks_for(n), kThreads, 0, s>>>(xi, uf, k, o, n);
+    }
+  } else if (dtype == 1) {
+    randomk_kernel<__nv_bfloat16><<<blocks_for(n), kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), uf, k,
+        static_cast<__nv_bfloat16*>(out), n);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

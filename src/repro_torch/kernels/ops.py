@@ -4,9 +4,9 @@ They take any floating dtype and geometry, as the JAX package's
 ``ops.py`` does. The CUDA kernels take ragged shapes as they are, so
 nothing is padded: these wrappers only bring the inputs to the dtypes
 the kernels take (float32 masks; float32 packets for the reduction;
-float32 or bfloat16 packets for the gate, other float types going
-through float32 and back, as the JAX wrapper casts) and make them
-contiguous.
+float32 or bfloat16 packets for the gate and for Random-k, other float
+types going through float32 and back, as the JAX wrapper casts) and make
+them contiguous.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.kernels import dropfill as _df
 from repro_torch.kernels import packet_reduce as _pr
+from repro_torch.kernels import randomk as _rk
 
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
@@ -45,3 +46,18 @@ def ltp_packet_reduce(packets: torch.Tensor, mask: torch.Tensor, *,
     Returns (n_packets, payload) float32."""
     return _pr.packet_reduce(_f32(packets), _f32(mask),
                              compensation=compensation)
+
+
+def randomk_sparsify(x: torch.Tensor, u: torch.Tensor,
+                     k_frac: float) -> torch.Tensor:
+    """Elementwise Random-k keep mask via uniforms ``u`` (x's number of
+    elements, made float32): x where ``u < float32(k_frac)``, else 0, in
+    x's shape and dtype."""
+    if u.numel() != x.numel():
+        raise ValueError(f"u must have x's {x.numel()} elements, got "
+                         f"{u.numel()}")
+    xk = x if x.dtype in (torch.float32, torch.bfloat16) \
+        else x.to(torch.float32)
+    out = _rk.randomk(xk.contiguous().reshape(-1), _f32(u).reshape(-1),
+                      k_frac)
+    return out.reshape(x.shape).to(x.dtype)

@@ -18,8 +18,13 @@ shapes are bounds-checked).
 
 A CPU tensor takes the plain version (``ref.packet_reduce_ref``); a CUDA
 tensor launches the kernel or raises.
+
+``tree_reduce`` is the rack -> root reduction of the aggregation tree
+(DESIGN.md §11) over this kernel: one launch per rack.
 """
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 
@@ -66,3 +71,47 @@ def packet_reduce(packets: torch.Tensor, mask: torch.Tensor, *,
     global LAUNCHES
     LAUNCHES += 1
     return out
+
+
+def tree_reduce(packets: torch.Tensor, mask: torch.Tensor,
+                rack_of: Callable[[int], int], *,
+                compensation: str = "paper") -> torch.Tensor:
+    """Hierarchical (rack -> root) masked reduction, DESIGN.md §11; the
+    counterpart of the JAX package's ``kernels/packet_reduce.py::
+    tree_reduce``, with the same math.
+
+    Each rack's ToR partially reduces its members' delivered packets
+    with ``packet_reduce`` (the kernel on a CUDA tensor); the root
+    combines the partials. ``rack_of`` maps worker w -> rack id. Per rack
+    the kernel's normalisation is undone back to raw masked sums (x rack
+    size for "paper", x per-packet counts for "count"), so the root
+    division is the only lossy float step beyond summation order.
+    Returns (n_packets, payload) float32 equal to the flat
+    ``packet_reduce(packets, mask)`` to float tolerance.
+    """
+    w, n, p = packets.shape
+    racks = {}
+    for f in range(w):
+        racks.setdefault(int(rack_of(f)), []).append(f)
+    dev = packets.device
+    acc = torch.zeros((n, p), dtype=torch.float32, device=dev)
+    cnt = torch.zeros((n, 1), dtype=torch.float32, device=dev)
+    for members in racks.values():
+        if members == list(range(members[0], members[-1] + 1)):
+            # a run of workers: a view, no copy of the packets
+            rows = slice(members[0], members[-1] + 1)
+        else:
+            rows = torch.tensor(members, device=dev)
+        sub_m = mask[rows].to(torch.float32).contiguous()
+        partial = packet_reduce(
+            packets[rows].to(torch.float32).contiguous(), sub_m,
+            compensation=compensation)
+        c = sub_m.sum(dim=0)[:, None]
+        if compensation == "count":
+            acc = acc + partial * torch.clamp(c, min=1.0)
+        else:
+            acc = acc + partial * len(members)
+        cnt = cnt + c
+    if compensation == "count":
+        return acc / torch.clamp(cnt, min=1.0)
+    return acc / w

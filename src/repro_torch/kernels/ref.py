@@ -2,6 +2,7 @@
 the CUDA kernels are held against on the card."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -38,5 +39,11 @@ def packet_reduce_ref(packets: torch.Tensor, mask: torch.Tensor, *,
 
 def randomk_ref(x: torch.Tensor, u: torch.Tensor, k_frac: float
                 ) -> torch.Tensor:
-    """Random-k sparsification: keep where u < k_frac (Random-k [26])."""
-    return torch.where(u < k_frac, x, torch.zeros_like(x))
+    """Random-k sparsification: keep where u < k_frac (Random-k [26]).
+
+    ``k_frac`` is rounded to float32 first, as the JAX kernel and the
+    CUDA kernel compare against it: an element whose ``u`` equals
+    ``float32(k_frac)`` is dropped even where ``k_frac`` rounds down.
+    """
+    k = float(np.float32(k_frac))
+    return torch.where(u < k, x, torch.zeros_like(x))

@@ -20,6 +20,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import dropfill as df_mod
 from repro_torch.kernels import ops
 from repro_torch.kernels import packet_reduce as pr_mod
+from repro_torch.kernels import randomk as rk_mod
 from repro_torch.models import build
 from repro_torch.optim import make_optimizer
 from repro_torch.train import PSTrainer
@@ -113,16 +114,44 @@ def test_wrappers_never_fall_back_off_the_cpu():
         ops.ltp_packet_reduce(x, m)
     with pytest.raises(ValueError, match="CUDA device or on the CPU"):
         ops.ltp_dropfill(x[0], m[0])
+    with pytest.raises(ValueError, match="CUDA device or on the CPU"):
+        ops.randomk_sparsify(x, torch.empty(x.shape, device="meta"), 0.5)
+    with pytest.raises(ValueError, match="CUDA device or on the CPU"):
+        pr_mod.tree_reduce(x, m, lambda f: f // 2)
 
 
 def test_cpu_route_is_not_counted_as_a_launch():
     rng = np.random.default_rng(0)
-    before = (pr_mod.LAUNCHES, df_mod.LAUNCHES)
+    before = (pr_mod.LAUNCHES, df_mod.LAUNCHES, rk_mod.LAUNCHES)
     x = torch.tensor(rng.normal(size=(3, 5, 7)).astype(np.float32))
     m = torch.ones((3, 5))
     ops.ltp_packet_reduce(x, m)
     ops.ltp_dropfill(x[0], m[0])
-    assert (pr_mod.LAUNCHES, df_mod.LAUNCHES) == before
+    ops.randomk_sparsify(x, torch.rand(x.shape), 0.5)
+    pr_mod.tree_reduce(x, m, lambda f: f // 2)
+    assert (pr_mod.LAUNCHES, df_mod.LAUNCHES, rk_mod.LAUNCHES) == before
+
+
+def test_randomk_on_a_cuda_tensor_launches_or_raises(monkeypatch):
+    """Without a card the kernel's loader raises; the wrapper reaches it
+    for any tensor off the CPU and never takes the plain version."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(_build, "_LIB", None)
+    calls = []
+
+    class FakeCuda:
+        """Stands in for a CUDA tensor: only what the wrapper reads."""
+        shape = (8,)
+        dtype = torch.float32
+        device = torch.device("cuda", 0)
+        is_contiguous = staticmethod(lambda: True)
+
+    monkeypatch.setattr(torch, "empty_like",
+                        lambda t: calls.append("empty") or torch.empty(8))
+    before = rk_mod.LAUNCHES
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        rk_mod.randomk(FakeCuda(), FakeCuda(), 0.5)
+    assert calls == ["empty"] and rk_mod.LAUNCHES == before
 
 
 def test_resolve_backend_rules():

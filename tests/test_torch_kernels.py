@@ -7,11 +7,14 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.kernels.packet_reduce import tree_reduce as jtree_reduce
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.packet_reduce import tree_reduce
 
 DROPFILL_SHAPES = [(130, 360), (256, 384), (7, 33), (1000, 128), (1, 1),
                    (513, 129)]
 REDUCE_SHAPES = [(8, 130, 360), (4, 64, 384), (16, 33, 100), (2, 5, 7)]
+RANDOMK_SHAPES = [(1000,), (37, 23), (4096,), (3, 5, 7)]
 
 
 def _dropfill_inputs(n, p, seed=7):
@@ -99,8 +102,8 @@ def test_packet_reduce_rejects_bad_inputs():
 
 @pytest.mark.parametrize("k", [0.0, 0.3, 1.0])
 def test_randomk_ref_matches_jax(k):
-    """randomk has no kernel in the port yet; its plain version is here
-    and agrees with the JAX oracle."""
+    """The plain version of the randomk kernel (the CPU route and the
+    card's oracle) agrees with the JAX package's plain version."""
     from repro.kernels import ref as jref
     rng = np.random.default_rng(11)
     x = rng.normal(size=(37, 23)).astype(np.float32)
@@ -108,3 +111,100 @@ def test_randomk_ref_matches_jax(k):
     want = jref.randomk_ref(jnp.asarray(x), jnp.asarray(u), k)
     got = ref.randomk_ref(torch.tensor(x), torch.tensor(u), k)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _randomk_inputs(shape, seed=3):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=shape).astype(np.float32)
+    u = rng.random(shape).astype(np.float32)
+    return x, u
+
+
+@pytest.mark.parametrize("shape", RANDOMK_SHAPES)
+@pytest.mark.parametrize("k", [0.0, 0.3, 1.0])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_randomk_sparsify_matches_pallas(shape, k, dtype):
+    """ops.randomk_sparsify (the kernel's plain route here) against the
+    JAX wrapper over the Pallas kernel in interpret mode, on the sweep of
+    tests/test_kernels.py::test_randomk. A select does no arithmetic, so
+    both dtypes agree exactly."""
+    x, u = _randomk_inputs(shape)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    want = jops.randomk_sparsify(jnp.asarray(x).astype(jdt), jnp.asarray(u),
+                                 k)
+    got = ops.randomk_sparsify(torch.tensor(x).to(tdt), torch.tensor(u), k)
+    assert got.dtype == tdt and tuple(got.shape) == shape
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want, np.float32))
+
+
+def test_randomk_sparsify_float16_goes_through_f32():
+    x, u = _randomk_inputs((9, 10))
+    xh = torch.tensor(x).to(torch.float16)
+    out = ops.randomk_sparsify(xh, torch.tensor(u), 0.3)
+    assert out.dtype == torch.float16
+    want = jops.randomk_sparsify(jnp.asarray(x).astype(jnp.float16),
+                                 jnp.asarray(u), 0.3)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(want))
+
+
+def test_randomk_compares_k_as_float32():
+    """0.7 rounds down to float32: an element whose u equals
+    float32(0.7) lies below 0.7 in double, yet the JAX kernel drops it,
+    and so must the port."""
+    k = 0.7
+    assert float(np.float32(k)) < k
+    x, u = _randomk_inputs((64,))
+    u[::3] = np.float32(k)
+    want = np.asarray(jops.randomk_sparsify(jnp.asarray(x), jnp.asarray(u),
+                                            k))
+    got = ops.randomk_sparsify(torch.tensor(x), torch.tensor(u), k).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert np.all(got[::3] == 0) and np.any(got != 0)
+
+
+def test_randomk_rejects_bad_inputs():
+    with pytest.raises(ValueError, match="elements"):
+        ops.randomk_sparsify(torch.zeros(6), torch.zeros(5), 0.5)
+    from repro_torch.kernels.randomk import randomk
+    with pytest.raises(ValueError, match="one shape"):
+        randomk(torch.zeros(2, 3), torch.zeros(6), 0.5)
+
+
+@pytest.mark.parametrize("comp", ["paper", "count"])
+@pytest.mark.parametrize("racks", ["pairs", "five_three"])
+def test_tree_reduce_matches_pallas(comp, racks):
+    """tree_reduce against the JAX tree_reduce over the Pallas kernel in
+    interpret mode, on the rack layouts of tests/test_aggtree.py: four
+    racks of two, and an unbalanced 5 + 3 split."""
+    rack_of = ((lambda f: f // 2) if racks == "pairs"
+               else (lambda f: 0 if f < 5 else 1))
+    rng = np.random.default_rng(5 if racks == "pairs" else 6)
+    w, n, p = 8, 128, 128
+    pkts = rng.normal(size=(w, n, p)).astype(np.float32)
+    mask = (rng.random((w, n)) > 0.3).astype(np.float32)
+    want = jtree_reduce(jnp.asarray(pkts), jnp.asarray(mask), rack_of,
+                        compensation=comp)
+    got = tree_reduce(torch.tensor(pkts), torch.tensor(mask), rack_of,
+                      compensation=comp)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (n, p)
+    # per-rack sums, un-normalised and summed again, in another order
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)
+    flat = ref.packet_reduce_ref(torch.tensor(pkts), torch.tensor(mask),
+                                 compensation=comp)
+    np.testing.assert_allclose(got.numpy(), flat.numpy(), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_tree_reduce_ragged_and_interleaved_racks():
+    """Ragged shapes the TPU kernel would pad, and racks whose members are
+    not a run of workers (a gathered copy, not a view)."""
+    rng = np.random.default_rng(9)
+    pkts = torch.tensor(rng.normal(size=(6, 33, 100)).astype(np.float32))
+    mask = torch.tensor((rng.random((6, 33)) > 0.4).astype(np.float32))
+    for comp in ("paper", "count"):
+        got = tree_reduce(pkts, mask, lambda f: f % 3, compensation=comp)
+        want = ref.packet_reduce_ref(pkts, mask, compensation=comp)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
