@@ -13,11 +13,16 @@ From the root of a checkout it:
    it and at ragged, misaligned and bfloat16 inputs that reach each
    branch of each kernel, and times the kernel, the plain version and
    one PyTorch library call that computes the same function (CUDA
-   events, L2 flushed before every launch);
-3. holds ``tree_reduce`` (the rack -> root reduction over the
-   packet_reduce kernel) against the flat reduction at the main path's
-   packet stream, for 4 racks of 2 and a 5 + 3 split, and checks one
-   kernel launch per rack;
+   events around 40 back-to-back calls over copies of the inputs that
+   exceed the L2); packet_reduce is also timed
+   at (32, 1934, 360), where the memory rate outweighs the fixed cost;
+3. holds ``tree_reduce`` (the rack -> root reduction, one kernel) against
+   its plain version and the flat reduction at the main path's packet
+   stream, for 4 racks of 2, a 5 + 3 split and interleaved racks, and at
+   a misaligned ragged stream, checks one tree_reduce launch and no
+   packet_reduce launch per call, and times it beside packet_reduce. No
+   training path calls tree_reduce: its launches in the ``kernels`` line
+   are these check calls, and say so;
 4. drives the LTP path through the user's entry points: full-width
    papernet (configs/papernet.py) trained by 8 workers and one PS over
    the LTP path, 5 steps, three times — kernels with paper
@@ -52,9 +57,13 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
-N_TIMED = 50
+L2_BYTES = 50 * 2**20          # H100 SXM L2 cache
+SM_HZ = 1.98e9                 # H100 SXM boost clock, to size the spin
+N_TIMED = 40                   # back-to-back calls a timed run
+N_RUNS = 5                     # timed runs; their median is reported
 
 
 def fail(msg: str) -> int:
@@ -63,31 +72,59 @@ def fail(msg: str) -> int:
 
 
 class Timer:
-    """Median time of one call, by CUDA events, over ``N_TIMED`` calls
-    each made with a cold L2 (a 256 MiB buffer is written before it).
-    A spin kernel after the flush keeps the card busy while the host
-    enqueues the call, so the events time the device work and not the
-    host's launch path."""
+    """Time of one call on the card: CUDA events around ``N_TIMED``
+    back-to-back calls, divided by the count; the median of ``N_RUNS``
+    such runs. The calls rotate over copies of their inputs that together
+    hold more than twice the L2, so each call finds its inputs evicted,
+    as a caller does whose data was written long before. A spin kernel
+    ahead of the first event holds the card while the host enqueues the
+    run, so the events time the device and not the host's launch path. A
+    run whose first event had passed before the host finished enqueueing
+    (a call of many small kernels fills the launch queue) is taken again
+    with half the calls."""
 
     def __init__(self, torch):
         self.torch = torch
-        self.flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
 
-    def ms(self, fn, n: int = N_TIMED, warmup: int = 5) -> float:
+    def copies(self, *args) -> list:
+        """The argument tuple and enough copies of its tensors (``clone``:
+        contiguous and 16-byte aligned) to exceed twice the L2."""
         torch = self.torch
-        pairs = []
-        for i in range(n + warmup):
-            self.flush.zero_()
-            torch.cuda._sleep(1_000_000)    # ~0.5 ms at H100 clocks
+        n_bytes = sum(a.numel() * a.element_size() for a in args
+                      if isinstance(a, torch.Tensor))
+        k = max(2, 1 + math.ceil(2 * L2_BYTES / max(n_bytes, 1)))
+        return [args] + [tuple(a.clone() if isinstance(a, torch.Tensor)
+                               else a for a in args) for _ in range(k - 1)]
+
+    def ms(self, fn, inputs: list) -> float:
+        """Median ms of ``fn(*inputs[i % len(inputs)])``."""
+        torch = self.torch
+        fn(*inputs[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(N_TIMED):
+            fn(*inputs[i % len(inputs)])
+        host_s_per_call = (time.perf_counter() - t0) / N_TIMED
+        torch.cuda.synchronize()
+        n, runs = N_TIMED, []
+        for _ in range(N_RUNS + 12):
+            torch.cuda._sleep(int(2 * n * host_s_per_call * SM_HZ) + 200_000)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            fn()
+            for i in range(n):
+                fn(*inputs[i % len(inputs)])
             end.record()
-            if i >= warmup:
-                pairs.append((start, end))
-        torch.cuda.synchronize()
-        return statistics.median(s.elapsed_time(e) for s, e in pairs)
+            late = start.query()
+            torch.cuda.synchronize()
+            if late:
+                n = max(1, n // 2)
+                continue
+            runs.append(start.elapsed_time(end) / n)
+            if len(runs) == N_RUNS:
+                return statistics.median(runs)
+        raise RuntimeError("the host could not enqueue a timed run ahead of "
+                           "the card")
 
 
 def bound(n_bytes: int, n_ops: int):
@@ -98,6 +135,14 @@ def bound(n_bytes: int, n_ops: int):
     by_ops = n_ops / F32_FLOPS_PER_S * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
                                    else "operations")
+
+
+def reduce_cost(w: int, n: int, p: int):
+    """Bytes and float32 operations of a masked W-worker reduction of
+    (W, n, p) packets: each packet and mask element read once, each
+    output written once; a multiply and an add per packet element and a
+    divide per output."""
+    return 4 * (w * n * p + w * n + n * p), 2 * w * n * p + n * p
 
 
 def check_kernels(torch, timer):
@@ -123,19 +168,23 @@ def check_kernels(torch, timer):
                                  t.data_ptr() % 16 == 0 for t in tensors)
         return "x4" if vec else "scalar"
 
-    def record(name, shape, comp, path, err, tol, fn, plain, library,
+    def record(name, shape, comp, path, err, tol, args, fn, plain, library,
                n_bytes, n_ops, main):
-        """One checked case; ``main`` ones are also timed, with their
-        bound the larger of bytes over the memory rate and operations
-        over the float32 rate (bytes bind for all three kernels)."""
+        """One checked case; ``main`` ones are also timed, ``fn``,
+        ``plain`` and ``library`` each called on copies of ``args``, with
+        their bound the larger of bytes over the memory rate and
+        operations over the float32 rate (bytes bind for all three
+        kernels)."""
         ok = err <= tol
         row = {"name": name, "shape": list(shape), "mode": comp,
                "branch": path, "max_abs_err": err, "tol": tol, "ok": ok}
         if main:
             bound_ms, bound_by = bound(n_bytes, n_ops)
+            inputs = timer.copies(*args)
             row.update(
-                ms=timer.ms(fn), plain_ms=timer.ms(plain),
-                library_ms=None if library is None else timer.ms(library),
+                ms=timer.ms(fn, inputs), plain_ms=timer.ms(plain, inputs),
+                library_ms=(None if library is None
+                            else timer.ms(library, inputs)),
                 bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes)
         checks.append(row)
         if not ok:
@@ -145,33 +194,41 @@ def check_kernels(torch, timer):
 
     # packet_reduce: the W loop sums in another order than torch.sum, so
     # the two agree to float32 rounding of a sum of W terms of size ~1.
-    # (W, n, p), offset of the packets in floats, main-path shape or not:
-    # the main shape and a ragged one take the x4 branch; a payload that
-    # is not a multiple of 4, and a misaligned stream, take the scalar one
-    for (w, n, p), off, main in (((8, 1934, 360), 0, True),
-                                 ((16, 33, 100), 0, False),
-                                 ((8, 130, 361), 0, False),
-                                 ((2, 5, 7), 0, False),
-                                 ((4, 64, 360), 1, False)):
+    # (W, n, p), offset of the packets in floats, main-path shape or not,
+    # timed or not: the main shape and a ragged one take the x4 branch
+    # with W unrolled, W = 6 the x4 branch's worker loop; a payload that
+    # is not a multiple of 4, and a misaligned stream, take the scalar
+    # one. (32, 1934, 360) is timed to tell the memory rate from the
+    # fixed cost, and is not listed.
+    for (w, n, p), off, main, timed in (
+            ((8, 1934, 360), 0, True, True),
+            ((16, 33, 100), 0, False, False),
+            ((6, 33, 100), 0, False, False),
+            ((8, 130, 361), 0, False, False),
+            ((2, 5, 7), 0, False, False),
+            ((4, 64, 360), 1, False, False),
+            ((32, 1934, 360), 0, False, True)):
         x = randn_at((w, n, p), off)
         m = (torch.rand(w, n, device="cuda", generator=gen) < 0.8).float()
         path = branch(p, x)
+        if path == "x4":
+            path += (" unrolled" if w in (2, 4, 8, 16, 32) else " loop")
         for comp in ("paper", "count"):
             got = ops.ltp_packet_reduce(x, m, compensation=comp)
             want = ref.packet_reduce_ref(x, m, compensation=comp)
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
-            lib = ((lambda: torch.einsum("wnp,wn->np", x, m) / w)
+            lib = ((lambda a, b: torch.einsum("wnp,wn->np", a, b) / w)
                    if comp == "paper" else None)
             row = record(
-                "packet_reduce", (w, n, p), comp, path, err, 1e-5,
-                lambda: ops.ltp_packet_reduce(x, m, compensation=comp),
-                lambda: ref.packet_reduce_ref(x, m, compensation=comp),
-                lib, 4 * (w * n * p + w * n + n * p), 2 * w * n * p + n * p,
-                main and comp == "paper")
+                "packet_reduce", (w, n, p), comp, path, err, 1e-5, (x, m),
+                lambda a, b: ops.ltp_packet_reduce(a, b, compensation=comp),
+                lambda a, b: ref.packet_reduce_ref(a, b, compensation=comp),
+                lib, *reduce_cost(w, n, p), timed and comp == "paper")
             if main and comp == "paper":
                 entries["packet_reduce"] = row
-    if {r["branch"] for r in checks} != {"x4", "scalar"}:
+    if {r["branch"] for r in checks} != {"x4 unrolled", "x4 loop",
+                                         "scalar"}:
         raise AssertionError("packet_reduce cases missed a kernel branch")
 
     # dropfill: the gate is the same float32 product in both, so float32
@@ -204,9 +261,10 @@ def check_kernels(torch, timer):
         es = x.element_size()
         row = record(
             "dropfill", (n, p), str(dt).replace("torch.", ""), path, err,
-            tol, lambda: ops.ltp_dropfill(x, m, s),
-            lambda: ref.dropfill_ref(x, m, ones_or_s),
-            lambda: torch.mul(x, m[:, None]),
+            tol, (x, m, s, ones_or_s),
+            lambda a, b, c, _: ops.ltp_dropfill(a, b, c),
+            lambda a, b, _, d: ref.dropfill_ref(a, b, d),
+            lambda a, b, c, _: torch.mul(a, b[:, None]),
             2 * n * p * es + n * 4 * (1 if s is None else 2), n * p, main)
         if main:
             entries["dropfill"] = row
@@ -236,10 +294,10 @@ def check_kernels(torch, timer):
             es = x.element_size()
             row = record(
                 "randomk", shape, f"{str(dt).replace('torch.', '')} k={k}",
-                path, err, 0.0,
-                lambda: ops.randomk_sparsify(x, u, 0.1),
-                lambda: ref.randomk_ref(x, u, 0.1),
-                lambda: torch.where(u < 0.1, x, 0.0),
+                path, err, 0.0, (x, u),
+                lambda a, b: ops.randomk_sparsify(a, b, 0.1),
+                lambda a, b: ref.randomk_ref(a, b, 0.1),
+                lambda a, b: torch.where(b < 0.1, a, 0.0),
                 n * (2 * es + 4), n, main and k == 0.1)
             if main and k == 0.1:
                 entries["randomk"] = row
@@ -249,46 +307,78 @@ def check_kernels(torch, timer):
 
 
 def check_tree_reduce(torch, timer):
-    """tree_reduce over the packet_reduce kernel at the main path's
-    packet stream against the flat plain reduction; one launch a rack.
-    Returns the checked cases and the timed entry (4 racks, paper)."""
+    """tree_reduce, one kernel launch a call and no packet_reduce launch,
+    against its plain version (``ref.tree_reduce_ref``, the JAX order) and
+    against the flat plain reduction, on the main path's packet stream in
+    three rack layouts and on a misaligned ragged stream (scalar branch).
+    Both agree within 1e-5 abs: FMA contraction, and sums of 8 unit-normal
+    terms taken in another order. Returns the checked cases, the timed
+    entry (4 racks of 2, paper) and the tree_reduce launches of the
+    checks."""
     from repro_torch.kernels import packet_reduce as pr_mod
     from repro_torch.kernels import ref
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    w, n, p = 8, 1934, 360
-    x = torch.randn(w, n, p, device="cuda", generator=gen)
-    m = (torch.rand(w, n, device="cuda", generator=gen) < 0.8).float()
-    layouts = {"4x2": (lambda f: f // 2, 4),
-               "5+3": (lambda f: 0 if f < 5 else 1, 2)}
-    rows = []
-    for label, (rack_of, n_racks) in layouts.items():
+
+    def stream(w, n, p, off):
+        buf = torch.randn(w * n * p + off, device="cuda", generator=gen)
+        m = (torch.rand(w, n, device="cuda", generator=gen) < 0.8).float()
+        return buf[off:].view(w, n, p), m
+
+    main_x, main_m = stream(8, 1934, 360, 0)
+    cases = (("4x2", lambda f: f // 2, main_x, main_m, "x4"),
+             ("5+3", lambda f: 0 if f < 5 else 1, main_x, main_m, "x4"),
+             ("f%3", lambda f: f % 3, main_x, main_m, "x4"),
+             ("f%3", lambda f: f % 3, *stream(6, 33, 100, 1), "scalar"))
+    rows, n_launches = [], 0
+    for label, rack_of, x, m, path in cases:
+        if (x.data_ptr() % 16 == 0) != (path == "x4"):
+            raise AssertionError(f"tree_reduce {label}: not the {path} "
+                                 f"branch")
+        members, rack_ptr = pr_mod.rack_groups(rack_of, x.shape[0])
         for comp in ("paper", "count"):
-            pr_mod.LAUNCHES = 0
+            pr_mod.LAUNCHES = pr_mod.TREE_LAUNCHES = 0
             got = pr_mod.tree_reduce(x, m, rack_of, compensation=comp)
-            launches = pr_mod.LAUNCHES
-            want = ref.packet_reduce_ref(x, m, compensation=comp)
+            launches = {"tree_reduce": pr_mod.TREE_LAUNCHES,
+                        "packet_reduce": pr_mod.LAUNCHES}
+            n_launches += pr_mod.TREE_LAUNCHES
+            plain = ref.tree_reduce_ref(
+                x, m, torch.tensor(members), torch.tensor(rack_ptr),
+                compensation=comp)
+            flat = ref.packet_reduce_ref(x, m, compensation=comp)
             torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            row = {"name": "tree_reduce", "shape": [w, n, p], "racks": label,
-                   "mode": comp, "launches": launches, "max_abs_err": err,
-                   "tol": 1e-5}
+            err = (got - plain).abs().max().item()
+            err_flat = (got - flat).abs().max().item()
+            row = {"name": "tree_reduce", "shape": list(x.shape),
+                   "racks": label, "branch": path, "mode": comp,
+                   "launches": launches, "max_abs_err": err,
+                   "max_abs_err_flat": err_flat, "tol": 1e-5}
             rows.append(row)
-            if launches != n_racks or not err <= 1e-5:
+            if launches != {"tree_reduce": 1, "packet_reduce": 0} or \
+                    not max(err, err_flat) <= 1e-5:
                 raise AssertionError(f"tree_reduce {label} {comp}: {row}")
-    # timed as the flat reduction is bounded: the same function of the
-    # same inputs; the plain version is the flat plain reduction
-    rack_of = layouts["4x2"][0]
-    bound_ms, bound_by = bound(4 * (w * n * p + w * n + n * p),
-                               2 * w * n * p + n * p)
+    # the paper-mode 4x2 case on the main stream is the timed one
+    w, n, p = main_x.shape
+    x, m = main_x, main_m
+    rack_of = cases[0][1]
+    members, rack_ptr = pr_mod.rack_groups(rack_of, w)
+    mem_t, ptr_t = torch.tensor(members), torch.tensor(rack_ptr)
+    bound_ms, bound_by = bound(*reduce_cost(w, n, p))
+    inputs = timer.copies(x, m)
     timed = {"name": "tree_reduce", "shape": [w, n, p], "racks": "4x2",
-             "mode": "paper", "launches_per_call": 4,
-             "ms": timer.ms(lambda: pr_mod.tree_reduce(x, m, rack_of)),
-             "plain_ms": timer.ms(lambda: ref.packet_reduce_ref(x, m)),
+             "mode": "paper", "launches_per_call": 1,
+             "max_abs_err": rows[0]["max_abs_err"],
+             "ms": timer.ms(lambda a, b: pr_mod.tree_reduce(a, b, rack_of),
+                            inputs),
+             "packet_reduce_ms": timer.ms(
+                 lambda a, b: pr_mod.packet_reduce(a, b), inputs),
+             "plain_ms": timer.ms(
+                 lambda a, b: ref.tree_reduce_ref(a, b, mem_t, ptr_t),
+                 inputs),
              "library_ms": timer.ms(
-                 lambda: torch.einsum("wnp,wn->np", x, m) / w),
+                 lambda a, b: torch.einsum("wnp,wn->np", a, b) / w, inputs),
              "bound_ms": bound_ms, "bound_by": bound_by}
-    return rows, timed
+    return rows, timed, n_launches
 
 
 def run_main_path(torch, sync_backend: str, **ltp_kw):
@@ -339,8 +429,9 @@ def run_fig5(torch, kind: str, backend: str):
 def profile_step(torch, tr, batch):
     """One more training step under ``torch.profiler``: the step's host
     time, the device's busy time (union of kernel intervals), its idle
-    share, and device time by kernel name. Profiling slows the host, so
-    the wall time here is not the step time reported elsewhere."""
+    share, device time by kernel name, and the port's kernels' own device
+    time in the step. Profiling slows the host, so the wall time here is
+    not the step time reported elsewhere."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -367,10 +458,15 @@ def profile_step(torch, tr, batch):
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    # the port's own kernels, timed inside the step
+    ours = {name[:80]: us / 1e3 for name, us in by_name.items()
+            if any(f"(anonymous namespace)::{k}" in name
+                   for k in ("reduce_kernel<", "dropfill", "randomk"))}
     return {"wall_ms": wall_us / 1e3, "n_kernels": len(kernels),
             "device_busy_ms": busy_us / 1e3,
             "idle_share": (1.0 - busy_us / wall_us) if kernels else None,
-            "top_kernels_ms": [[name[:80], us / 1e3] for name, us in top]}
+            "top_kernels_ms": [[name[:80], us / 1e3] for name, us in top],
+            "port_kernels_ms": ours}
 
 
 def main() -> int:
@@ -408,20 +504,26 @@ def main() -> int:
     timer = Timer(torch)
     checks, entries = check_kernels(torch, timer)
     print("kernel_checks " + json.dumps(checks))
-    tree_checks, tree_timed = check_tree_reduce(torch, timer)
+    tree_checks, tree_timed, tree_check_launches = check_tree_reduce(
+        torch, timer)
     print("tree_reduce_checks " + json.dumps(tree_checks))
     print("tree_reduce " + json.dumps(tree_timed))
-    del timer
 
-    counters = {"packet_reduce": pr_mod, "dropfill": df_mod,
-                "randomk": rk_mod}
+    counters = {"packet_reduce": (pr_mod, "LAUNCHES"),
+                "tree_reduce": (pr_mod, "TREE_LAUNCHES"),
+                "dropfill": (df_mod, "LAUNCHES"),
+                "randomk": (rk_mod, "LAUNCHES")}
 
     def zero_counts():
-        for mod in counters.values():
-            mod.LAUNCHES = 0
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
 
     def read_counts():
-        return {name: mod.LAUNCHES for name, mod in counters.items()}
+        return {name: getattr(mod, attr)
+                for name, (mod, attr) in counters.items()}
+
+    def launches_of(**counts):
+        return {name: counts.get(name, 0) for name in counters}
 
     # the LTP path: counts zeroed just before each run, read just after
     runs = {}
@@ -442,12 +544,10 @@ def main() -> int:
               f"history {json.dumps(tr.history)}")
 
     steps = 5
-    expect = {"cuda_paper": {"packet_reduce": steps, "dropfill": 0,
-                             "randomk": 0},
-              "cuda_count_ef": {"packet_reduce": steps, "dropfill": steps,
-                                "randomk": 0},
-              "python_count_ef": {"packet_reduce": 0, "dropfill": 0,
-                                  "randomk": 0}}
+    expect = {"cuda_paper": launches_of(packet_reduce=steps),
+              "cuda_count_ef": launches_of(packet_reduce=steps,
+                                           dropfill=steps),
+              "python_count_ef": launches_of()}
     for label, (tr, _, launches) in runs.items():
         if launches != expect[label]:
             raise AssertionError(f"{label}: launches {launches}, expected "
@@ -496,8 +596,7 @@ def main() -> int:
             "loss": [h["loss"] for h in hist],
             "density": [h["density"] for h in hist],
             "kept": [h["kept"] for h in hist]}
-        want = {"packet_reduce": 0, "dropfill": 0,
-                "randomk": steps if label == "randomk_cuda" else 0}
+        want = launches_of(randomk=steps if label == "randomk_cuda" else 0)
         if launches != want:
             raise AssertionError(f"fig5 {label}: launches {launches}, "
                                  f"expected {want}")
@@ -525,21 +624,29 @@ def main() -> int:
     print(f"fig5 params, randomk kernel vs plain route after {steps} steps: "
           f"max abs diff {worst_rk:.3e} (rtol 2e-4, atol 2e-5)")
 
+    # tree_reduce is on no training path: its count is the check calls'
     main_launches = {
         name: sum(r[2][name] for r in runs.values())
         + sum(r["launches"][name] for r in fig5.values())
         for name in counters}
+    if main_launches["tree_reduce"] != 0:
+        raise AssertionError("a training path launched tree_reduce")
+    main_launches["tree_reduce"] = tree_check_launches
     src_file = "src/repro_torch/kernels/csrc/ltp_kernels.cu"
     replaces = {"packet_reduce": "src/repro/kernels/packet_reduce.py:56",
+                "tree_reduce": "src/repro/kernels/packet_reduce.py:69",
                 "dropfill": "src/repro/kernels/dropfill.py:42",
                 "randomk": "src/repro/kernels/randomk.py:36"}
+    entries["tree_reduce"] = tree_timed
     line = []
-    for name in ("packet_reduce", "dropfill", "randomk"):
+    for name in counters:
         e = entries[name]
         line.append({
             "name": name, "route": "cuda", "source": src_file,
             "replaces": replaces[name], "shape": e["shape"],
             "launches": main_launches[name],
+            "launches_from": ("check calls: no training path calls it"
+                              if name == "tree_reduce" else "main paths"),
             "max_abs_err": e["max_abs_err"],
             "ms": e["ms"], "plain_ms": e["plain_ms"],
             "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],

@@ -1,11 +1,11 @@
 """Hand-written Hopper kernels for the LTP-sync hot loops and the
 Random-k compression baseline.
 
-  csrc/ltp_kernels.cu  the CUDA C++ sources (packet_reduce, dropfill,
-                       randomk)
+  csrc/ltp_kernels.cu  the CUDA C++ sources (packet_reduce, tree_reduce,
+                       dropfill, randomk)
   _build.py            nvcc build into a git-ignored directory + ctypes load
   packet_reduce.py     PS-side masked multi-worker reduce (wrapper), and
-                       tree_reduce, the rack -> root reduction over it
+                       tree_reduce, the rack -> root reduction (wrapper)
   dropfill.py          bubble-fill + compensation gate (wrapper)
   randomk.py           Random-k select over streamed uniforms (wrapper)
   ops.py               dtype-normalising public wrappers

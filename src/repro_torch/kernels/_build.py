@@ -100,6 +100,9 @@ def load() -> ctypes.CDLL:
     cf = ctypes.c_float
     lib.ltp_packet_reduce.argtypes = [vp, vp, vp, ci, ll, ll, ci, vp]
     lib.ltp_packet_reduce.restype = ci
+    lib.ltp_tree_reduce.argtypes = [vp, vp, vp, vp, vp, ci, ci, ll, ll, ci,
+                                    vp]
+    lib.ltp_tree_reduce.restype = ci
     lib.ltp_dropfill.argtypes = [vp, vp, vp, vp, ll, ll, ci, vp]
     lib.ltp_dropfill.restype = ci
     lib.ltp_randomk.argtypes = [vp, vp, cf, vp, ll, ci, vp]

@@ -37,6 +37,36 @@ def packet_reduce_ref(packets: torch.Tensor, mask: torch.Tensor, *,
     return tot / w
 
 
+def tree_reduce_ref(packets: torch.Tensor, mask: torch.Tensor,
+                    members: torch.Tensor, rack_ptr: torch.Tensor, *,
+                    compensation: str = "paper") -> torch.Tensor:
+    """Rack -> root masked aggregation, in the JAX ``tree_reduce``'s
+    order: per rack r (members ``members[rack_ptr[r]:rack_ptr[r+1]]``,
+    summed in that order) s_r = sum g*m and c_r = sum m; the rack's
+    normalisation is undone, ``acc += (s_r / k) * k`` with k the rack
+    size ("paper") or max(c_r, 1) ("count"); then acc / W or
+    acc / max(sum_r c_r, 1). Returns (n_packets, payload) float32.
+    """
+    w, n, p = packets.shape
+    g, m = packets.float(), mask.float()
+    mem, ptr = members.tolist(), rack_ptr.tolist()
+    acc = torch.zeros((n, p), dtype=torch.float32, device=packets.device)
+    cnt = torch.zeros((n, 1), dtype=torch.float32, device=packets.device)
+    for r in range(len(ptr) - 1):
+        s = torch.zeros_like(acc)
+        c = torch.zeros_like(cnt)
+        for f in mem[ptr[r]:ptr[r + 1]]:
+            s = s + g[f] * m[f][:, None]
+            c = c + m[f][:, None]
+        k = (torch.clamp(c, min=1.0) if compensation == "count"
+             else float(ptr[r + 1] - ptr[r]))
+        acc = acc + (s / k) * k
+        cnt = cnt + c
+    if compensation == "count":
+        return acc / torch.clamp(cnt, min=1.0)
+    return acc / w
+
+
 def randomk_ref(x: torch.Tensor, u: torch.Tensor, k_frac: float
                 ) -> torch.Tensor:
     """Random-k sparsification: keep where u < k_frac (Random-k [26]).

@@ -120,16 +120,31 @@ def test_wrappers_never_fall_back_off_the_cpu():
         pr_mod.tree_reduce(x, m, lambda f: f // 2)
 
 
-def test_cpu_route_is_not_counted_as_a_launch():
+def test_cpu_route_is_not_counted_as_a_launch(monkeypatch):
+    """CPU tensors take the plain versions: the kernel library is never
+    loaded and no launch counter moves, tree_reduce's included (also at a
+    ragged stream with rack ids first met out of order)."""
+    def no_load():
+        raise AssertionError("the CPU route loaded the kernels")
+
+    def counts():
+        return (pr_mod.LAUNCHES, pr_mod.TREE_LAUNCHES, df_mod.LAUNCHES,
+                rk_mod.LAUNCHES)
+
+    monkeypatch.setattr(_build, "load", no_load)
     rng = np.random.default_rng(0)
-    before = (pr_mod.LAUNCHES, df_mod.LAUNCHES, rk_mod.LAUNCHES)
+    before = counts()
     x = torch.tensor(rng.normal(size=(3, 5, 7)).astype(np.float32))
     m = torch.ones((3, 5))
     ops.ltp_packet_reduce(x, m)
     ops.ltp_dropfill(x[0], m[0])
     ops.randomk_sparsify(x, torch.rand(x.shape), 0.5)
     pr_mod.tree_reduce(x, m, lambda f: f // 2)
-    assert (pr_mod.LAUNCHES, df_mod.LAUNCHES, rk_mod.LAUNCHES) == before
+    x = torch.tensor(rng.normal(size=(6, 33, 100)).astype(np.float32))
+    m = torch.tensor((rng.random((6, 33)) > 0.4).astype(np.float32))
+    for comp in ("paper", "count"):
+        pr_mod.tree_reduce(x, m, lambda f: (f * 5) % 3, compensation=comp)
+    assert counts() == before
 
 
 def test_randomk_on_a_cuda_tensor_launches_or_raises(monkeypatch):
@@ -152,6 +167,42 @@ def test_randomk_on_a_cuda_tensor_launches_or_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA device"):
         rk_mod.randomk(FakeCuda(), FakeCuda(), 0.5)
     assert calls == ["empty"] and rk_mod.LAUNCHES == before
+
+
+def test_tree_reduce_on_a_cuda_tensor_launches_or_raises(monkeypatch):
+    """tree_reduce on tensors off the CPU reaches the kernel's loader
+    (which raises without a card) and never the plain version."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(_build, "_LIB", None)
+    calls = []
+
+    class FakeCuda:
+        """Stands in for a CUDA tensor: only what the wrapper reads."""
+        device = torch.device("cuda", 0)
+
+        def __init__(self, *shape):
+            self.shape = torch.Size(shape)
+
+        def dim(self):
+            return len(self.shape)
+
+        def to(self, dtype):
+            return self
+
+        def contiguous(self):
+            return self
+
+    monkeypatch.setattr(torch, "empty",
+                        lambda *a, **k: calls.append("empty") or
+                        torch.zeros(3, 4))
+    monkeypatch.setattr(pr_mod, "tree_reduce_ref",
+                        lambda *a, **k: calls.append("plain"))
+    before = (pr_mod.LAUNCHES, pr_mod.TREE_LAUNCHES)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        pr_mod.tree_reduce(FakeCuda(2, 3, 4), FakeCuda(2, 3),
+                           lambda f: f // 2)
+    assert calls == ["empty"]
+    assert (pr_mod.LAUNCHES, pr_mod.TREE_LAUNCHES) == before
 
 
 def test_resolve_backend_rules():

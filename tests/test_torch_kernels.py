@@ -208,3 +208,59 @@ def test_tree_reduce_ragged_and_interleaved_racks():
         got = tree_reduce(pkts, mask, lambda f: f % 3, compensation=comp)
         want = ref.packet_reduce_ref(pkts, mask, compensation=comp)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+# rack layouts beyond tests/test_aggtree.py's: (W, rack_of)
+TREE_LAYOUTS = {
+    "w16_unbalanced": (16, lambda f: 0 if f < 9 else (1 if f < 12 else 2)),
+    "rack_of_one": (8, lambda f: 0 if f < 7 else 1),
+    "ids_out_of_order": (8, lambda f: (f * 5) % 3),
+    "racks_of_one": (8, lambda f: 7 - f),
+}
+
+
+@pytest.mark.parametrize("comp", ["paper", "count"])
+@pytest.mark.parametrize("layout", sorted(TREE_LAYOUTS))
+def test_tree_reduce_layouts_match_pallas(comp, layout):
+    """tree_reduce (its plain route here, ``ref.tree_reduce_ref`` over
+    the grouping the kernel is given) against the JAX tree_reduce over the
+    Pallas kernel in interpret mode: 16 workers in racks of 9 + 3 + 4, a
+    rack of one, rack ids first met out of order (0, 2, 1), and W racks
+    of one."""
+    w, rack_of = TREE_LAYOUTS[layout]
+    rng = np.random.default_rng(w + len(layout))
+    n, p = 128, 128
+    pkts = rng.normal(size=(w, n, p)).astype(np.float32)
+    mask = (rng.random((w, n)) > 0.3).astype(np.float32)
+    want = jtree_reduce(jnp.asarray(pkts), jnp.asarray(mask), rack_of,
+                        compensation=comp)
+    got = tree_reduce(torch.tensor(pkts), torch.tensor(mask), rack_of,
+                      compensation=comp)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (n, p)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("layout", sorted(TREE_LAYOUTS))
+def test_rack_groups_follow_jax_order(layout, monkeypatch):
+    """The ``members`` / ``rack_ptr`` handed to the kernel list the racks
+    and their members in the order the JAX tree_reduce reduces them,
+    read off the slices it passes to its per-rack packet_reduce."""
+    from repro.kernels import packet_reduce as jpr
+    from repro_torch.kernels.packet_reduce import rack_groups
+
+    w, rack_of = TREE_LAYOUTS[layout]
+    seen = []
+
+    def spy(sub_p, sub_m, **kw):
+        seen.append([int(v) for v in np.asarray(sub_p)[:, 0, 0]])
+        return jnp.zeros(sub_p.shape[1:], jnp.float32)
+
+    monkeypatch.setattr(jpr, "packet_reduce", spy)
+    ids = jnp.broadcast_to(jnp.arange(w, dtype=jnp.float32)[:, None, None],
+                           (w, 2, 4))
+    jpr.tree_reduce(ids, jnp.ones((w, 2)), rack_of)
+    members, rack_ptr = rack_groups(rack_of, w)
+    assert [members[a:b] for a, b in zip(rack_ptr, rack_ptr[1:])] == seen
+    assert sorted(members) == list(range(w)) and rack_ptr[-1] == w
+
