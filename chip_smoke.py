@@ -37,7 +37,10 @@ From the root of a checkout it:
    the card, and Top-k at k = 0.1; checks one randomk
    launch per step of the kernel run and none elsewhere, equal kept
    counts and matching params between the two Random-k runs, densities
-   within 0.01 of k, and finite losses;
+   within 0.01 of k, and finite losses; then profiles the second step of
+   a 2-step Random-k run (``profile fig5_randomk`` line: idle share, the
+   randomk kernel's device time in the step beside that of the select's
+   other ops), which must hold one randomk launch;
 6. prints a ``kernels`` JSON line and, last, the device JSON line.
 
 TF32 is switched off for cuDNN convolutions and matmuls for the whole
@@ -273,11 +276,20 @@ def check_kernels(torch, timer):
 
     # randomk: a select, so every case agrees exactly. (n,) or shape,
     # dtype, offset in floats, main-path or not: the Fig 5 path's flat
-    # gradient (x4 with a 2-element tail), a multiple of 4, a misaligned
-    # stream (scalar) and bf16 (always one element a thread)
+    # gradient (x4, 680 blocks, a 2-element tail); lengths 1, 3 and 5 (the
+    # tail alone, one float4 and a tail); one float4 short of, exactly at
+    # and one float4 past the main path's 680 whole blocks of 256 threads
+    # (the last a block of one float4); a misaligned stream (scalar) and
+    # bf16 (always one element a thread)
     n_before = len(checks)
+    blocks = 4 * 256 * 680
     for shape, dt, off, main in (((696234,), torch.float32, 0, True),
-                                 ((4096,), torch.float32, 0, False),
+                                 ((1,), torch.float32, 0, False),
+                                 ((3,), torch.float32, 0, False),
+                                 ((5,), torch.float32, 0, False),
+                                 ((blocks - 4,), torch.float32, 0, False),
+                                 ((blocks,), torch.float32, 0, False),
+                                 ((blocks + 4,), torch.float32, 0, False),
                                  ((10001,), torch.float32, 1, False),
                                  ((37, 23), torch.bfloat16, 0, False)):
         x = randn_at(shape, off, dt)
@@ -426,23 +438,49 @@ def run_fig5(torch, kind: str, backend: str):
         device="cuda", seed=0, backend=backend, return_params=True)
 
 
-def profile_step(torch, tr, batch):
-    """One more training step under ``torch.profiler``: the step's host
-    time, the device's busy time (union of kernel intervals), its idle
-    share, device time by kernel name, and the port's kernels' own device
-    time in the step. Profiling slows the host, so the wall time here is
-    not the step time reported elsewhere."""
+def profile_step(torch, run, step=None, select=None):
+    """``run()`` under ``torch.profiler``: its host time, the device's busy
+    time (union of kernel intervals), its idle share, device time by kernel
+    name, and the port's kernels' own device time. With ``step``, the name
+    of a span that ``run`` opens (``record_function``) and closes after a
+    synchronise, all of it is read inside that span alone: its host time
+    and the kernels that start in it. With ``select``, a span inside that
+    one, ``port_kernels_ms`` also holds the device time of each PyTorch op
+    in it (``aten::`` dropped from the name). Without device kernels (a
+    CPU callable) the idle share is None. Profiling slows the host, so the
+    wall time here is not the step time reported elsewhere."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if cuda else [])
+    with profile(activities=activities) as prof:
+        if cuda:
+            torch.cuda.synchronize()
         t0 = time.perf_counter()
-        tr.run([batch])
-        torch.cuda.synchronize()
+        run()
+        if cuda:
+            torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = prof.events()
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+
+    def span(name, within=None):
+        found = [e.time_range for e in cpu if e.name == name and (
+            within is None or within.start <= e.time_range.start
+            <= within.end)]
+        if len(found) != 1:
+            raise AssertionError(f"profile: {len(found)} spans {name!r}")
+        return found[0]
+
+    if step is not None:
+        win = span(step)
+        wall_us = win.elapsed_us()
+        kernels = [e for e in kernels
+                   if win.start <= e.time_range.start <= win.end]
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy_us, cur_start, cur_end = 0.0, None, None
     for a, b in spans:
@@ -454,19 +492,60 @@ def profile_step(torch, tr, batch):
             cur_end = max(cur_end, b)
     if cur_end is not None:
         busy_us += cur_end - cur_start
-    by_name = {}
+    by_name, n_of = {}, {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        n_of[e.name] = n_of.get(e.name, 0) + 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    # the port's own kernels, timed inside the step
-    ours = {name[:80]: us / 1e3 for name, us in by_name.items()
+    # the port's own kernels, timed inside the step, and their launches
+    port = [name for name in by_name
             if any(f"(anonymous namespace)::{k}" in name
-                   for k in ("reduce_kernel<", "dropfill", "randomk"))}
+                   for k in ("reduce_kernel<", "dropfill", "randomk"))]
+    ours = {name[:80]: by_name[name] / 1e3 for name in port}
+    if select is not None:
+        sel = span(select, win if step is not None else None)
+        for e in cpu:
+            if e.name.startswith("aten::") and \
+                    sel.start <= e.time_range.start <= sel.end:
+                for kern in e.kernels:
+                    op = e.name[len("aten::"):]
+                    ours[op] = ours.get(op, 0.0) + kern.duration / 1e3
     return {"wall_ms": wall_us / 1e3, "n_kernels": len(kernels),
             "device_busy_ms": busy_us / 1e3,
             "idle_share": (1.0 - busy_us / wall_us) if kernels else None,
             "top_kernels_ms": [[name[:80], us / 1e3] for name, us in top],
-            "port_kernels_ms": ours}
+            "port_kernels_ms": ours,
+            "port_launches": {name[:80]: n_of[name] for name in port}}
+
+
+def profile_fig5_randomk(torch, step=1):
+    """The Fig 5 Random-k step with error feedback, profiled: a
+    ``train_compressed`` run of ``step + 1`` steps (full-width papernet,
+    Random-k at k = 0.1 through the kernel, the settings of ``run_fig5``,
+    128 test images) under ``profile_step``, read inside its last step,
+    which finds the residual of the step before it: the gradient, the
+    select (flatten, residual add, uniforms, the randomk kernel, the new
+    residual) and the update. ``port_kernels_ms`` holds the randomk
+    kernel's device time and that of each op of the select."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticCIFAR
+    from repro_torch.train.compressed import train_compressed
+
+    data = SyntheticCIFAR(seed=3)
+    prof = profile_step(
+        torch, lambda: train_compressed(
+            get_config("papernet"), TrainConfig(batch=128, lr=0.05), data,
+            data.test_set(128), "randomk", 0.1, step + 1, device="cuda",
+            seed=0, backend="cuda"),
+        step=f"train_compressed step {step}",
+        select="train_compressed select")
+    if list(prof["port_launches"].values()) != [1] or \
+            "randomk" not in next(iter(prof["port_launches"])):
+        raise AssertionError(f"profile fig5_randomk: port launches "
+                             f"{prof['port_launches']} in the step, not one "
+                             f"randomk")
+    return prof
 
 
 def main() -> int:
@@ -570,7 +649,8 @@ def main() -> int:
 
     # a sixth step of the kernel run, profiled (after the comparisons)
     from repro_torch.data import SyntheticCIFAR
-    prof = profile_step(torch, ker, SyntheticCIFAR(seed=0).train_batch(128, 5))
+    batch = SyntheticCIFAR(seed=0).train_batch(128, 5)
+    prof = profile_step(torch, lambda: ker.run([batch]))
     print("profile cuda_count_ef step 6 " + json.dumps(prof))
 
     # the Fig 5 compression path, the same way. cuDNN's default weight
@@ -623,6 +703,8 @@ def main() -> int:
     print("fig5 " + json.dumps(fig5))
     print(f"fig5 params, randomk kernel vs plain route after {steps} steps: "
           f"max abs diff {worst_rk:.3e} (rtol 2e-4, atol 2e-5)")
+    # a second Random-k step, profiled (after the counted runs)
+    print("profile fig5_randomk " + json.dumps(profile_fig5_randomk(torch)))
 
     # tree_reduce is on no training path: its count is the check calls'
     main_launches = {

@@ -46,14 +46,25 @@
 // run in place (out == x), which is safe because each thread reads its
 // elements before it writes them and touches no other thread's elements.
 //
-// randomk: a select over one flat stream, no padding. The TPU wrapper pads the
-// stream to (256, 512) tiles with u = 2.0; here a bounds check takes the ragged
-// end. On the f32 path a thread owns 4 elements and takes 16-byte loads of x and
-// u when x, u and out are 16-byte aligned; the last thread of a length that is
-// not a multiple of 4 (papernet's 696,234 floats leave 2) takes its 1-3
-// elements one by one. Otherwise, and for bf16, one element a thread. k arrives
-// as a float: the JAX kernel compares against k cast to float32, so an element
-// whose u equals float(k) is dropped, as there.
+// randomk: a select over one flat stream, no padding. It moves 12 bytes an
+// element (x and u read, out written) for one compare: at the Fig 5 path's
+// 696,234 floats 8.35 MB, 2.49 us at an H100's 3.35 TB/s, so the launch, the
+// ramp to full memory rate and the grid's tail weigh as much as the stream.
+// The TPU wrapper pads the stream to (256, 512) tiles with u = 2.0; here a
+// bounds check takes the ragged end. On the f32 path, when x, u and out are
+// 16-byte aligned, a thread owns 4 elements and reads x and u with 16-byte
+// loads that bypass L1 and ask L2 for the whole 256-byte span around them,
+// the fetch of the packet stream; that fetch is what shortens the ramp from
+// device memory. Its stores are plain, not evict-first: the caller's next op
+// (new_res = flat - kept) reads out and x again from L2. The last thread of a
+// length that is not a multiple of 4 (papernet's 696,234 floats leave 2) takes
+// its 1-3 elements one by one. A misaligned stream takes one element a
+// thread, and so does bf16, which is on no path of the port. A balanced wave
+// (a grid that is a multiple of the SM count, 1-4 float4 a thread, all loads
+// in flight before the first select) measured no faster inside the Fig 5
+// step and slower on inputs in L2 (PERF.md §6). k arrives as a float: the
+// JAX kernel compares against k cast to float32, so an element whose u
+// equals float(k) is dropped, as there; a kept element is copied bit for bit.
 //
 // Each entry point launches on the caller's stream and returns the code of
 // cudaGetLastError() right after the launch (0 on success).
@@ -84,8 +95,9 @@ struct Vec {
   float v[V];
 };
 
-// A read of the packet stream, which is read once: kept out of L1, and an L2
-// miss fetches the whole 256-byte span around it from device memory.
+// A read of a stream that is read once (the packets, randomk's x and u): kept
+// out of L1, and an L2 miss fetches the whole 256-byte span around it from
+// device memory.
 __device__ __forceinline__ float4 ld_stream(const float4* p) {
   float4 v;
   asm("ld.global.nc.L1::no_allocate.L2::256B.v4.f32 {%0, %1, %2, %3}, [%4];"
@@ -344,16 +356,17 @@ dropfill_kernel(const T* x, const float* __restrict__ mask,
   out[e] = from_f32<T>(to_f32<T>(x[e]) * g);
 }
 
-// f32, 4 elements a thread with 16-byte loads; the last thread takes the
-// 1-3 elements of a length that is not a multiple of 4 one by one
+// f32, 4 elements a thread with 16-byte loads that ask L2 for the whole
+// 256-byte span around them; the last thread takes the 1-3 elements of a
+// length that is not a multiple of 4 one by one
 __global__ void __launch_bounds__(kThreads)
 randomk_f32x4_kernel(const float* __restrict__ x, const float* __restrict__ u,
                      float k, float* __restrict__ out, std::int64_t n) {
   const std::int64_t e0 =
       (static_cast<std::int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
   if (e0 + 4 <= n) {
-    const float4 xv = __ldg(reinterpret_cast<const float4*>(x + e0));
-    const float4 uv = __ldg(reinterpret_cast<const float4*>(u + e0));
+    const float4 xv = ld_stream(reinterpret_cast<const float4*>(x + e0));
+    const float4 uv = ld_stream(reinterpret_cast<const float4*>(u + e0));
     float4 r;
     r.x = uv.x < k ? xv.x : 0.f;
     r.y = uv.y < k ? xv.y : 0.f;

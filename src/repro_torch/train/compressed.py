@@ -18,6 +18,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch.func import grad_and_value
+from torch.profiler import record_function
 
 from repro_torch.config import ModelConfig, TrainConfig
 from repro_torch.configs import get_config
@@ -75,31 +76,36 @@ def train_compressed(cfg: ModelConfig, tc: TrainConfig, data, test,
 
     sel_times, history = [], []
     for i, b in enumerate(batches(data, tc.batch, steps)):
-        _sync(dev)
-        t_step = time.perf_counter()
-        b = {name: torch.as_tensor(v).to(dev) for name, v in b.items()}
-        grads, loss = grad_fn(params, b)
-        _sync(dev)
-        t0 = time.perf_counter()
-        if kind == "topk":
-            grads, residual = compression.top_k(grads, k, residual)
-        elif kind == "randomk":
-            u = None if uniforms is None else torch.as_tensor(uniforms[i])
-            grads, residual = compression.random_k(
-                grads, k, gen, residual, u=u, backend=backend)
-        _sync(dev)
-        sel_times.append(time.perf_counter() - t0)
-        leaves = tree_leaves(grads)
-        kept = int(torch.stack([torch.count_nonzero(g)
-                                for g in leaves]).sum())
-        n_elems = sum(g.numel() for g in leaves)
-        upd, state = opt.update(grads, state, params, tc.lr)
-        params = tree_map(lambda p, u_: p + u_, params, upd)
-        loss = float(loss)
-        _sync(dev)
-        history.append({"step": i, "loss": loss,
-                        "density": kept / n_elems, "kept": kept,
-                        "seconds": time.perf_counter() - t_step})
+        # named spans, so that a profile can find one step and its
+        # selection (chip_smoke.py's profile fig5_randomk line)
+        with record_function(f"train_compressed step {i}"):
+            _sync(dev)
+            t_step = time.perf_counter()
+            b = {name: torch.as_tensor(v).to(dev) for name, v in b.items()}
+            grads, loss = grad_fn(params, b)
+            _sync(dev)
+            t0 = time.perf_counter()
+            with record_function("train_compressed select"):
+                if kind == "topk":
+                    grads, residual = compression.top_k(grads, k, residual)
+                elif kind == "randomk":
+                    u = (None if uniforms is None
+                         else torch.as_tensor(uniforms[i]))
+                    grads, residual = compression.random_k(
+                        grads, k, gen, residual, u=u, backend=backend)
+                _sync(dev)
+            sel_times.append(time.perf_counter() - t0)
+            leaves = tree_leaves(grads)
+            kept = int(torch.stack([torch.count_nonzero(g)
+                                    for g in leaves]).sum())
+            n_elems = sum(g.numel() for g in leaves)
+            upd, state = opt.update(grads, state, params, tc.lr)
+            params = tree_map(lambda p, u_: p + u_, params, upd)
+            loss = float(loss)
+            _sync(dev)
+            history.append({"step": i, "loss": loss,
+                            "density": kept / n_elems, "kept": kept,
+                            "seconds": time.perf_counter() - t_step})
     acc = float(accuracy(cfg, params, test))
     out = (acc, statistics.median(sel_times), history)
     return out + (params,) if return_params else out

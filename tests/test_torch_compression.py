@@ -260,3 +260,46 @@ def test_fig5_rows_keep_the_jax_rows_keys(monkeypatch):
                        "rel_throughput": round(0.07 / 0.077, 3)}
     mod_rows = fig5_rows(quick=False, device="cpu")
     assert len(mod_rows) == 13 and seen[5][:2] == (16, 6)
+
+
+def _chip_smoke():
+    """chip_smoke.py at the repo root, imported as a module (it imports
+    nothing of the port at top level)."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(__file__), os.pardir, "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_profile_step_of_a_cpu_callable_has_no_device_time():
+    """chip_smoke's profile of a callable that runs no device kernel: no
+    idle share, no port kernels, a positive host time."""
+    prof = _chip_smoke().profile_step(torch, lambda: torch.ones(64).sum())
+    assert prof["idle_share"] is None and prof["n_kernels"] == 0
+    assert prof["port_kernels_ms"] == {} and prof["port_launches"] == {}
+    assert prof["wall_ms"] > 0.0
+
+
+def test_profile_step_reads_one_train_compressed_step():
+    """The Fig 5 profile's windows: train_compressed opens one named span
+    a step and one for its select; the profile reads the host time of
+    the step asked for, which is part of the whole run's, and raises on a
+    span that the run did not open."""
+    cs = _chip_smoke()
+    cfg = get_config("papernet").replace(d_model=4, n_layers=3)
+    data = SyntheticCIFAR(seed=3)
+
+    def run():
+        train_compressed(cfg, TrainConfig(batch=16, lr=0.05), data,
+                         data.test_set(16), "randomk", 0.1, 2, device="cpu")
+
+    whole = cs.profile_step(torch, run)
+    step = cs.profile_step(torch, run, step="train_compressed step 1",
+                           select="train_compressed select")
+    assert 0.0 < step["wall_ms"] < whole["wall_ms"]
+    assert step["idle_share"] is None and step["port_kernels_ms"] == {}
+    with pytest.raises(AssertionError, match="0 spans"):
+        cs.profile_step(torch, run, step="train_compressed step 2")

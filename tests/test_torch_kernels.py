@@ -14,7 +14,8 @@ from repro_torch.kernels.packet_reduce import tree_reduce
 DROPFILL_SHAPES = [(130, 360), (256, 384), (7, 33), (1000, 128), (1, 1),
                    (513, 129)]
 REDUCE_SHAPES = [(8, 130, 360), (4, 64, 384), (16, 33, 100), (2, 5, 7)]
-RANDOMK_SHAPES = [(1000,), (37, 23), (4096,), (3, 5, 7)]
+RANDOMK_SHAPES = [(1000,), (37, 23), (4096,), (3, 5, 7), (1,), (3,), (5,),
+                  (1023,)]
 
 
 def _dropfill_inputs(n, p, seed=7):
