@@ -25,7 +25,8 @@ From the root of a checkout it:
    are these check calls, and say so;
 4. drives the LTP path through the user's entry points: full-width
    papernet (configs/papernet.py) trained by 8 workers and one PS over
-   the LTP path, 5 steps, three times — kernels with paper
+   the LTP path on ``PSTrainer``'s lockstep engine, one ``run`` call a
+   step, 5 steps, three times — kernels with paper
    compensation; kernels with count compensation and error feedback;
    the same again with the plain ``python`` backend on the card — and
    checks that the kernels launched once per step, that the outputs are
@@ -41,7 +42,21 @@ From the root of a checkout it:
    a 2-step Random-k run (``profile fig5_randomk`` line: idle share, the
    randomk kernel's device time in the step beside that of the select's
    other ops), which must hold one randomk launch;
-6. prints a ``kernels`` JSON line and, last, the device JSON line.
+6. drives the cluster runtime, ``PSTrainer``'s default engine, at the
+   same width, 5 steps a run, with count compensation and error
+   feedback (``run_runtime_phase``): bsp on the runtime engine against
+   the lockstep engine (equal transport fields, params within
+   tolerance, one packet_reduce and one dropfill launch a step); async
+   under lognormal stragglers through the kernels against the plain
+   backend (equal histories, packet_reduce launched once an apply and
+   dropfill once an admitted gradient, at (1934, 360)); a bsp run with a
+   PS failure and an npz checkpoint (every step once, one failover, no
+   lost gradient applied); then times each engine as one whole run after
+   a 1-step warm-up and profiles one runtime bsp step, and prints the
+   ``runtime`` line: host ms a step and images/s for each engine, the
+   ``Sim`` events of the timed runtime run, the profiled step's idle
+   share;
+7. prints a ``kernels`` JSON line and, last, the device JSON line.
 
 TF32 is switched off for cuDNN convolutions and matmuls for the whole
 run, so that float32 comparisons compare float32 arithmetic. Any
@@ -236,15 +251,18 @@ def check_kernels(torch, timer):
 
     # dropfill: the gate is the same float32 product in both, so float32
     # agrees exactly and bfloat16 within one rounding of the output.
-    # (n, p), dtype, with a scale, offset in floats, main-path or not:
-    # f32 x4 (main), f32 scalar for p % 4 != 0 and for a misaligned
-    # stream, and bf16 (always one element a thread)
+    # (n, p), dtype, with a scale, offset in floats, main-path or not,
+    # timed or not: f32 x4 (main: the bsp step's W-worker stream; and the
+    # runtime's per-gradient error-feedback gate, one gradient's (1934,
+    # 360), timed and not listed), f32 scalar for p % 4 != 0 and for a
+    # misaligned stream, and bf16 (always one element a thread)
     n_before = len(checks)
-    for (n, p, dt, with_scale, off), main in (
-            ((15472, 360, torch.float32, False, 0), True),
-            ((513, 129, torch.float32, True, 0), False),
-            ((300, 360, torch.float32, False, 1), False),
-            ((77, 7, torch.bfloat16, True, 0), False)):
+    for (n, p, dt, with_scale, off), main, timed in (
+            ((15472, 360, torch.float32, False, 0), True, True),
+            ((1934, 360, torch.float32, False, 0), False, True),
+            ((513, 129, torch.float32, True, 0), False, False),
+            ((300, 360, torch.float32, False, 1), False, False),
+            ((77, 7, torch.bfloat16, True, 0), False, False)):
         x = randn_at((n, p), off, dt)
         m = (torch.rand(n, device="cuda", generator=gen) < 0.7).float()
         s = (torch.rand(n, device="cuda", generator=gen) + 0.5
@@ -268,7 +286,7 @@ def check_kernels(torch, timer):
             lambda a, b, c, _: ops.ltp_dropfill(a, b, c),
             lambda a, b, _, d: ref.dropfill_ref(a, b, d),
             lambda a, b, c, _: torch.mul(a, b[:, None]),
-            2 * n * p * es + n * 4 * (1 if s is None else 2), n * p, main)
+            2 * n * p * es + n * 4 * (1 if s is None else 2), n * p, timed)
         if main:
             entries["dropfill"] = row
     if {r["branch"] for r in checks[n_before:]} != {"x4", "scalar"}:
@@ -393,22 +411,32 @@ def check_tree_reduce(torch, timer):
     return rows, timed, n_launches
 
 
-def run_main_path(torch, sync_backend: str, **ltp_kw):
-    """Full-width papernet, 8 workers, one PS, 5 LTP steps; returns the
-    trainer and the per-step host times (s), each ending in a sync."""
+def trainer(torch, engine: str, steps: int, sync_backend: str, **ltp_kw):
+    """``PSTrainer`` on ``engine`` over full-width papernet, 8 workers,
+    one PS, global batch 128, ``NetConfig(10, 1, 0.001, 4096)``, seed 0."""
     from repro_torch.config import LTPConfig, NetConfig, TrainConfig
     from repro_torch.configs import get_config
-    from repro_torch.data import SyntheticCIFAR
     from repro_torch.models import build
     from repro_torch.optim import make_optimizer
     from repro_torch.train import PSTrainer
 
-    cfg = get_config("papernet")
-    tc = TrainConfig(batch=128, lr=0.05, steps=5)
-    tr = PSTrainer(build(cfg), make_optimizer(tc), tc,
-                   LTPConfig(sync_backend=sync_backend, **ltp_kw),
-                   NetConfig(10, 1, 0.001, 4096), n_workers=8,
-                   protocol="ltp", compute_time=0.05, seed=0, device="cuda")
+    tc = TrainConfig(batch=128, lr=0.05, steps=steps)
+    return PSTrainer(build(get_config("papernet")), make_optimizer(tc), tc,
+                     LTPConfig(sync_backend=sync_backend, **ltp_kw),
+                     NetConfig(10, 1, 0.001, 4096), n_workers=8,
+                     protocol="ltp", compute_time=0.05, seed=0,
+                     device="cuda", engine=engine)
+
+
+def run_main_path(torch, sync_backend: str, **ltp_kw):
+    """Full-width papernet, 8 workers, one PS, 5 LTP steps on the lockstep
+    engine, one ``run`` call a step (the runtime engine restarts its
+    workers at each call); returns the trainer and the per-step host
+    times (s), each ending in a sync."""
+    from repro_torch.data import SyntheticCIFAR
+
+    tr = trainer(torch, "lockstep", 5, sync_backend, **ltp_kw)
+    tc = tr.train_cfg
     data = SyntheticCIFAR(seed=0)
     step_s = []
     for step in range(tc.steps):
@@ -548,6 +576,218 @@ def profile_fig5_randomk(torch, step=1):
     return prof
 
 
+STRAGGLERS = dict(base=0.05, sigma=0.3, straggler_prob=0.25)
+
+
+def cluster_runtime(torch, steps: int, sync_backend: str, ltp_kw=None,
+                    **kw):
+    """``ClusterRuntime`` with ``trainer``'s settings (the entry point a
+    user takes for faults, checkpoints and compute models)."""
+    from repro_torch.config import LTPConfig, NetConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.optim import make_optimizer
+    from repro_torch.runtime import ClusterRuntime
+
+    tc = TrainConfig(batch=128, lr=0.05, steps=steps)
+    return ClusterRuntime(build(get_config("papernet")), make_optimizer(tc),
+                          tc, LTPConfig(sync_backend=sync_backend,
+                                        **(ltp_kw or {})),
+                          NetConfig(10, 1, 0.001, 4096), n_workers=8,
+                          protocol="ltp", compute_time=0.05, seed=0,
+                          device="cuda", **kw)
+
+
+def host_batches(steps: int) -> list:
+    from repro_torch.data import SyntheticCIFAR, batches
+    return list(batches(SyntheticCIFAR(seed=0), 128, steps))
+
+
+def timed_run(torch, make, steps: int):
+    """``make(n)`` builds a trainer or runtime for n steps: ``steps``
+    steps in one ``run`` call, timed as a whole on the host clock between
+    synchronizes. Returns (seconds, ``Sim`` events the run processed)."""
+    from repro_torch.net.simcore import PERF
+
+    data = host_batches(steps)
+    obj = make(steps)
+    torch.cuda.synchronize()
+    ev0 = PERF.events
+    t0 = time.perf_counter()
+    obj.run(data, epoch_steps=3)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, PERF.events - ev0
+
+
+def max_abs_diff(torch, a, b) -> float:
+    """Largest |a - b| over two trees' leaves; raises unless every leaf
+    agrees within rtol 2e-4 / atol 2e-5."""
+    from repro_torch.tree import tree_leaves
+
+    worst = 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b), strict=True):
+        torch.testing.assert_close(x, y, rtol=2e-4, atol=2e-5)
+        worst = max(worst, (x - y).abs().max().item())
+    return worst
+
+
+def run_runtime_phase(torch, zero_counts, read_counts, launches_of,
+                      steps=5):
+    """The cluster runtime (``PSTrainer``'s default engine) at full width,
+    ``steps`` steps a run, three ways, each with count compensation and
+    error feedback:
+
+    * bsp, engine ``runtime`` against engine ``lockstep``, both through
+      the kernels, with deterministic convolutions: equal step, bst and
+      delivered, each engine's sim_time the sum of the same compute and
+      bst in its own association ((t + compute) + bst for the runtime,
+      t + (compute + bst) for lockstep, as in the JAX package), params
+      within rtol 2e-4 / atol 2e-5; the runtime run launches
+      packet_reduce and dropfill once a step. Then each engine timed as
+      a whole run after a 1-step warm-up, with cuDNN's defaults, four
+      runs each in turns;
+    * async under ``LognormalStragglerCompute(8, **STRAGGLERS)`` with
+      staleness_comp 0.5, through the kernels and on the plain backend:
+      equal step, staleness, n_grads, delivered and sim_time, params
+      within tolerance; packet_reduce launched once an apply, dropfill
+      once an admitted gradient, nothing on the plain run;
+    * bsp with a PS failure at 0.16 s (down 0.05 s) and an npz
+      checkpoint every 0.1 s: every step committed once, one failover,
+      gradients lost to the downtime counted out and none applied.
+
+    Then one runtime bsp step (a 1-step run) profiled. Returns (the
+    ``runtime`` line, the launches of the counted runs)."""
+    import tempfile
+
+    from repro_torch.runtime import FaultEvent, FaultSchedule
+    from repro_torch.runtime import LognormalStragglerCompute
+    from repro_torch.tree import tree_leaves
+
+    ef = {"compensation": "count", "error_feedback": True}
+    line, launches = {}, []
+
+    def counted(label, make):
+        zero_counts()
+        obj = make()
+        obj.run(host_batches(steps), epoch_steps=3)
+        got = read_counts()
+        launches.append(got)
+        line.setdefault("launches", {})[label] = got
+        return obj, got
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        lock, _ = counted("bsp_lockstep", lambda: trainer(
+            torch, "lockstep", steps, "cuda", **ef))
+        rt, got = counted("bsp_runtime", lambda: trainer(
+            torch, "runtime", steps, "cuda", **ef))
+        if rt._rt is None or got != launches_of(packet_reduce=steps,
+                                                dropfill=steps):
+            raise AssertionError(f"runtime bsp: launches {got}")
+        t_rt = t_ls = 0.0
+        for a, b in zip(rt.history, lock.history, strict=True):
+            t_rt = (t_rt + 0.05) + a["bst"]
+            t_ls += 0.05 + b["bst"]
+            if (a["step"], a["bst"], a["delivered"]) != \
+                    (b["step"], b["bst"], b["delivered"]) or \
+                    (a["sim_time"], b["sim_time"]) != (t_rt, t_ls) or \
+                    abs(a["sim_time"] - b["sim_time"]) > 1e-15 * t_ls:
+                raise AssertionError(f"runtime vs lockstep: {a} vs {b}")
+            if not math.isfinite(a["loss"]):
+                raise AssertionError(f"runtime bsp: bad record {a}")
+        line["bsp_runtime_vs_lockstep"] = {
+            "history": rt.history,
+            "sim_time_bits_equal": sum(
+                a["sim_time"] == b["sim_time"]
+                for a, b in zip(rt.history, lock.history)),
+            "params_max_abs_diff": max_abs_diff(torch, rt.params,
+                                                lock.params),
+            "params_bitwise": all(
+                torch.equal(x, y) for x, y in zip(tree_leaves(rt.params),
+                                                  tree_leaves(lock.params)))}
+
+        def async_run(backend):
+            return cluster_runtime(
+                torch, steps, backend, dict(staleness_comp=0.5, **ef),
+                policy="async",
+                compute_model=LognormalStragglerCompute(8, **STRAGGLERS))
+
+        ker, got = counted("async_cuda", lambda: async_run("cuda"))
+        plain, got_plain = counted("async_python",
+                                   lambda: async_run("python"))
+        hist = ker.history
+        want = launches_of(packet_reduce=len(hist),
+                           dropfill=sum(h["n_grads"] for h in hist))
+        if got != want or got_plain != launches_of():
+            raise AssertionError(f"async: launches {got} (want {want}), "
+                                 f"plain {got_plain}")
+        keys = ("step", "staleness", "n_grads", "delivered", "sim_time")
+        for a, b in zip(hist, plain.history, strict=True):
+            if [a[k] for k in keys] != [b[k] for k in keys] or \
+                    not math.isfinite(a["loss"]):
+                raise AssertionError(f"async kernels vs plain: {a} vs {b}")
+        s = ker.tel.summary()
+        line["async"] = {
+            "n_applies": len(hist), "n_grads": sum(h["n_grads"]
+                                                   for h in hist),
+            "staleness_max": s["staleness_max"],
+            "n_early_close": s["n_early_close"],
+            "sim_time": ker.sim_time,
+            "params_max_abs_diff": max_abs_diff(torch, ker.params,
+                                                plain.params)}
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        fo, got = counted("failover", lambda: cluster_runtime(
+            torch, steps, "cuda", ef,
+            faults=FaultSchedule([FaultEvent(0.16, "ps_fail", 0,
+                                             recover_s=0.05)]),
+            checkpoint_every_s=0.1, checkpoint_dir=ckpt_dir))
+        archive = os.path.exists(os.path.join(ckpt_dir, "runtime_ckpt.npz"))
+    tel = fo.tel
+    n_ready = len(tel.of("grad_ready"))
+    applied = sum(e["n_grads"] for e in tel.of("apply"))
+    n_lost = len(tel.of("ps_lost"))
+    n_other = len(tel.of("stale_drop")) + len(tel.of("flow_torn"))
+    line["failover"] = {
+        "steps": [h["step"] for h in fo.history],
+        "n_failovers": len(tel.of("ps_failover")), "n_ps_lost": n_lost,
+        "grad_ready": n_ready, "applied": applied,
+        "n_checkpoints": len(tel.of("checkpoint")), "archive": archive}
+    if [h["step"] for h in fo.history] != list(range(steps)) or \
+            len(tel.of("ps_failover")) != 1 or n_lost == 0 or \
+            n_ready != applied + n_lost + n_other or not archive or \
+            not all(math.isfinite(h["loss"]) for h in fo.history):
+        raise AssertionError(f"failover: {line['failover']}")
+
+    # the event loop's cost: each engine timed as a whole run, after a
+    # 1-step warm-up run of each, in turns (L R R L L R R L), since the
+    # host's pace drifts within a call
+    def make(engine):
+        return lambda n: trainer(torch, engine, n, "cuda", **ef)
+
+    readings = {"lockstep": [], "runtime": []}
+    for engine in readings:
+        make(engine)(1).run(host_batches(1), epoch_steps=3)
+    for engine in ("lockstep", "runtime", "runtime", "lockstep") * 2:
+        secs, events = timed_run(torch, make(engine), steps)
+        readings[engine].append(secs / steps * 1e3)
+        if engine == "runtime":
+            line["sim_events_per_run"] = events
+    line["timing"] = {
+        engine: {"host_ms_per_step": ms,
+                 "median_host_ms_per_step": statistics.median(ms),
+                 "images_per_s": 128e3 / statistics.median(ms)}
+        for engine, ms in readings.items()}
+    one, batch = trainer(torch, "runtime", 1, "cuda", **ef), host_batches(1)
+    prof = profile_step(torch, lambda: one.run(batch))
+    line["profile_runtime_bsp_step"] = prof
+    line["idle_share"] = prof["idle_share"]
+    return line, launches
+
+
 def main() -> int:
     import torch
 
@@ -561,7 +801,6 @@ def main() -> int:
     from repro_torch.kernels import dropfill as df_mod
     from repro_torch.kernels import packet_reduce as pr_mod
     from repro_torch.kernels import randomk as rk_mod
-    from repro_torch.tree import tree_leaves
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -640,10 +879,7 @@ def main() -> int:
         if (a["step"], a["bst"], a["sim_time"]) != \
                 (b["step"], b["bst"], b["sim_time"]):
             raise AssertionError(f"transport differs: {a} vs {b}")
-    worst = 0.0
-    for x, y in zip(tree_leaves(ker.params), tree_leaves(ref_run.params)):
-        torch.testing.assert_close(x, y, rtol=2e-4, atol=2e-5)
-        worst = max(worst, (x - y).abs().max().item())
+    worst = max_abs_diff(torch, ker.params, ref_run.params)
     print(f"params, kernels vs plain backend after {steps} steps: max abs "
           f"diff {worst:.3e} (rtol 2e-4, atol 2e-5)")
 
@@ -694,11 +930,8 @@ def main() -> int:
     if rk_ker["kept"] != rk_plain["kept"]:
         raise AssertionError(f"fig5 Random-k kept counts differ: kernel "
                              f"{rk_ker['kept']}, plain {rk_plain['kept']}")
-    worst_rk = 0.0
-    for x, y in zip(tree_leaves(fig5_params["randomk_cuda"]),
-                    tree_leaves(fig5_params["randomk_python"])):
-        torch.testing.assert_close(x, y, rtol=2e-4, atol=2e-5)
-        worst_rk = max(worst_rk, (x - y).abs().max().item())
+    worst_rk = max_abs_diff(torch, fig5_params["randomk_cuda"],
+                            fig5_params["randomk_python"])
     torch.backends.cudnn.deterministic = False
     print("fig5 " + json.dumps(fig5))
     print(f"fig5 params, randomk kernel vs plain route after {steps} steps: "
@@ -706,10 +939,16 @@ def main() -> int:
     # a second Random-k step, profiled (after the counted runs)
     print("profile fig5_randomk " + json.dumps(profile_fig5_randomk(torch)))
 
+    # the cluster runtime, PSTrainer's default engine
+    rt_line, rt_launches = run_runtime_phase(torch, zero_counts, read_counts,
+                                             launches_of)
+    print("runtime " + json.dumps(rt_line))
+
     # tree_reduce is on no training path: its count is the check calls'
     main_launches = {
         name: sum(r[2][name] for r in runs.values())
         + sum(r["launches"][name] for r in fig5.values())
+        + sum(r[name] for r in rt_launches)
         for name in counters}
     if main_launches["tree_reduce"] != 0:
         raise AssertionError("a training path launched tree_reduce")
@@ -728,7 +967,8 @@ def main() -> int:
             "replaces": replaces[name], "shape": e["shape"],
             "launches": main_launches[name],
             "launches_from": ("check calls: no training path calls it"
-                              if name == "tree_reduce" else "main paths"),
+                              if name == "tree_reduce" else
+                              "main paths: lockstep, Fig 5, runtime"),
             "max_abs_err": e["max_abs_err"],
             "ms": e["ms"], "plain_ms": e["plain_ms"],
             "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],

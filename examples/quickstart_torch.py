@@ -3,9 +3,10 @@
 The twin of ``examples/quickstart.py`` on ``repro_torch``: trains the
 CIFAR-like CNN over 8 simulated workers + 1 PS with LTP (Early Close +
 bubble-filling) vs a lossless TCP-like baseline on a lossy 10G network,
-and prints throughput / accuracy side by side. Runs on the CUDA card
-(the PS reduction goes through the hand-written kernels) unless
-``--device cpu`` is given.
+and prints throughput / accuracy side by side, on ``PSTrainer``'s
+default engine (the cluster runtime, bsp over the analytic transport).
+Runs on the CUDA card (the PS reduction goes through the hand-written
+kernels) unless ``--device cpu`` is given.
 
   PYTHONPATH=src python examples/quickstart_torch.py [--steps 60] [--device cpu]
 """

@@ -6,16 +6,17 @@ The JAX package's ``config.py`` cut to the fields this port reads.
 interpret mode). Plain dataclasses (no external deps). Every
 architecture is described by a ``ModelConfig``; the transport/protocol
 knobs live in ``NetConfig`` and ``LTPConfig``; training in
-``TrainConfig``. The mesh, fault, run, runtime and observability
-configs, and the fields only the cluster runtime reads (staleness
-damping, the wire-format sizes), come with the slices that read them
-(ROADMAP.md, queue 1).
+``TrainConfig``; the cluster runtime's knobs in ``RuntimeConfig``
+(overlaid on ``LTPConfig``), ``ObservabilityConfig`` and
+``FaultConfig``. The mesh and run configs, the network-fault config,
+the wire-format sizes and the trunk sampler's switch come with the
+slices that read them (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -36,6 +37,32 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class ObservabilityConfig:
+    """Where runtime telemetry goes (DESIGN.md §12).
+
+    ``tracker`` selects the sink backend by name — one of
+    ``repro_torch.obs.TRACKER_BACKENDS`` (``"none"``, ``"memory"``,
+    ``"jsonl"``, ``"csv"``, ``"tensorboard"``) or a comma-separated
+    list for fan-out. ``"none"`` is the zero-overhead default: the
+    runtime holds no tracker object at all and runs are bitwise
+    identical to a build without the observability layer.
+
+    Frozen + hashable: this config rides inside ``LTPConfig``. The JAX
+    package's ``sample_trunks`` switch feeds the packet-level
+    transport's trunk sampler and comes with it.
+    """
+
+    tracker: str = "none"
+    # file backends write to ``path`` when set, else
+    # ``<out_dir>/<run_name>.<ext>``
+    out_dir: str = "runs"
+    path: Optional[str] = None
+    run_name: str = "run"
+    # histogram reservoir size for the metrics registry (Algorithm R)
+    reservoir: int = 1024
+
+
+@dataclass(frozen=True)
 class LTPConfig:
     """Paper knobs (§III). Defaults follow the paper where it gives numbers."""
 
@@ -50,6 +77,12 @@ class LTPConfig:
     # progress 1 (late training tolerates less gradient loss). None
     # disables the ramp — the paper's fixed threshold.
     phase_final_pct_threshold: Optional[float] = None
+    # Staleness-aware compensation weighting (beyond-paper, DESIGN.md §8):
+    # under async / bounded-staleness aggregation a worker's contribution
+    # to the PS reduction is damped by 1 / (1 + staleness_comp * s) where
+    # s is the gradient's staleness in iterations. 0 disables damping
+    # (every admitted gradient weighs 1, the classic SSP reduction).
+    staleness_comp: float = 0.0
     error_feedback: bool = False     # beyond-paper
     critical_per_tensor: int = 1     # first/last packet(s) of each tensor marked critical
     # PS-side aggregation backend: "python" is the plain torch
@@ -59,14 +92,50 @@ class LTPConfig:
     # "auto" is "cuda" for CUDA tensors and "python" for CPU tensors
     # until an H100 measurement gives a crossover size.
     sync_backend: str = "auto"       # python | cuda | auto
+    # telemetry sink selection (DESIGN.md §12); None == all defaults
+    # (tracker "none", zero overhead)
+    obs: Optional[ObservabilityConfig] = None
+
+    def runtime(self) -> "RuntimeConfig":
+        """The runtime/cluster half of this config as a ``RuntimeConfig``."""
+        return RuntimeConfig(**{f.name: getattr(self, f.name)
+                                for f in dataclasses.fields(RuntimeConfig)})
+
+    def with_runtime(self, rc: Optional["RuntimeConfig"]) -> "LTPConfig":
+        """Overlay a ``RuntimeConfig`` onto this protocol config: entry
+        points taking ``runtime_cfg=`` fold it in here, so every
+        downstream read of ``ltp.staleness_comp`` / ``ltp.sync_backend``
+        / ... sees it."""
+        if rc is None:
+            return self
+        return dataclasses.replace(
+            self, **{f.name: getattr(rc, f.name)
+                     for f in dataclasses.fields(RuntimeConfig)})
+
+
+@dataclass(frozen=True)
+class RuntimeConfig:
+    """Runtime/cluster-side knobs (DESIGN.md §11): how the PS aggregates
+    and the trainer syncs — none of these change a byte on the wire.
+    ``LTPConfig`` keeps the same-named fields as the combined surface;
+    pass a ``RuntimeConfig`` via ``runtime_cfg=`` to ``ClusterRuntime`` /
+    ``PSTrainer`` to override them (``LTPConfig.with_runtime``)."""
+
+    # staleness-damped async/SSP reduction weighting (DESIGN.md §8)
+    staleness_comp: float = 0.0
+    error_feedback: bool = False
+    # PS aggregation backend: python | cuda | auto
+    sync_backend: str = "auto"
+    # telemetry sink selection (DESIGN.md §12); None == tracker "none"
+    obs: Optional[ObservabilityConfig] = None
 
 
 @dataclass(frozen=True)
 class NetConfig:
     """Simulated physical network (per-link). ``queue_pkts`` and
     ``mtu_bytes`` are read only by the packet-level transport, which
-    comes with the cluster-runtime slice; they stay so that the
-    positional form ``NetConfig(10, 1, 0.001, 4096)`` means what it
+    comes with its own slice (ROADMAP.md, queue 1 item 8b); they stay
+    so that the positional form ``NetConfig(10, 1, 0.001, 4096)`` means what it
     means in the JAX package."""
 
     bandwidth_gbps: float = 10.0
@@ -86,3 +155,23 @@ class TrainConfig:
     steps: int = 100
     lr_decay_every: int = 0          # epochs; paper: x0.8 every 10 epochs
     lr_decay: float = 0.8
+
+
+@dataclass(frozen=True)
+class FaultConfig:
+    """Fault-injection knobs for the elastic runtime (DESIGN.md §10).
+
+    Converted into a concrete ``runtime.faults.FaultSchedule`` once the
+    run horizon is known (``FaultSchedule.random`` takes ``t_end``); the
+    all-zero default draws an empty schedule, which the runtime treats
+    exactly like no fault layer at all.
+    """
+
+    crash_rate: float = 0.0          # worker crashes, per worker-second
+    rejoin_after_s: Optional[float] = None  # crashed slots rejoin after this
+    leave_rate: float = 0.0          # graceful departures, per worker-second
+    ps_fail_at: Tuple[float, ...] = ()      # sim times of PS failures
+    ps_recovery_s: float = 0.05      # PS downtime before checkpoint failover
+    checkpoint_every_s: float = 0.0  # snapshot grid (0 = initial state only)
+    min_active: int = 1              # random schedules never go below this
+    seed: int = 0

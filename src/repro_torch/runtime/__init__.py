@@ -1,1 +1,32 @@
-"""Step machinery for the PS training loop (see ``step.py``)."""
+"""Event-driven cluster runtime: compute/network co-simulation with
+pluggable PS aggregation policies (DESIGN.md §8), and the step
+machinery of the PS training loop (``step.py``). The packet-level
+transport, network faults and the loss-budget controller come with the
+port of the packet-level simulator (ROADMAP.md, queue 1 item 8b)."""
+from repro_torch.runtime.compute import (  # noqa: F401
+    COMPUTE_MODELS,
+    ComputeModel,
+    DeterministicCompute,
+    LognormalStragglerCompute,
+    TraceCompute,
+    make_compute_model,
+)
+from repro_torch.runtime.faults import (  # noqa: F401
+    FAULT_KINDS,
+    FaultEvent,
+    FaultSchedule,
+    ShardLedger,
+    schedule_from_config,
+)
+from repro_torch.runtime.policies import (  # noqa: F401
+    POLICIES,
+    AggregationPolicy,
+    AsyncPolicy,
+    BSPPolicy,
+    PendingGrad,
+    SSPPolicy,
+    make_policy,
+)
+from repro_torch.runtime.runtime import ClusterRuntime  # noqa: F401
+from repro_torch.runtime.telemetry import Telemetry  # noqa: F401
+from repro_torch.runtime.transport import AnalyticPerWorkerNet  # noqa: F401

@@ -2,14 +2,13 @@
 
 The PyTorch counterpart of the JAX package's ``runtime/step.py``: the
 fused BSP step (per-worker grads -> ONE masked multi-worker reduction ->
-optimizer update) and the host-side mask draws. ``draw_delivery_masks``
-and ``tile_mask_onto_plan`` are numpy, copied as they are, so both
-packages draw the same masks from the same seed.
+optimizer update), the cluster runtime's apply-on-arrival builders (one
+worker's gradient, the per-gradient error-feedback gate, the PS apply
+of an admitted batch) and the host-side mask draws.
+``draw_delivery_masks`` and ``tile_mask_onto_plan`` are numpy, copied as
+they are, so both packages draw the same masks from the same seed.
 
-PyTorch runs eagerly, so nothing here is jit-compiled or cached. The
-async-path builders (``build_worker_grad_fn``, ``build_ef_gate_fn``,
-``build_apply_fn``) wait for the port of the cluster runtime
-(ROADMAP.md, queue 1 item 8).
+PyTorch runs eagerly, so nothing here is jit-compiled or cached.
 """
 from __future__ import annotations
 
@@ -76,6 +75,61 @@ def build_fused_step(api, opt: Optimizer, ltp: LTPConfig, plan, w: int,
         return params, opt_state, new_residual, losses.mean(), realized
 
     return step
+
+
+def build_worker_grad_fn(api, plan):
+    """One worker's gradient against ITS OWN params snapshot (the
+    async/SSP compute leg): (params, batch_slice) -> (loss, flat packets
+    of shape (n_packets, packet_floats))."""
+
+    def grad_fn(params, batch):
+        grads, loss = grad_and_value(lambda p: api.loss_fn(p, batch))(params)
+        return loss, pk.flatten(plan, grads)
+
+    return grad_fn
+
+
+def build_ef_gate_fn(ltp: LTPConfig):
+    """Error-feedback gate for the per-gradient path: accumulate what the
+    network dropped, re-add it next round (EF-SGD, DESIGN.md §2). Under
+    sync_backend="cuda"/"auto" on the card the gate is the ``dropfill``
+    kernel at (n_packets, packet_floats)."""
+
+    def gate(flat, residual, mask):
+        flat = flat + residual
+        sent = ls.apply_delivery(flat, mask, backend=ltp.sync_backend)
+        return sent, flat - sent
+
+    return gate
+
+
+def build_apply_fn(api, opt: Optimizer, ltp: LTPConfig, plan, w: int,
+                   premasked: bool = False):
+    """PS-side apply for an admitted batch of gradients (async/SSP).
+
+    (params, opt_state, stacked (W, n, p), masks (W, n), weights (W,),
+     frac, lr) -> (params, opt_state).
+
+    The reduction divides by the cluster size ``w`` regardless of how
+    many gradients the batch holds (zero-weight rows contribute nothing),
+    so each admitted gradient lands with effective step lr * weight / W —
+    the same per-contribution scale as one BSP iteration. ``weights``
+    carries the policy's staleness damping (``ls.staleness_weights``).
+    Note: under "count" compensation the per-packet deliverer count is
+    taken within the admitted batch.
+    """
+
+    def apply(params, opt_state, stacked, masks, weights, frac, lr):
+        mean_flat = ls.reduce_packet_stream(
+            stacked, masks, ltp, w, expected_frac=frac,
+            worker_weights=weights, premasked=premasked)
+        dtypes = [x.dtype for x in tree_leaves(params)]
+        mean_grads = pk.unflatten(plan, mean_flat, dtypes)
+        updates, opt_state = opt.update(mean_grads, opt_state, params, lr)
+        params = tree_map(lambda p, u: p + u, params, updates)
+        return params, opt_state
+
+    return apply
 
 
 def draw_delivery_masks(plan, w: int, rng: np.random.Generator,

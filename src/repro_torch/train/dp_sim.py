@@ -12,12 +12,21 @@ replicated weights). The transport layer:
   * protocol tcp-family: lossless sync (delivered=1); BST from the transport
                          model — only wall-clock differs.
 
-Engines: only ``engine="lockstep"`` is ported. The JAX package's default
-engine, ``"runtime"`` (``ClusterRuntime``), reproduces lockstep record
-for record under its defaults (bsp policy, analytic transport), so the
-port's lockstep history equals the JAX default path's; ``"runtime"``
-here raises until the cluster runtime is ported (ROADMAP.md, queue 1
-item 8).
+Engines:
+
+  * ``engine="runtime"`` (default): delegates to
+    ``repro_torch.runtime.ClusterRuntime`` — the event-driven
+    co-simulation over the analytic transport. With the default bsp
+    policy and deterministic compute this reproduces the lockstep loop
+    record for record (same fused step, same controller and mask RNG
+    streams; pinned by tests/test_torch_runtime.py), while opening the
+    async/ssp aggregation policies and heterogeneous compute models to
+    the same API. The packet-level transport (``transport="des"``) comes
+    with its own slice (ROADMAP.md, queue 1 item 8b).
+  * ``engine="lockstep"``: the synchronous loop below. Also selected
+    automatically when a precomputed trace (``bst_trace`` /
+    ``delivered_trace`` / ``mask_trace``) is supplied, since traces are
+    a lockstep-only feature.
 
 Wall-clock per iteration = compute_time + BST. Delivery masks are drawn
 host-side with numpy each step (Bernoulli(frac) with critical packets
@@ -44,6 +53,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.api import ModelApi
 from repro_torch.net.topology import resolve_topology
 from repro_torch.optim import Optimizer, lr_at
+from repro_torch.runtime import ClusterRuntime
 from repro_torch.runtime import step as stp
 from repro_torch.tree import tree_map
 
@@ -70,23 +80,27 @@ class PSTrainer:
         mask_trace: Optional[np.ndarray] = None,
         seed: int = 0,
         n_ps: Optional[int] = None,
-        engine: str = "lockstep",
+        engine: str = "runtime",
+        policy="bsp",
+        policy_kw: Optional[dict] = None,
+        compute_model=None,
+        transport: str = "analytic",
         topology=None,
+        runtime_cfg=None,
         device: DeviceLike = None,
         params: Any = None,
     ):
-        if engine == "runtime":
-            raise NotImplementedError(
-                "engine='runtime' (ClusterRuntime) is not ported to "
-                "repro_torch yet; see ROADMAP.md, queue 1 item 8. Use "
-                "engine='lockstep', which the JAX runtime's bsp default "
-                "reproduces record for record")
-        if engine != "lockstep":
+        if engine not in ("runtime", "lockstep"):
             raise ValueError(f"unknown engine {engine!r}")
         self.device = resolve_device(device)
         topo = resolve_topology(topology, n_ps=n_ps, owner="PSTrainer")
         topo.validate_workers(n_workers, "PSTrainer")
         n_ps = topo.n_ps
+        ltp = ltp.with_runtime(runtime_cfg)
+        has_trace = (bst_trace is not None or delivered_trace is not None
+                     or mask_trace is not None)
+        if has_trace:
+            engine = "lockstep"   # traces are a lockstep-only feature
         self.api = api
         self.opt = opt
         self.train_cfg = train
@@ -100,6 +114,29 @@ class PSTrainer:
         self.mask_trace = (np.asarray(mask_trace, bool)
                            if mask_trace is not None else None)
         self.engine = engine
+        self._rt: Optional[ClusterRuntime] = None
+        if engine == "runtime":
+            self._rt = ClusterRuntime(
+                api, opt, train, ltp, net, n_workers=n_workers,
+                protocol=protocol, policy=policy, policy_kw=policy_kw,
+                compute_model=compute_model, compute_time=compute_time,
+                topology=topo, seed=seed, transport=transport,
+                device=self.device, params=params)
+            # mirror the runtime's state so the public surface is stable
+            self.params = self._rt.params
+            self.opt_state = self._rt.opt_state
+            self.plan = self._rt.plan
+            self.residual = self._rt.residual
+            self.model_bytes = self._rt.model_bytes
+            self.controller = self._rt.controller
+            self.gather_models = self._rt.gather_models
+            self.telemetry = self._rt.tel
+            self.n_ps = n_ps
+            self.sim_time = 0.0
+            self.step_idx = 0
+            self.history: List[Dict] = self._rt.history
+            return
+        self.telemetry = None
         self._mask_rng = np.random.default_rng(seed + 23)
         if params is None:
             gen = torch.Generator().manual_seed(seed)
@@ -173,6 +210,17 @@ class PSTrainer:
 
     def run(self, batches, *, epoch_steps: int = 0, eval_fn=None,
             eval_every: int = 0, log_every: int = 0) -> List[Dict]:
+        if self._rt is not None:
+            out = self._rt.run(batches, epoch_steps=epoch_steps,
+                               eval_fn=eval_fn, eval_every=eval_every,
+                               log_every=log_every)
+            self.params = self._rt.params
+            self.opt_state = self._rt.opt_state
+            self.residual = self._rt.residual
+            self.sim_time = self._rt.sim_time
+            self.step_idx = self._rt.step_idx
+            self.history = self._rt.history
+            return out
         for batch in batches:
             batch = {k: self._to_workers(v) for k, v in batch.items()}
             bst, frac = self._transport(self.step_idx)
@@ -187,10 +235,10 @@ class PSTrainer:
                     torch.as_tensor(np.asarray(frac, np.float32)).to(
                         self.device),
                     lr)
-            # the JAX runtime engine's order: the gradients are ready at
-            # t + compute, the commit lands bst later. (The JAX lockstep
-            # loop sums t + (compute + bst), one ulp away at times.)
-            self.sim_time = (self.sim_time + self.compute_time) + bst
+            # the JAX lockstep loop's association, t + (compute + bst);
+            # the runtime engine commits at (t + compute) + bst, one ulp
+            # away at times, as its JAX counterpart does
+            self.sim_time += self.compute_time + bst
             rec = {
                 "step": self.step_idx,
                 "loss": float(loss),
@@ -215,6 +263,8 @@ class PSTrainer:
 
     # throughput in items/sec of simulated wall-clock
     def throughput(self, items_per_step: int) -> float:
+        if self._rt is not None:
+            return self._rt.throughput(items_per_step)
         if not self.history:
             return 0.0
         return items_per_step * len(self.history) / self.sim_time

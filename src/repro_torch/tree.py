@@ -8,7 +8,7 @@ and the critical-packet mask of ``core.packets.make_plan``.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Iterator, List
+from typing import Any, Callable, Iterator, List, Tuple
 
 
 def _children(node: Any) -> Iterator[Any]:
@@ -57,3 +57,43 @@ def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
     if any(len(c) != len(cols[0]) for c in cols):
         raise ValueError("trees differ in their number of leaves")
     return tree_unflatten(tree, [fn(*xs) for xs in zip(*cols)])
+
+
+def tree_leaves_with_path(tree: Any) -> List[Tuple[Tuple[Any, ...], Any]]:
+    """``(path, leaf)`` pairs in sorted-key order, as
+    ``jax.tree_util.tree_flatten_with_path`` gives them: a path holds
+    the dict keys and the list/tuple positions down to the leaf. ``None``
+    is an empty subtree, as in JAX, and yields nothing."""
+    out: List[Tuple[Tuple[Any, ...], Any]] = []
+
+    def walk(node: Any, path: Tuple[Any, ...]) -> None:
+        if node is None:
+            return
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], path + (k,))
+        elif isinstance(node, (list, tuple)):
+            for i, c in enumerate(node):
+                walk(c, path + (i,))
+        else:
+            out.append((path, node))
+
+    walk(tree, ())
+    return out
+
+
+def tree_map_with_path(fn: Callable[[Tuple[Any, ...], Any], Any],
+                       tree: Any) -> Any:
+    """``tree``'s structure with each leaf replaced by ``fn(path, leaf)``
+    (paths as ``tree_leaves_with_path`` gives them; ``None`` stays)."""
+    def build(node: Any, path: Tuple[Any, ...]) -> Any:
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            return {k: build(v, path + (k,)) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(c, path + (i,))
+                              for i, c in enumerate(node))
+        return fn(path, node)
+
+    return build(tree, ())

@@ -23,6 +23,7 @@ from repro_torch.kernels import packet_reduce as pr_mod
 from repro_torch.kernels import randomk as rk_mod
 from repro_torch.models import build
 from repro_torch.optim import make_optimizer
+from repro_torch.runtime import ClusterRuntime
 from repro_torch.train import PSTrainer
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
@@ -55,7 +56,7 @@ def test_port_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 20
+    assert int(proc.stdout.strip()) >= 46
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -96,6 +97,15 @@ def test_pstrainer_without_device_and_gpu_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PSTrainer(build(cfg), make_optimizer(tc), tc, LTPConfig(),
                   NetConfig(), n_workers=2)
+
+
+def test_cluster_runtime_without_device_and_gpu_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("papernet").replace(d_model=8, n_layers=3)
+    tc = TrainConfig(batch=8, steps=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ClusterRuntime(build(cfg), make_optimizer(tc), tc, LTPConfig(),
+                       NetConfig(), n_workers=2)
 
 
 def test_kernel_loader_without_cuda_raises(monkeypatch):
@@ -216,11 +226,27 @@ def test_resolve_backend_rules():
 
 
 def test_runtime_engine_and_other_families_wait_for_their_port():
+    """The runtime engine runs over the analytic transport; the
+    packet-level transport, network faults and the loss-budget
+    controller wait for the port of the packet-level simulator."""
     cfg = get_config("papernet").replace(d_model=8, n_layers=3)
     tc = TrainConfig(batch=8, steps=1)
+
+    def runtime(**kw):
+        return ClusterRuntime(build(cfg), make_optimizer(tc), tc,
+                              LTPConfig(), NetConfig(), n_workers=2,
+                              device="cpu", **kw)
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        runtime(transport="des")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        runtime(net_faults=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        runtime(budget=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PSTrainer(build(cfg), make_optimizer(tc), tc, LTPConfig(),
-                  NetConfig(), n_workers=2, engine="runtime", device="cpu")
+                  NetConfig(), n_workers=2, engine="runtime",
+                  transport="des", device="cpu")
     with pytest.raises(KeyError, match="ROADMAP"):
         get_config("smollm_360m")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -234,7 +260,8 @@ def test_configs_stay_hashable():
 
 
 @pytest.mark.parametrize("name", ["ModelConfig", "LTPConfig", "NetConfig",
-                                  "TrainConfig"])
+                                  "TrainConfig", "RuntimeConfig",
+                                  "ObservabilityConfig", "FaultConfig"])
 def test_config_fields_are_the_jax_packages(name):
     """Every field the port keeps is the JAX package's field, with the same
     default; only ``sync_backend`` differs (the port's backends)."""

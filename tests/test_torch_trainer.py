@@ -1,7 +1,8 @@
-"""The slice end to end: the port's PSTrainer (lockstep engine, on the
-CPU) against the JAX package's PSTrainer on its DEFAULT engine (the
-cluster runtime: bsp policy, analytic transport), from the same params,
-batches and seeds, set up as tests/test_runtime.py sets it up."""
+"""The slice end to end: the port's PSTrainer (on the CPU) against the
+JAX package's PSTrainer, each on its DEFAULT engine (the cluster runtime:
+bsp policy, analytic transport) and each on its lockstep engine, from
+the same params, batches and seeds, set up as tests/test_runtime.py sets
+it up."""
 import os
 import runpy
 
@@ -33,13 +34,15 @@ SMALL = dict(d_model=8, n_layers=3)
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 
 
-def _run_both(jltp: JLTPConfig, ltp: LTPConfig, protocol: str = "ltp"):
+def _run_both(jltp: JLTPConfig, ltp: LTPConfig, protocol: str = "ltp",
+              **engine):
+    """Both packages' PSTrainer on their default engine, or on the one
+    ``engine=`` names."""
     japi = jbuild(jget_config("papernet").replace(**SMALL))
     jtc = JTrainConfig(batch=32, lr=0.05, steps=STEPS)
     jtr = JPSTrainer(japi, jmake_optimizer(jtc), jtc, jltp,
                      JNetConfig(10, 1, 0.001, 4096), n_workers=W,
-                     protocol=protocol, compute_time=0.05, seed=0)
-    assert jtr.engine == "runtime"
+                     protocol=protocol, compute_time=0.05, seed=0, **engine)
     jinit = jax.tree.map(np.asarray, japi.init(jax.random.PRNGKey(0)))
     jhist = jtr.run(jbatches(JSyntheticCIFAR(seed=0), 32, STEPS),
                     epoch_steps=3)
@@ -48,8 +51,10 @@ def _run_both(jltp: JLTPConfig, ltp: LTPConfig, protocol: str = "ltp"):
     tr = PSTrainer(build(get_config("papernet").replace(**SMALL)),
                    make_optimizer(tc), tc, ltp, NetConfig(10, 1, 0.001, 4096),
                    n_workers=W, protocol=protocol, compute_time=0.05, seed=0,
-                   device="cpu", params=params_from_numpy(jinit, "cpu"))
+                   device="cpu", params=params_from_numpy(jinit, "cpu"),
+                   **engine)
     hist = tr.run(batches(SyntheticCIFAR(seed=0), 32, STEPS), epoch_steps=3)
+    assert tr.engine == jtr.engine == engine.get("engine", "runtime")
     return jtr, jhist, tr, hist
 
 
@@ -75,8 +80,16 @@ def _assert_same_history(jtr, jhist, tr, hist):
 
 
 def test_pstrainer_matches_jax_default_path():
-    """Paper compensation, default backends on both sides."""
+    """Paper compensation, default backends, default (runtime) engine on
+    both sides."""
     _assert_same_history(*_run_both(JLTPConfig(), LTPConfig()))
+
+
+def test_pstrainer_lockstep_matches_jax_lockstep():
+    """The lockstep engines: sim_time adds compute + bst as JAX's
+    lockstep loop does, so it too agrees exactly."""
+    _assert_same_history(*_run_both(JLTPConfig(), LTPConfig(),
+                                    engine="lockstep"))
 
 
 def test_pstrainer_count_ef_matches_jax_pallas_path():
@@ -138,11 +151,10 @@ def test_pstrainer_trace_replay_matches_jax():
                    mask_trace=mask_trace, device="cpu",
                    params=params_from_numpy(jinit, "cpu"))
     hist = tr.run(batches(SyntheticCIFAR(seed=1), 32, 3))
+    assert tr.engine == "lockstep"
     for a, b in zip(hist, jhist):
-        assert (a["step"], a["bst"]) == (b["step"], b["bst"])
-        # JAX's lockstep loop sums t + (compute + bst); the port sums in
-        # its runtime engine's order, (t + compute) + bst
-        assert a["sim_time"] == pytest.approx(b["sim_time"], rel=1e-15)
+        assert (a["step"], a["bst"], a["sim_time"]) == \
+            (b["step"], b["bst"], b["sim_time"])
         np.testing.assert_allclose(a["delivered"], b["delivered"], rtol=1e-6)
         np.testing.assert_allclose(a["loss"], b["loss"], rtol=1e-4)
 
