@@ -56,7 +56,19 @@ From the root of a checkout it:
    ``runtime`` line: host ms a step and images/s for each engine, the
    ``Sim`` events of the timed runtime run, the profiled step's idle
    share;
-7. prints a ``kernels`` JSON line and, last, the device JSON line.
+7. drives the packet-level transport (``transport="des"``,
+   ``run_des_phase``) at the same width, 5 steps a run: bsp over ltp
+   through ``PSTrainer``, kernels against the plain backend (equal
+   transport fields and ``masks`` digests, params within tolerance, one
+   packet_reduce and one dropfill launch a step); bsp over cubic
+   (delivered 1.0, its mean bst beside ltp's); async with one 3x
+   straggler, kernels against plain (launches once an apply and once an
+   admitted gradient); then the DES and analytic runtimes timed, four
+   runs each in turns, and one DES bsp step profiled, and prints the
+   ``des`` line: host ms a step, images/s and ``Sim`` events a run of
+   each transport, the profiled step's idle share and the two kernels'
+   device time in it;
+8. prints a ``kernels`` JSON line and, last, the device JSON line.
 
 TF32 is switched off for cuDNN convolutions and matmuls for the whole
 run, so that float32 comparisons compare float32 arithmetic. Any
@@ -411,7 +423,8 @@ def check_tree_reduce(torch, timer):
     return rows, timed, n_launches
 
 
-def trainer(torch, engine: str, steps: int, sync_backend: str, **ltp_kw):
+def trainer(torch, engine: str, steps: int, sync_backend: str,
+            transport: str = "analytic", protocol: str = "ltp", **ltp_kw):
     """``PSTrainer`` on ``engine`` over full-width papernet, 8 workers,
     one PS, global batch 128, ``NetConfig(10, 1, 0.001, 4096)``, seed 0."""
     from repro_torch.config import LTPConfig, NetConfig, TrainConfig
@@ -424,8 +437,8 @@ def trainer(torch, engine: str, steps: int, sync_backend: str, **ltp_kw):
     return PSTrainer(build(get_config("papernet")), make_optimizer(tc), tc,
                      LTPConfig(sync_backend=sync_backend, **ltp_kw),
                      NetConfig(10, 1, 0.001, 4096), n_workers=8,
-                     protocol="ltp", compute_time=0.05, seed=0,
-                     device="cuda", engine=engine)
+                     protocol=protocol, compute_time=0.05, seed=0,
+                     device="cuda", engine=engine, transport=transport)
 
 
 def run_main_path(torch, sync_backend: str, **ltp_kw):
@@ -788,6 +801,160 @@ def run_runtime_phase(torch, zero_counts, read_counts, launches_of,
     return line, launches
 
 
+def run_des_phase(torch, zero_counts, read_counts, launches_of, steps=5):
+    """The packet-level transport (``transport="des"``: ``ClusterRuntime``
+    over ``DESTransport``, packet trains of 32) at full width, ``steps``
+    steps a run, count compensation and error feedback:
+
+    * bsp over ltp through ``PSTrainer``, the kernels against the plain
+      backend, with deterministic convolutions: equal step, bst,
+      sim_time and delivered, equal ``masks`` digests (the host DES's
+      delivery masks), params within rtol 2e-4 / atol 2e-5 (bitwise is
+      reported); packet_reduce and dropfill once a step, nothing on the
+      plain run;
+    * bsp over cubic through the kernels: every step delivers 1.0; its
+      mean bst beside ltp's (the paper's contrast, a simulated metric);
+    * async with ``DeterministicCompute(8, base=0.05, mults=[1] * 7 +
+      [3])``, kernels against plain: equal step, staleness, n_grads,
+      delivered and sim_time, equal digests; packet_reduce launched once
+      an apply and dropfill once an admitted gradient;
+
+    then the DES and the analytic runtime, each timed as a whole 5-step
+    run after a 1-step warm-up, four runs each in turns, and one DES bsp
+    step (a 1-step run) profiled. Returns (the ``des`` line, the
+    launches of the counted runs)."""
+    from repro_torch.runtime import DeterministicCompute
+    from repro_torch.tree import tree_leaves
+
+    ef = {"compensation": "count", "error_feedback": True}
+    line, launches = {}, []
+
+    def counted(label, make):
+        zero_counts()
+        obj = make()
+        obj.run(host_batches(steps), epoch_steps=3)
+        got = read_counts()
+        launches.append(got)
+        line.setdefault("launches", {})[label] = got
+        return obj, got
+
+    def digests(tel):
+        return [e["digest"] for e in tel.of("masks")]
+
+    def compare(label, ker, plain, keys):
+        """Two ``ClusterRuntime`` runs, kernels and plain backend."""
+        for a, b in zip(ker.history, plain.history, strict=True):
+            if [a[k] for k in keys] != [b[k] for k in keys] or \
+                    not math.isfinite(a["loss"]) or \
+                    not 0.0 < a["delivered"] <= 1.0:
+                raise AssertionError(f"des {label} kernels vs plain: "
+                                     f"{a} vs {b}")
+        if digests(ker.tel) != digests(plain.tel):
+            raise AssertionError(f"des {label}: masks digests differ")
+        return {"params_max_abs_diff": max_abs_diff(torch, ker.params,
+                                                    plain.params),
+                "params_bitwise": all(
+                    torch.equal(x, y) for x, y in zip(
+                        tree_leaves(ker.params), tree_leaves(plain.params)))}
+
+    def des_trainer(backend, n=steps, protocol="ltp"):
+        return trainer(torch, "runtime", n, backend, transport="des",
+                       protocol=protocol, **ef)
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        ker, got = counted("bsp_ltp_cuda", lambda: des_trainer("cuda"))
+        plain, got_plain = counted("bsp_ltp_python",
+                                   lambda: des_trainer("python"))
+        net_des = ker._rt.net_des
+        if net_des is None or plain._rt.net_des is None or \
+                got != launches_of(packet_reduce=steps, dropfill=steps) or \
+                got_plain != launches_of():
+            raise AssertionError(f"des bsp: launches {got}, plain "
+                                 f"{got_plain}")
+        same = compare("bsp", ker._rt, plain._rt,
+                       ("step", "bst", "sim_time", "delivered"))
+        dk = digests(ker._rt.tel)
+        if len(dk) != steps:
+            raise AssertionError(f"des bsp: {len(dk)} masks digests")
+        bst_ltp = statistics.mean(h["bst"] for h in ker.history)
+        line["bsp_ltp"] = {
+            "history": ker.history, "masks_digests": dk,
+            "n_early_close": len(ker._rt.tel.of("early_close")),
+            "mean_bst": bst_ltp, "coalesce": net_des.coalesce,
+            "packets_per_flow": net_des.n,
+            "plan_packets": ker.plan.n_packets,
+            "flow_stats": net_des.flow_stats(), **same}
+
+        # a lossless gather: the fused step takes the plain mean, no kernel
+        cub, got = counted("bsp_cubic_cuda",
+                           lambda: des_trainer("cuda", protocol="cubic"))
+        if got != launches_of():
+            raise AssertionError(f"des cubic: launches {got}")
+        if [h["delivered"] for h in cub.history] != [1.0] * steps or \
+                not all(math.isfinite(h["loss"]) for h in cub.history):
+            raise AssertionError(f"des cubic: {cub.history}")
+        line["bsp_cubic"] = {
+            "history": cub.history,
+            "mean_bst": statistics.mean(h["bst"] for h in cub.history),
+            "ltp_mean_bst": bst_ltp}
+
+        def async_run(backend):
+            return cluster_runtime(
+                torch, steps, backend, ef, policy="async", transport="des",
+                compute_model=DeterministicCompute(8, base=0.05,
+                                                   mults=[1.0] * 7 + [3.0]))
+
+        ka, got = counted("async_cuda", lambda: async_run("cuda"))
+        pa, got_plain = counted("async_python", lambda: async_run("python"))
+        hist = ka.history
+        want = launches_of(packet_reduce=len(hist),
+                           dropfill=sum(h["n_grads"] for h in hist))
+        if got != want or got_plain != launches_of():
+            raise AssertionError(f"des async: launches {got} (want {want}),"
+                                 f" plain {got_plain}")
+        same = compare("async", ka, pa, ("step", "staleness", "n_grads",
+                                         "delivered", "sim_time"))
+        line["async"] = {
+            "n_applies": len(hist),
+            "n_grads": sum(h["n_grads"] for h in hist),
+            "n_early_close": len(ka.tel.of("early_close")),
+            "min_delivered": min(h["delivered"] for h in hist),
+            "staleness_max": max(h["staleness"] for h in hist),
+            "sim_time": ka.sim_time, **same}
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    # the DES event loop's host cost against the analytic transport on the
+    # same step: each timed as a whole run after a 1-step warm-up, in
+    # turns (D A A D D A A D), since the host's pace drifts within a call
+    def make(transport):
+        return lambda n: trainer(torch, "runtime", n, "cuda",
+                                 transport=transport, **ef)
+
+    readings = {"des": [], "analytic": []}
+    events = {"des": [], "analytic": []}
+    for transport in readings:
+        make(transport)(1).run(host_batches(1), epoch_steps=3)
+    for transport in ("des", "analytic", "analytic", "des") * 2:
+        secs, n_events = timed_run(torch, make(transport), steps)
+        readings[transport].append(secs / steps * 1e3)
+        events[transport].append(n_events)
+    line["timing"] = {
+        t: {"host_ms_per_step": ms,
+            "median_host_ms_per_step": statistics.median(ms),
+            "spread_ms": max(ms) - min(ms),
+            "images_per_s": 128e3 / statistics.median(ms),
+            "sim_events_per_run": events[t]}
+        for t, ms in readings.items()}
+    one, batch = des_trainer("cuda", n=1), host_batches(1)
+    prof = profile_step(torch, lambda: one.run(batch))
+    line["profile_des_bsp_step"] = prof
+    line["idle_share"] = prof["idle_share"]
+    return line, launches
+
+
 def main() -> int:
     import torch
 
@@ -944,12 +1111,21 @@ def main() -> int:
                                              launches_of)
     print("runtime " + json.dumps(rt_line))
 
+    # the packet-level transport
+    des_line, des_launches = run_des_phase(torch, zero_counts, read_counts,
+                                           launches_of)
+    print("des " + json.dumps(des_line))
+
     # tree_reduce is on no training path: its count is the check calls'
-    main_launches = {
-        name: sum(r[2][name] for r in runs.values())
-        + sum(r["launches"][name] for r in fig5.values())
-        + sum(r[name] for r in rt_launches)
-        for name in counters}
+    by_path = {
+        "lockstep": [r[2] for r in runs.values()],
+        "Fig 5": [r["launches"] for r in fig5.values()],
+        "runtime": rt_launches, "des": des_launches}
+    path_launches = {name: {path: sum(r[name] for r in rs)
+                            for path, rs in by_path.items()}
+                     for name in counters}
+    main_launches = {name: sum(path_launches[name].values())
+                     for name in counters}
     if main_launches["tree_reduce"] != 0:
         raise AssertionError("a training path launched tree_reduce")
     main_launches["tree_reduce"] = tree_check_launches
@@ -968,7 +1144,9 @@ def main() -> int:
             "launches": main_launches[name],
             "launches_from": ("check calls: no training path calls it"
                               if name == "tree_reduce" else
-                              "main paths: lockstep, Fig 5, runtime"),
+                              "main paths: " + ", ".join(
+                                  path for path, n in
+                                  path_launches[name].items() if n)),
             "max_abs_err": e["max_abs_err"],
             "ms": e["ms"], "plain_ms": e["plain_ms"],
             "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],

@@ -8,9 +8,12 @@ architecture is described by a ``ModelConfig``; the transport/protocol
 knobs live in ``NetConfig`` and ``LTPConfig``; training in
 ``TrainConfig``; the cluster runtime's knobs in ``RuntimeConfig``
 (overlaid on ``LTPConfig``), ``ObservabilityConfig`` and
-``FaultConfig``. The mesh and run configs, the network-fault config,
-the wire-format sizes and the trunk sampler's switch come with the
-slices that read them (ROADMAP.md, queue 1).
+``FaultConfig``. The mesh and run configs and the network-fault config
+come with the slices that read them (ROADMAP.md, queue 1). The JAX
+package's ``LTPConfig.mtu_bytes``, ``header_bytes`` and
+``udp_ip_overhead`` are read by neither package: the senders size
+packets with their own constants (``net/senders.py``: ``MSS``,
+``LTP_PAYLOAD``), so the port leaves them out.
 """
 from __future__ import annotations
 
@@ -47,9 +50,7 @@ class ObservabilityConfig:
     runtime holds no tracker object at all and runs are bitwise
     identical to a build without the observability layer.
 
-    Frozen + hashable: this config rides inside ``LTPConfig``. The JAX
-    package's ``sample_trunks`` switch feeds the packet-level
-    transport's trunk sampler and comes with it.
+    Frozen + hashable: this config rides inside ``LTPConfig``.
     """
 
     tracker: str = "none"
@@ -60,6 +61,11 @@ class ObservabilityConfig:
     run_name: str = "run"
     # histogram reservoir size for the metrics registry (Algorithm R)
     reservoir: int = 1024
+    # sample per-trunk queue depths on the ``Sim.every`` grid (feeds the
+    # per-trunk counter tracks in the Chrome trace). Only read when a
+    # tracker is active — with ``tracker="none"`` the queue events stay
+    # exactly as before.
+    sample_trunks: bool = True
 
 
 @dataclass(frozen=True)
@@ -132,11 +138,9 @@ class RuntimeConfig:
 
 @dataclass(frozen=True)
 class NetConfig:
-    """Simulated physical network (per-link). ``queue_pkts`` and
-    ``mtu_bytes`` are read only by the packet-level transport, which
-    comes with its own slice (ROADMAP.md, queue 1 item 8b); they stay
-    so that the positional form ``NetConfig(10, 1, 0.001, 4096)`` means what it
-    means in the JAX package."""
+    """Simulated physical network (per-link). ``mtu_bytes`` is read by
+    neither package: packet sizes are the senders' constants
+    (``net/senders.py``)."""
 
     bandwidth_gbps: float = 10.0
     rtprop_ms: float = 1.0

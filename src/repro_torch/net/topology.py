@@ -2,8 +2,9 @@
 
 A numpy-only copy of the JAX package's ``net/topology.py``: the port
 keeps its own copy rather than importing it. The lockstep trainer reads
-``n_ps`` and the worker-count check; the rack/spine fields are carried
-for the packet-level simulator, which the port does not have yet.
+``n_ps`` and the worker-count check; the packet-level simulator
+(``scenarios``, the runtime's ``DESTransport``) reads the rack/spine
+fields.
 
 One builder module owns every cluster shape the simulator can run:
 
@@ -17,7 +18,7 @@ One builder module owns every cluster shape the simulator can run:
                        oversubscribed uplinks to a spine (``oversub``),
                        PS shard placement as a tunable (``ps_racks``),
                        and optional in-network aggregation at the ToRs
-                       (the JAX package's ``net/aggtree.py``, DESIGN.md §11).
+                       (``repro_torch.net.aggtree``, DESIGN.md §11).
 
 Builders return a ``Topology`` — a declarative description accepted by
 every scenario, runtime, and benchmark entry point (``topology=``).
@@ -125,7 +126,7 @@ class Topology(GatherSpec):
     ``inetwork_agg`` places an ``AggSwitch`` per (shard, rack) at the
     ToR: same-(shard, seq) packets from rack members are combined into
     one upstream wire packet (MLFabric-style partial reduction in the
-    network), flushed in seq order — see the JAX package's ``net/aggtree.py``.
+    network), flushed in seq order — see ``repro_torch.net.aggtree``.
     """
 
     racks: int = 0
@@ -221,7 +222,7 @@ def rack_spine(racks: int, workers_per_rack: int, *, oversub: float = 4.0,
     ``ps_racks`` homes shard p inside rack ps_racks[p] — its rack-mates
     reach it without paying the uplink; None attaches every PS at the
     spine. ``agg=True`` enables in-network aggregation at the ToRs for
-    LTP flows (order-aware partial reduction, the JAX package's ``net/aggtree.py``).
+    LTP flows (order-aware partial reduction, ``repro_torch.net.aggtree``).
     """
     if racks < 1 or workers_per_rack < 1:
         raise ValueError(

@@ -1,8 +1,8 @@
 """Event-driven cluster runtime: compute/network co-simulation with
 pluggable PS aggregation policies (DESIGN.md §8), and the step
-machinery of the PS training loop (``step.py``). The packet-level
-transport, network faults and the loss-budget controller come with the
-port of the packet-level simulator (ROADMAP.md, queue 1 item 8b)."""
+machinery of the PS training loop (``step.py``). Network faults and the
+loss-budget controller come with their port (ROADMAP.md, queue 1 item
+8b(ii))."""
 from repro_torch.runtime.compute import (  # noqa: F401
     COMPUTE_MODELS,
     ComputeModel,
@@ -29,4 +29,7 @@ from repro_torch.runtime.policies import (  # noqa: F401
 )
 from repro_torch.runtime.runtime import ClusterRuntime  # noqa: F401
 from repro_torch.runtime.telemetry import Telemetry  # noqa: F401
-from repro_torch.runtime.transport import AnalyticPerWorkerNet  # noqa: F401
+from repro_torch.runtime.transport import (  # noqa: F401
+    AnalyticPerWorkerNet,
+    DESTransport,
+)

@@ -238,7 +238,7 @@ class SSPPolicy(AggregationPolicy):
 
     def may_start(self, worker: int, iteration: int) -> bool:
         # membership-set order is irrelevant: only min(clocks) is used
-        clocks = [self._clock[wk] for wk in self.active
+        clocks = [self._clock[wk] for wk in self.active  # replint-torch: ok(determinism)
                   if wk in self._clock]
         if not clocks:
             clocks = [self._clock.get(worker, 0)]

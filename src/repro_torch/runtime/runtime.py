@@ -1,13 +1,13 @@
 """ClusterRuntime — event-driven compute/network co-simulation of the
 PS training cluster (DESIGN.md §8).
 
-The PyTorch counterpart of the JAX package's ``runtime/runtime.py``,
-over its analytic transport. One shared ``Sim`` clock carries
-everything: per-worker compute times (``runtime.compute``), the
-transport leg (analytic per-flow timing, ``runtime.transport``), and the
-PS-side aggregation policy (``runtime.policies``). The model state
-(params, optimizer, packet plan, kernel-backed reductions) lives here,
-as device tensors; actors and policies only schedule.
+The PyTorch counterpart of the JAX package's ``runtime/runtime.py``.
+One shared ``Sim`` clock carries everything: per-worker compute times
+(``runtime.compute``), the transport leg (analytic per-flow timing or
+the packet-level DES in ``runtime.transport``), and the PS-side
+aggregation policy (``runtime.policies``). The model state (params,
+optimizer, packet plan, kernel-backed reductions) lives here, as device
+tensors; actors and policies only schedule.
 
 Execution paths:
 
@@ -25,20 +25,22 @@ Execution paths:
 
 Fault tolerance (DESIGN.md §10): a ``FaultSchedule`` (or a
 ``FaultConfig`` drawn at run time) injects worker crash/join/leave and
-PS failure onto the same clock. PS failover restores the last periodic
-snapshot (optionally round-tripped through ``repro_torch.checkpoint``).
-Every fault path is a structural no-op when no faults are scheduled — a
-zero-fault run is record-for-record identical to the fault-unaware
-runtime (tests/test_torch_faults.py pins this).
+PS failure onto the same clock. Worker death rides the transport's
+generation-fencing protocol, so a dead node's in-flight traffic is
+provably dropped; PS failover restores the last periodic snapshot
+(optionally round-tripped through ``repro_torch.checkpoint``) and, with
+``n_ps > 1``, rebalances shard ownership across survivors. Every fault
+path is a structural no-op when no faults are scheduled — a zero-fault
+run is record-for-record identical to the fault-unaware runtime
+(tests/test_torch_faults.py pins this).
 
 The snapshot keeps params, optimizer state and the error-feedback
 residual by reference. That is a copy only while nothing writes them in
 place: the optimizers return new tensors, and the residual is replaced
 out of place (``index_copy``), never written through ``residual[w] =``.
 
-The packet-level transport (``transport="des"``), network faults
-(``net_faults=``) and the loss-budget controller (``budget=``) come with
-the port of the packet-level simulator (ROADMAP.md, queue 1 item 8b) and
+Network faults (``net_faults=``) and the loss-budget controller
+(``budget=``) come with their port (ROADMAP.md, queue 1 item 8b(ii)) and
 raise ``NotImplementedError`` until then.
 
 Truncation safety: if the event loop stops on ``max_events`` mid-run the
@@ -46,6 +48,7 @@ runtime raises instead of returning a partial history.
 """
 from __future__ import annotations
 
+import hashlib
 import os
 from typing import Dict, List, Optional
 
@@ -93,22 +96,26 @@ from repro_torch.runtime.policies import (
     make_policy,
 )
 from repro_torch.runtime.telemetry import Telemetry
-from repro_torch.runtime.transport import AnalyticPerWorkerNet
+from repro_torch.runtime.transport import AnalyticPerWorkerNet, DESTransport
 from repro_torch.tree import tree_map
 
-_NOT_PORTED = ("is not ported to repro_torch yet: it needs the "
-               "packet-level simulator; see ROADMAP.md, queue 1 item 8b")
+_NOT_PORTED = ("is not ported to repro_torch yet: it needs the network "
+               "fault plane and the loss-budget controller; see "
+               "ROADMAP.md, queue 1 item 8b(ii)")
 
 
 class _BSPRound:
     """One in-flight barrier iteration (bsp only)."""
 
-    __slots__ = ("iteration", "ready", "t_first", "members")
+    __slots__ = ("iteration", "ready", "gather", "t_first", "flows_done",
+                 "members")
 
     def __init__(self, iteration: int):
         self.iteration = iteration
         self.ready: set = set()
+        self.gather = None          # _DESBarrierGather under transport="des"
         self.t_first: Optional[float] = None
+        self.flows_done: set = set()  # completed reliable flows (non-ltp DES)
         # membership snapshot at round creation; crashes shrink it, and
         # the barrier closes when members ⊆ ready (== the lockstep
         # len(ready) == W condition whenever the cluster is whole)
@@ -150,11 +157,10 @@ class ClusterRuntime:
         obs: Optional[ObservabilityConfig] = None,
         net_faults=None,
         budget=None,
+        coalesce: Optional[int] = None,
         device: DeviceLike = None,
     ):
-        if transport == "des":
-            raise NotImplementedError(f"transport='des' {_NOT_PORTED}")
-        if transport != "analytic":
+        if transport not in ("analytic", "des"):
             raise ValueError(f"unknown transport {transport!r}")
         if net_faults is not None:
             raise NotImplementedError(f"net_faults= {_NOT_PORTED}")
@@ -236,9 +242,18 @@ class ClusterRuntime:
         ]
         # async/ssp streams (separate, so they cannot perturb bsp parity)
         self._amask_rng = np.random.default_rng(seed + 29)
-        self.anet = AnalyticPerWorkerNet(
-            self.sim, net, ltp, protocol, n_workers, self.model_bytes,
-            seed=seed)
+        self.net_des: Optional[DESTransport] = None
+        self.anet: Optional[AnalyticPerWorkerNet] = None
+        if transport == "des":
+            self.net_des = DESTransport(
+                self.sim, net, ltp, protocol, n_workers, self.model_bytes,
+                topology=self.topology, seed=seed, coalesce=coalesce,
+                on_early_close=lambda shard, t, d, lat=0.0: self.tel.record(
+                    "early_close", t, shard=shard, delivered=d, lat=lat))
+        else:
+            self.anet = AnalyticPerWorkerNet(
+                self.sim, net, ltp, protocol, n_workers, self.model_bytes,
+                seed=seed)
 
         # step machinery, built lazily per execution path
         self._fused_step = None
@@ -366,23 +381,44 @@ class ClusterRuntime:
         # is gone — a dead flow can never fold into the model
         self._flight[(worker, it)] = self._ps_epoch
 
-        def on_close(frac, early, worker=worker, it=it, loss=loss,
-                     flat=flat):
-            if self._flight.pop((worker, it), None) is None:
-                return
-            if self.protocol == "ltp":
-                row = (self._amask_rng.random(self.plan.n_packets)
-                       < frac).astype(np.float32)
-                row[self.plan.critical] = 1.0
-            else:
-                row = np.ones(self.plan.n_packets, np.float32)
-            if early:
-                self.tel.record("early_close", self.sim.now,
-                                worker=worker, iteration=it,
-                                delivered=float(frac))
-            self._deliver(worker, it, loss, flat, row, float(frac))
+        if self.net_des is not None:
+            def on_delivered(masks_ps, frac, early, worker=worker, it=it,
+                             loss=loss, flat=flat):
+                if self._flight.pop((worker, it), None) is None:
+                    return
+                stream = np.concatenate(list(masks_ps))
+                row = stp.tile_mask_onto_plan(self.plan, stream)
+                if self.tel.enabled:
+                    self.tel.record(
+                        "masks", self.sim.now, worker=worker, iteration=it,
+                        digest=hashlib.blake2b(
+                            np.ascontiguousarray(masks_ps).tobytes(),
+                            digest_size=8).hexdigest())
+                if early:
+                    self.tel.record("early_close", self.sim.now,
+                                    worker=worker, iteration=it,
+                                    delivered=float(frac))
+                self._deliver(worker, it, loss, flat, row, float(frac))
 
-        self.anet.send(worker, on_close)
+            self.net_des.send(worker, on_delivered)
+        else:
+            def on_close(frac, early, worker=worker, it=it, loss=loss,
+                         flat=flat):
+                if self._flight.pop((worker, it), None) is None:
+                    return
+                if self.protocol == "ltp":
+                    row = (self._amask_rng.random(self.plan.n_packets)
+                           < frac).astype(np.float32)
+                    row[self.plan.critical] = 1.0
+                else:
+                    row = np.ones(self.plan.n_packets, np.float32)
+                if early:
+                    self.tel.record("early_close", self.sim.now,
+                                    worker=worker, iteration=it,
+                                    delivered=float(frac))
+                self._deliver(worker, it, loss, flat, row, float(frac))
+
+            self.anet.send(worker, on_close)
 
     def _deliver(self, worker: int, it: int, loss, flat, mask_row: np.ndarray,
                  frac: float) -> None:
@@ -398,14 +434,16 @@ class ClusterRuntime:
 
     def on_worker_dead(self, idx: int, graceful: bool = False) -> None:
         """Remove ``idx`` from the membership. A crash (graceful=False)
-        additionally fences its in-flight gradients; a graceful leave
-        lets them deliver."""
+        additionally tears down its transport state and fences its
+        in-flight gradients; a graceful leave lets them deliver."""
         self.active_workers.discard(idx)
         if not graceful:
             for key in [k for k in self._flight if k[0] == idx]:
                 del self._flight[key]
                 self.tel.record("flow_torn", self.sim.now, worker=idx,
                                 iteration=key[1])
+            if self.net_des is not None:
+                self.net_des.teardown_worker(idx)
         self.policy.on_membership(self.active_workers)
         if not graceful and isinstance(self.policy, BSPPolicy):
             self._bsp_round_member_lost(idx)
@@ -421,9 +459,41 @@ class ClusterRuntime:
             rnd = self._bsp_round = _BSPRound(it)
             rnd.t_first = self.sim.now
             rnd.members = set(self.active_workers)
+            if self.net_des is not None and self.protocol == "ltp":
+                rnd.gather = self.net_des.start_gather(
+                    self._bsp_des_closed,
+                    members=(None if len(rnd.members) == self.w
+                             else rnd.members))
         rnd.ready.add(worker)
-        if rnd.members and rnd.members <= rnd.ready:
-            self._bsp_analytic_close(rnd)
+        if self.net_des is None:
+            if rnd.members and rnd.members <= rnd.ready:
+                self._bsp_analytic_close(rnd)
+        elif self.protocol == "ltp":
+            rnd.gather.add_worker(worker)
+        else:
+            # reliable protocols: independent flows; the barrier closes
+            # when the last byte of the last member's flow lands
+            # staleness guard lives in _bsp_reliable_check (``rnd is not
+            # self._bsp_round`` → return); marking a dead round's
+            # flows_done set first is harmless, the object is garbage.
+            def on_flow(masks_ps, frac, early, rnd=rnd, worker=worker):
+                rnd.flows_done.add(worker)
+                self._bsp_reliable_check(rnd)
+
+            self.net_des.send(worker, on_flow)  # replint-torch: ok(gen-fence)
+
+    def _bsp_reliable_check(self, rnd: _BSPRound) -> None:
+        if rnd is not self._bsp_round or not rnd.members \
+                or not rnd.members <= rnd.flows_done:
+            return
+        masks = np.ones((self.w, self.plan.n_packets), np.float32)
+        close = self.sim.now - rnd.t_first
+        bst = close + broadcast_time(self.net, self.model_bytes,
+                                     n_ps=self.n_ps)
+        if len(rnd.ready & rnd.members) == self.w:
+            self._bsp_commit(rnd, masks, np.ones(self.w), bst)
+        else:
+            self._bsp_commit_degraded(rnd, masks, np.ones(self.w), bst)
 
     def _bsp_round_member_lost(self, worker: int) -> None:
         """A crash removed ``worker`` mid-round: shrink the barrier to
@@ -439,11 +509,19 @@ class ClusterRuntime:
             rnd.ready.discard(worker)
             self.tel.record("flow_torn", self.sim.now, worker=worker,
                             iteration=rnd.iteration)
+        if rnd.gather is not None:
+            # the gather's own close rule re-evaluates over the
+            # surviving flows (may fire _bsp_des_closed synchronously)
+            rnd.gather.abandon_worker(worker)
+            return
         if not rnd.members:
             self._bsp_round_dissolved()
             return
-        if rnd.members <= rnd.ready:
-            self._bsp_analytic_close(rnd)
+        if self.net_des is None:
+            if rnd.members <= rnd.ready:
+                self._bsp_analytic_close(rnd)
+        else:
+            self._bsp_reliable_check(rnd)
 
     def _bsp_round_dissolved(self) -> None:
         """Every participant of the in-flight round crashed before it
@@ -492,6 +570,37 @@ class ClusterRuntime:
             self._bsp_commit_degraded(rnd, masks, frac, bst,
                                       t_anchor=self.sim.now)
 
+    def _bsp_des_closed(self, sharded) -> None:
+        """All DES shards closed: real delivery masks -> fused step."""
+        rnd = self._bsp_round
+        if rnd is None:
+            return
+        if not (rnd.ready & rnd.members):
+            # every participant crashed before the gather closed
+            self._bsp_round_dissolved()
+            return
+        per_shard = sharded.delivery_masks()        # (n_ps, W, n)
+        if self.tel.enabled:
+            self.tel.record(
+                "masks", self.sim.now, iteration=rnd.iteration,
+                digest=hashlib.blake2b(
+                    np.ascontiguousarray(per_shard).tobytes(),
+                    digest_size=8).hexdigest())
+        masks = np.stack([
+            stp.tile_mask_onto_plan(
+                self.plan, np.concatenate([per_shard[p][f]
+                                           for p in range(self.n_ps)]))
+            for f in range(self.w)
+        ])
+        frac = sharded.delivered_fracs()
+        close = self.sim.now - rnd.t_first
+        bst = close + broadcast_time(self.net, self.model_bytes,
+                                     n_ps=self.n_ps)
+        if len(rnd.ready & rnd.members) == self.w:
+            self._bsp_commit(rnd, masks, frac, bst)
+        else:
+            self._bsp_commit_degraded(rnd, masks, frac, bst)
+
     def _bsp_commit(self, rnd: _BSPRound, masks: np.ndarray,
                     frac: np.ndarray, bst: float,
                     t_anchor: Optional[float] = None) -> None:
@@ -512,7 +621,9 @@ class ClusterRuntime:
                 lr)
         # the iteration commits when the broadcast lands: history record,
         # params visibility, and the barrier release all happen there.
-        # ``t_anchor`` is the gather start (the last grad-ready).
+        # ``t_anchor`` is the gather start (analytic: last grad-ready;
+        # DES: the round's first send, whose ``bst`` already spans the
+        # in-flight gather).
         t_commit = (rnd.t_first if t_anchor is None else t_anchor) + bst
         epoch = self._ps_epoch
 
@@ -743,7 +854,7 @@ class ClusterRuntime:
         elif ev.kind == "ps_fail":
             self._fault_ps_fail(ev.target % self.n_ps, ev.recover_s)
         elif ev.kind == "ps_recover":
-            self.ledger.recover(ev.target % self.n_ps)
+            self._fault_ps_recover(ev.target % self.n_ps)
 
     def _fault_worker_crash(self, idx: int) -> None:
         wk = self.workers[idx]
@@ -769,8 +880,8 @@ class ClusterRuntime:
         self.policy.on_membership(self.active_workers)
         if isinstance(self.policy, BSPPolicy):
             # rejoin at the committed frontier; if a round is in flight
-            # the joiner sits it out (it cannot re-enter a running
-            # barrier)
+            # the joiner sits it out (its gather flows were abandoned at
+            # round start and cannot re-enter a running barrier)
             at_it = self.policy.committed
             if self._bsp_round is not None:
                 at_it = self._bsp_round.iteration + 1
@@ -788,6 +899,8 @@ class ClusterRuntime:
         for (wkr, it) in list(self._flight):
             self.tel.record("ps_lost", now, worker=wkr, iteration=it)
         self._flight.clear()
+        if self.net_des is not None:
+            self.net_des.teardown_all()
         for g in self.policy.drop_pending():
             self.tel.record("ps_lost", now, worker=g.worker,
                             iteration=g.iteration)
@@ -802,8 +915,8 @@ class ClusterRuntime:
 
     def _ps_failover(self, ps: int) -> None:
         """Bring the PS back from the last snapshot: global rollback of
-        model/optimizer/history and a barrier restart for bsp (surviving
-        workers re-run from the committed frontier)."""
+        model/optimizer/history, shard re-homing, and a barrier restart
+        for bsp (surviving workers re-run from the committed frontier)."""
         if not self._ps_down or self._stopped:
             return
         snap = self._snap
@@ -826,6 +939,10 @@ class ClusterRuntime:
         self.step_idx = snap["step_idx"]
         del self.history[snap["n_hist"]:]
         self.policy.rollback(self.step_idx)
+        if self.net_des is not None and self.n_ps > 1:
+            moves = list(self.ledger.owner)
+            self.net_des.set_shard_owners(moves)
+            self.tel.record("rebalance", self.sim.now, owner=tuple(moves))
         self._ps_down = False
         self._visible = (self.version, self.params)
         self.tel.record("ps_failover", self.sim.now, ps=ps,
@@ -853,6 +970,13 @@ class ClusterRuntime:
         else:
             self.wake_blocked()
         self.maybe_finish()
+
+    def _fault_ps_recover(self, ps: int) -> None:
+        moves = self.ledger.recover(ps)
+        if moves and self.net_des is not None and self.n_ps > 1:
+            self.net_des.set_shard_owners(list(self.ledger.owner))
+            self.tel.record("rebalance", self.sim.now,
+                            owner=tuple(self.ledger.owner))
 
     def _ckpt_path(self) -> str:
         return os.path.join(self._ckpt_dir, "runtime_ckpt")
@@ -897,8 +1021,14 @@ class ClusterRuntime:
         if self.policy.pending_count():
             return
         self._stopped = True
+        if self.net_des is not None:
+            self.net_des.stop()
+        if self._sampler_cancel is not None:
+            self._sampler_cancel()
         if self._ckpt_cancel is not None:
             self._ckpt_cancel()
+
+    _sampler_cancel = None
 
     def run(self, batches, *, epoch_steps: int = 0, eval_fn=None,
             eval_every: int = 0, log_every: int = 0,
@@ -923,6 +1053,42 @@ class ClusterRuntime:
                                                self._take_snapshot)
         if self.faults is not None:
             self.faults.arm(self.sim, self.on_fault)
+        if self.net_des is not None and self.tel.enabled:
+            # trunk-queue sampler: an actor hook on the shared clock.
+            # The O(n_ps) topology walk lives HERE, on the wall grid —
+            # never in a per-event hook (DESIGN.md §9/§12).
+            interval = max(self.net.rtprop_ms * 1e-3, 1e-3)
+            if self.tracker is not None:
+                # tracker-active arm: per-trunk depths (feeds the trace
+                # exporter's per-trunk counter tracks) + histograms.
+                # Separate lambda so tracker="none" keeps the exact old
+                # event payload, byte for byte.
+                h_pend = self.metrics.histogram("queue/ps_pending")
+                h_net = self.metrics.histogram("queue/trunk_max_pkts")
+                sample_trunks = self.obs_cfg.sample_trunks
+
+                def _sample():
+                    depth = self.policy.pending_count()
+                    net_depth = self.net_des.queue_depth_pkts()
+                    h_pend.observe(depth)
+                    h_net.observe(net_depth)
+                    if sample_trunks:
+                        self.tel.record(
+                            "queue", self.sim.now, depth=depth,
+                            net_depth=net_depth,
+                            trunks=self.net_des.trunk_depths())
+                    else:
+                        self.tel.record("queue", self.sim.now, depth=depth,
+                                        net_depth=net_depth)
+
+                self._sampler_cancel = self.sim.every(interval, _sample)
+            else:
+                self._sampler_cancel = self.sim.every(
+                    interval,
+                    lambda: self.tel.record(
+                        "queue", self.sim.now,
+                        depth=self.policy.pending_count(),
+                        net_depth=self.net_des.queue_depth_pkts()))
         if self.tracker is not None:
             self._perf0 = PERF.snapshot()
         for wk in self.workers:
@@ -940,6 +1106,10 @@ class ClusterRuntime:
             raise RuntimeError(
                 "event loop drained while the PS was down — the failover "
                 "event was lost; a wedged run must not pass as converged")
+        if self.net_des is not None:
+            self.net_des.stop()
+        if self._sampler_cancel is not None:
+            self._sampler_cancel()
         if self._ckpt_cancel is not None:
             self._ckpt_cancel()
         self._finalize_history()
@@ -965,11 +1135,14 @@ class ClusterRuntime:
         """Final flush into the tracker (DESIGN.md §12), AFTER
         ``_finalize_history`` forced the lazy device scalars: per-step
         metric points from the history, the metrics-registry snapshot
-        (PERF delta for this run) folded into the run summary, then
+        (PERF delta for this run, cumulative per-flow/per-switch
+        protocol counters) folded into the run summary, then
         ``finish()`` — the only point where file I/O may block."""
         perf = PERF.snapshot()
         self.metrics.absorb(
             "sim", {k: v - self._perf0.get(k, 0) for k, v in perf.items()})
+        if self.net_des is not None:
+            self.metrics.absorb("flow", self.net_des.flow_stats())
         for rec in self.history:
             self.tracker.log_metrics(
                 {k: v for k, v in rec.items()

@@ -16,13 +16,12 @@ Engines:
 
   * ``engine="runtime"`` (default): delegates to
     ``repro_torch.runtime.ClusterRuntime`` — the event-driven
-    co-simulation over the analytic transport. With the default bsp
-    policy and deterministic compute this reproduces the lockstep loop
-    record for record (same fused step, same controller and mask RNG
-    streams; pinned by tests/test_torch_runtime.py), while opening the
-    async/ssp aggregation policies and heterogeneous compute models to
-    the same API. The packet-level transport (``transport="des"``) comes
-    with its own slice (ROADMAP.md, queue 1 item 8b).
+    co-simulation. With the default bsp policy and deterministic compute
+    this reproduces the lockstep loop record for record (same fused
+    step, same controller and mask RNG streams; pinned by
+    tests/test_torch_runtime.py), while opening the async/ssp
+    aggregation policies, heterogeneous compute models, and the
+    packet-level DES transport (``transport="des"``) to the same API.
   * ``engine="lockstep"``: the synchronous loop below. Also selected
     automatically when a precomputed trace (``bst_trace`` /
     ``delivered_trace`` / ``mask_trace``) is supplied, since traces are

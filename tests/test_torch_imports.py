@@ -56,7 +56,57 @@ def test_port_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 46
+    assert int(proc.stdout.strip()) >= 56
+
+
+# the packet-level simulator, the DES transport and the port's linter
+SIM_MODULES = (
+    "repro_torch.net",
+    "repro_torch.net.genfence",
+    "repro_torch.net.senders",
+    "repro_torch.net.ltp_receiver",
+    "repro_torch.net.aggtree",
+    "repro_torch.net.scenarios",
+    "repro_torch.runtime.transport",
+    "repro_torch.devtools.replint",
+    "repro_torch.devtools.replint.core",
+    "repro_torch.devtools.replint.rules",
+    "repro_torch.devtools.replint.__main__",
+)
+
+
+@pytest.mark.parametrize("module", SIM_MODULES)
+def test_simulator_modules_import_with_jax_blocked(module):
+    """Each module imports on its own, in a fresh interpreter with
+    ``jax`` and ``repro`` blocked, and pulls in neither."""
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        importlib.import_module({module!r})
+        leaked = sorted(k for k in sys.modules
+                        if k.startswith(("jax.", "repro.")))
+        assert not leaked, leaked
+    """)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_replint_cli_runs_with_jax_blocked():
+    code = textwrap.dedent("""
+        import runpy, sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        sys.argv = ["replint", "--list-rules"]
+        runpy.run_module("repro_torch.devtools.replint", run_name="__main__")
+    """)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "gen-fence" in proc.stdout
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -226,9 +276,10 @@ def test_resolve_backend_rules():
 
 
 def test_runtime_engine_and_other_families_wait_for_their_port():
-    """The runtime engine runs over the analytic transport; the
-    packet-level transport, network faults and the loss-budget
-    controller wait for the port of the packet-level simulator."""
+    """The runtime engine runs over the analytic and the packet-level
+    transports; network faults and the loss-budget controller wait for
+    their port (queue 1 item 8b(ii)), the other model families for
+    theirs."""
     cfg = get_config("papernet").replace(d_model=8, n_layers=3)
     tc = TrainConfig(batch=8, steps=1)
 
@@ -237,16 +288,15 @@ def test_runtime_engine_and_other_families_wait_for_their_port():
                               LTPConfig(), NetConfig(), n_workers=2,
                               device="cpu", **kw)
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        runtime(transport="des")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert runtime(transport="des").net_des is not None
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.*8b\(ii\)"):
         runtime(net_faults=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.*8b\(ii\)"):
         runtime(budget=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PSTrainer(build(cfg), make_optimizer(tc), tc, LTPConfig(),
-                  NetConfig(), n_workers=2, engine="runtime",
-                  transport="des", device="cpu")
+    tr = PSTrainer(build(cfg), make_optimizer(tc), tc, LTPConfig(),
+                   NetConfig(), n_workers=2, engine="runtime",
+                   transport="des", device="cpu")
+    assert tr._rt.net_des is not None
     with pytest.raises(KeyError, match="ROADMAP"):
         get_config("smollm_360m")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
