@@ -8,14 +8,16 @@ From the root of a checkout it:
 1. builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    with ``nvcc`` for ``sm_90a`` (into the git-ignored
    ``src/repro_torch/kernels/build/``);
-2. holds each kernel (packet_reduce, dropfill, randomk) against its
-   plain PyTorch version on the card, at the shapes the main paths give
-   it and at ragged, misaligned and bfloat16 inputs that reach each
-   branch of each kernel, and times the kernel, the plain version and
-   one PyTorch library call that computes the same function (CUDA
-   events around 40 back-to-back calls over copies of the inputs that
-   exceed the L2); packet_reduce is also timed
-   at (32, 1934, 360), where the memory rate outweighs the fixed cost;
+2. holds each kernel (packet_reduce, dropfill in both its forms, the
+   plain gate and the error-feedback one, randomk) against its plain
+   PyTorch version on the card, at the shapes the main paths give it
+   and at ragged, misaligned and bfloat16 inputs that reach each branch
+   of each kernel, and times the kernel, the plain version and one
+   PyTorch library call that computes the same function (for the EF
+   form, three calls: add, mul, sub), with CUDA events around 40
+   back-to-back calls over copies of the inputs that exceed the L2;
+   packet_reduce is also timed at (32, 1934, 360), where the memory
+   rate outweighs the fixed cost;
 3. holds ``tree_reduce`` (the rack -> root reduction, one kernel) against
    its plain version and the flat reduction at the main path's packet
    stream, for 4 racks of 2, a 5 + 3 split and interleaved racks, and at
@@ -30,7 +32,9 @@ From the root of a checkout it:
    compensation; kernels with count compensation and error feedback;
    the same again with the plain ``python`` backend on the card — and
    checks that the kernels launched once per step, that the outputs are
-   sane, and that the kernel run's params match the plain run's;
+   sane, and that the kernel run's params match the plain run's; then
+   profiles a sixth step, with the EF gate's device time by op
+   (``select_ms``: one dropfill launch);
 5. drives the Fig 5 compression path (``train.compressed.
    train_compressed``), with deterministic cuDNN convolutions:
    full-width papernet, batch 128, 5 steps each dense, Random-k at
@@ -55,7 +59,9 @@ From the root of a checkout it:
    a 1-step warm-up and profiles one runtime bsp step, and prints the
    ``runtime`` line: host ms a step and images/s for each engine, the
    ``Sim`` events of the timed runtime run, the profiled step's idle
-   share;
+   share and its EF gate by op, and one profiled async apply
+   (``profile_async_apply``: its EF gate, one dropfill launch, and its
+   packet_reduce);
 7. drives the packet-level transport (``transport="des"``,
    ``run_des_phase``) at the same width, 5 steps a run: bsp over ltp
    through ``PSTrainer``, kernels against the plain backend (equal
@@ -66,9 +72,10 @@ From the root of a checkout it:
    admitted gradient); then the DES and analytic runtimes timed, four
    runs each in turns, and one DES bsp step profiled, and prints the
    ``des`` line: host ms a step, images/s and ``Sim`` events a run of
-   each transport, the profiled step's idle share and the two kernels'
-   device time in it;
-8. prints a ``kernels`` JSON line and, last, the device JSON line.
+   each transport, the profiled step's idle share, the two kernels'
+   device time in it and its EF gate by op;
+8. prints a ``kernels`` JSON line (dropfill's entry with its EF form's
+   numbers beside the plain gate's) and, last, the device JSON line.
 
 TF32 is switched off for cuDNN convolutions and matmuls for the whole
 run, so that float32 comparisons compare float32 arithmetic. Any
@@ -304,6 +311,35 @@ def check_kernels(torch, timer):
     if {r["branch"] for r in checks[n_before:]} != {"x4", "scalar"}:
         raise AssertionError("dropfill cases missed a kernel branch")
 
+    # dropfill's error-feedback form, the gate of every port caller: the
+    # same float32 add, multiply and subtract in both, so every case agrees
+    # exactly. (n, p), offset in floats, timed or not: x4 at the bsp step's
+    # W-worker stream and at one gradient's (1934, 360); scalar for p % 4
+    # != 0 and for a misaligned stream. No one PyTorch call computes the
+    # pair: the library yardstick is the plain version's three calls
+    # (torch.add, torch.mul, torch.sub).
+    n_before = len(checks)
+    for (n, p, off), timed in (((15472, 360, 0), True),
+                               ((1934, 360, 0), True),
+                               ((513, 129, 0), False),
+                               ((300, 360, 1), False)):
+        f, r = randn_at((n, p), off), randn_at((n, p), off)
+        m = (torch.rand(n, device="cuda", generator=gen) < 0.7).float()
+        got = ops.ltp_dropfill_ef(f, r, m)
+        want = ref.dropfill_ef_ref(f, r, m)
+        torch.cuda.synchronize()
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        row = record(
+            "dropfill_ef", (n, p), "float32", branch(p, f, r), err, 0.0,
+            (f, r, m), ops.ltp_dropfill_ef, ref.dropfill_ef_ref,
+            ref.dropfill_ef_ref,
+            4 * (4 * n * p + n), 3 * n * p, timed)
+        if timed:
+            row["library_calls"] = "3: torch.add, torch.mul, torch.sub"
+            entries.setdefault("dropfill_ef", []).append(row)
+    if {r["branch"] for r in checks[n_before:]} != {"x4", "scalar"}:
+        raise AssertionError("dropfill_ef cases missed a kernel branch")
+
     # randomk: a select, so every case agrees exactly. (n,) or shape,
     # dtype, offset in floats, main-path or not: the Fig 5 path's flat
     # gradient (x4, 680 blocks, a 2-element tail); lengths 1, 3 and 5 (the
@@ -479,17 +515,22 @@ def run_fig5(torch, kind: str, backend: str):
         device="cuda", seed=0, backend=backend, return_params=True)
 
 
-def profile_step(torch, run, step=None, select=None):
+def profile_step(torch, run, step=None, select=None, which=None):
     """``run()`` under ``torch.profiler``: its host time, the device's busy
     time (union of kernel intervals), its idle share, device time by kernel
     name, and the port's kernels' own device time. With ``step``, the name
-    of a span that ``run`` opens (``record_function``) and closes after a
-    synchronise, all of it is read inside that span alone: its host time
-    and the kernels that start in it. With ``select``, a span inside that
-    one, ``port_kernels_ms`` also holds the device time of each PyTorch op
-    in it (``aten::`` dropped from the name). Without device kernels (a
-    CPU callable) the idle share is None. Profiling slows the host, so the
-    wall time here is not the step time reported elsewhere."""
+    of a span that ``run`` opens (``record_function``), all of it is read
+    inside that span alone: its host time and the kernels launched in it
+    (by the host time of their launch, or where the trace holds no launch
+    record, of their start). ``run`` opens the span once, or ``which``
+    picks one (an index into the spans of that name, in order). With
+    ``select``, a span inside that one, ``port_kernels_ms`` also holds the
+    device time of each PyTorch op in it (``aten::`` dropped from the
+    name), and ``select_ms`` the device time of everything launched in it
+    by op, a port kernel by its own name (``select_device_ms``, their sum).
+    Without device kernels (a CPU callable) the idle share is None.
+    Profiling slows the host, so the wall time here is not the step time
+    reported elsewhere."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -508,20 +549,30 @@ def profile_step(torch, run, step=None, select=None):
     cpu = [e for e in events if e.device_type == DeviceType.CPU]
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
+    # a kernel and the runtime call that launched it share a correlation id
+    launched = {e.id: e.time_range.start for e in cpu
+                if e.name.startswith("cuda") and "Launch" in e.name}
 
-    def span(name, within=None):
+    def launch_of(k):
+        return launched.get(k.id, k.time_range.start)
+
+    def span(name, within=None, pick=None):
         found = [e.time_range for e in cpu if e.name == name and (
             within is None or within.start <= e.time_range.start
             <= within.end)]
-        if len(found) != 1:
+        if not found or (pick is None and len(found) != 1):
             raise AssertionError(f"profile: {len(found)} spans {name!r}")
-        return found[0]
+        return found[0 if pick is None else pick]
+
+    def port_kernel(name):
+        return any(f"(anonymous namespace)::{k}" in name
+                   for k in ("reduce_kernel<", "dropfill", "randomk"))
 
     if step is not None:
-        win = span(step)
+        win = span(step, pick=which)
         wall_us = win.elapsed_us()
         kernels = [e for e in kernels
-                   if win.start <= e.time_range.start <= win.end]
+                   if win.start <= launch_of(e) <= win.end]
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy_us, cur_start, cur_end = 0.0, None, None
     for a, b in spans:
@@ -539,24 +590,33 @@ def profile_step(torch, run, step=None, select=None):
         n_of[e.name] = n_of.get(e.name, 0) + 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     # the port's own kernels, timed inside the step, and their launches
-    port = [name for name in by_name
-            if any(f"(anonymous namespace)::{k}" in name
-                   for k in ("reduce_kernel<", "dropfill", "randomk"))]
+    port = [name for name in by_name if port_kernel(name)]
     ours = {name[:80]: by_name[name] / 1e3 for name in port}
+    out = {}
     if select is not None:
         sel = span(select, win if step is not None else None)
+        by_op = {}
         for e in cpu:
             if e.name.startswith("aten::") and \
                     sel.start <= e.time_range.start <= sel.end:
                 for kern in e.kernels:
                     op = e.name[len("aten::"):]
                     ours[op] = ours.get(op, 0.0) + kern.duration / 1e3
+                    by_op[op] = by_op.get(op, 0.0) + kern.duration / 1e3
+        for e in kernels:
+            if port_kernel(e.name) and sel.start <= launch_of(e) <= sel.end:
+                by_op[e.name[:80]] = (by_op.get(e.name[:80], 0.0)
+                                      + e.time_range.elapsed_us() / 1e3)
+        out = {"select_ms": by_op,
+               "select_device_ms": sum(by_op.values()),
+               "launch_records": len(launched)}
     return {"wall_ms": wall_us / 1e3, "n_kernels": len(kernels),
             "device_busy_ms": busy_us / 1e3,
             "idle_share": (1.0 - busy_us / wall_us) if kernels else None,
             "top_kernels_ms": [[name[:80], us / 1e3] for name, us in top],
             "port_kernels_ms": ours,
-            "port_launches": {name[:80]: n_of[name] for name in port}}
+            "port_launches": {name[:80]: n_of[name] for name in port},
+            **out}
 
 
 def profile_fig5_randomk(torch, step=1):
@@ -590,6 +650,42 @@ def profile_fig5_randomk(torch, step=1):
 
 
 STRAGGLERS = dict(base=0.05, sigma=0.3, straggler_prob=0.25)
+
+
+def ef_gate_launches(prof, step_name):
+    """The port kernels launched in a profile's ``ef_gate`` span: raises
+    unless they are one dropfill launch and nothing else."""
+    gate = [k for k in prof["select_ms"] if "::" in k]
+    if len(gate) != 1 or "dropfill" not in gate[0]:
+        raise AssertionError(f"profile {step_name}: the EF gate launched "
+                             f"{gate}, not one dropfill")
+
+
+def profile_async_apply(torch):
+    """One async apply with error feedback, profiled: a 1-step async run of
+    ``cluster_runtime`` (count compensation + EF, lognormal stragglers,
+    through the kernels; 8 gradients, one an apply) under
+    ``profile_step``, read inside its last ``apply_batch`` span: the
+    gradient's EF gate (``select_ms``: one dropfill launch), the stack of
+    one gradient and 7 zero rows, packet_reduce and the update."""
+    from repro_torch.runtime import LognormalStragglerCompute
+
+    rt = cluster_runtime(
+        torch, 1, "cuda", dict(staleness_comp=0.5, compensation="count",
+                               error_feedback=True),
+        policy="async",
+        compute_model=LognormalStragglerCompute(8, **STRAGGLERS))
+    data = host_batches(1)
+    prof = profile_step(torch, lambda: rt.run(data, epoch_steps=3),
+                        step="apply_batch", which=-1, select="ef_gate")
+    prof["n_applies"] = len(rt.history)
+    ef_gate_launches(prof, "async apply")
+    if sorted(n for k, n in prof["port_launches"].items()) != [1, 1] or \
+            not any("reduce_kernel<" in k for k in prof["port_launches"]):
+        raise AssertionError(f"profile async apply: port launches "
+                             f"{prof['port_launches']}, not one dropfill "
+                             f"and one packet_reduce")
+    return prof
 
 
 def cluster_runtime(torch, steps: int, sync_backend: str, ltp_kw=None,
@@ -795,9 +891,11 @@ def run_runtime_phase(torch, zero_counts, read_counts, launches_of,
                  "images_per_s": 128e3 / statistics.median(ms)}
         for engine, ms in readings.items()}
     one, batch = trainer(torch, "runtime", 1, "cuda", **ef), host_batches(1)
-    prof = profile_step(torch, lambda: one.run(batch))
+    prof = profile_step(torch, lambda: one.run(batch), select="ef_gate")
+    ef_gate_launches(prof, "runtime bsp step")
     line["profile_runtime_bsp_step"] = prof
     line["idle_share"] = prof["idle_share"]
+    line["profile_async_apply"] = profile_async_apply(torch)
     return line, launches
 
 
@@ -949,7 +1047,8 @@ def run_des_phase(torch, zero_counts, read_counts, launches_of, steps=5):
             "sim_events_per_run": events[t]}
         for t, ms in readings.items()}
     one, batch = des_trainer("cuda", n=1), host_batches(1)
-    prof = profile_step(torch, lambda: one.run(batch))
+    prof = profile_step(torch, lambda: one.run(batch), select="ef_gate")
+    ef_gate_launches(prof, "DES bsp step")
     line["profile_des_bsp_step"] = prof
     line["idle_share"] = prof["idle_share"]
     return line, launches
@@ -1053,7 +1152,8 @@ def main() -> int:
     # a sixth step of the kernel run, profiled (after the comparisons)
     from repro_torch.data import SyntheticCIFAR
     batch = SyntheticCIFAR(seed=0).train_batch(128, 5)
-    prof = profile_step(torch, lambda: ker.run([batch]))
+    prof = profile_step(torch, lambda: ker.run([batch]), select="ef_gate")
+    ef_gate_launches(prof, "cuda_count_ef step 6")
     print("profile cuda_count_ef step 6 " + json.dumps(prof))
 
     # the Fig 5 compression path, the same way. cuDNN's default weight
@@ -1151,6 +1251,13 @@ def main() -> int:
             "ms": e["ms"], "plain_ms": e["plain_ms"],
             "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
             "library_ms": e["library_ms"]})
+        if name == "dropfill":
+            # the same kernel's EF form, which every training path launches
+            line[-1]["ef_form"] = [
+                {k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms",
+                                   "library_calls")}
+                for r in entries["dropfill_ef"]]
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

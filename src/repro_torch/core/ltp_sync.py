@@ -11,10 +11,11 @@ Compensation modes (beyond-paper, DESIGN.md §2):
   count     sum/count         (per-packet unbiased mean over deliverers)
   expected  sum/(W*E[frac])   (global rescale)
 
-Aggregation backends: ``apply_delivery`` / ``reduce_packet_stream``
-dispatch on ``LTPConfig.sync_backend``. ``python`` is the plain torch
-reference; ``cuda`` runs the hand-written ``kernels.dropfill`` /
-``kernels.packet_reduce`` (their plain version for a CPU tensor);
+Aggregation backends: ``apply_delivery`` / ``apply_delivery_ef`` /
+``reduce_packet_stream`` dispatch on ``LTPConfig.sync_backend``.
+``python`` is the plain torch reference; ``cuda`` runs the hand-written
+``kernels.dropfill`` (both forms) / ``kernels.packet_reduce`` (their
+plain version for a CPU tensor);
 ``auto`` is ``cuda`` for a CUDA tensor and ``python`` for a CPU tensor,
 until an H100 measurement gives a crossover size.
 
@@ -58,6 +59,26 @@ def apply_delivery(packets: torch.Tensor, mask: torch.Tensor,
     if backend == "cuda":
         return kops.ltp_dropfill(packets, gate)
     return packets * gate[:, None].to(packets.dtype)
+
+
+def apply_delivery_ef(flat: torch.Tensor, residual: torch.Tensor,
+                      mask: torch.Tensor, *, backend: str = "python"):
+    """The error-feedback gate (EF-SGD, DESIGN.md §2): re-add what the
+    network dropped last round, gate, keep what it drops now.
+
+    flat, residual: (n_packets, payload); mask: (n_packets,) {0,1}.
+    Returns fresh ``(sent, new_residual)``; ``residual`` is never written
+    (a PS snapshot holds it by reference). The python backend is the
+    three torch ops of the JAX gate; the cuda backend runs them as one
+    pass of ``kernels.dropfill``'s EF form, bit for bit the same in
+    float32.
+    """
+    backend = resolve_backend(backend, flat)
+    if backend == "cuda":
+        return kops.ltp_dropfill_ef(flat, residual, mask)
+    s = flat + residual
+    sent = apply_delivery(s, mask, backend="python")
+    return sent, s - sent
 
 
 def staleness_weights(staleness, damping: float) -> np.ndarray:

@@ -6,7 +6,8 @@ Random-k compression baseline.
   _build.py            nvcc build into a git-ignored directory + ctypes load
   packet_reduce.py     PS-side masked multi-worker reduce (wrapper), and
                        tree_reduce, the rack -> root reduction (wrapper)
-  dropfill.py          bubble-fill + compensation gate (wrapper)
+  dropfill.py          bubble-fill + compensation gate, and its
+                       error-feedback form (wrappers)
   randomk.py           Random-k select over streamed uniforms (wrapper)
   ops.py               dtype-normalising public wrappers
   ref.py               plain PyTorch versions (CPU route and oracles)
@@ -17,6 +18,7 @@ counterpart here.
 """
 from repro_torch.kernels.ops import (  # noqa: F401
     ltp_dropfill,
+    ltp_dropfill_ef,
     ltp_packet_reduce,
     randomk_sparsify,
 )

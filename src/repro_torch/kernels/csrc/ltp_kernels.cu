@@ -13,6 +13,9 @@
 //       added to the root's sum in rack order; then / W or / max(sum c_r, 1)
 //   ltp_dropfill       <- src/repro/kernels/dropfill.py::dropfill
 //       out[i,j] = x[i,j] * (mask[i] * scale[i])   (f32 or bf16 in and out)
+//   ltp_dropfill_ef    the same pass in its error-feedback form, the gate
+//       of src/repro/runtime/step.py (add, dropfill, sub) in one kernel:
+//       s = x + res; sent = s * mask[i]; new_res = s - sent   (f32)
 //   ltp_randomk        <- src/repro/kernels/randomk.py::randomk
 //       out[i] = u[i] < k ? x[i] : 0               (f32 or bf16 x, f32 u)
 //
@@ -42,9 +45,32 @@
 // aligned, take one element a thread with the same arithmetic, chosen by that
 // shape and alignment test before the launch.
 //
-// dropfill: an elementwise gate, 4 elements a thread on the f32 path. It may
-// run in place (out == x), which is safe because each thread reads its
-// elements before it writes them and touches no other thread's elements.
+// dropfill: one elementwise pass in two forms (one template). Every port
+// caller gates with error feedback, which the JAX package runs as three
+// passes around its dropfill: the EF form reads x, res and the mask and
+// writes sent and new_res, 16 bytes an element where the three passes move
+// 32, in one launch where they take three. Each op is rounded as torch's
+// (__fadd_rn, __fmul_rn, __fsub_rn, so that nvcc cannot contract s - s * m
+// into an FMA), so the EF form is bit for bit the plain route. At one
+// gradient's (1934, 360) it moves 11.15 MB, 3.3 us at 3.35 TB/s, and the
+// launch and the grid's drain weigh about as much again; at the bsp step's
+// (15472, 360), 89.2 MB. Design: one float4 a thread over the flat stream,
+// the packet row found by a 32-bit divide (64-bit only for streams of 2^32
+// float4 or more), x and res read with the 256-byte L2 fetch of the packet
+// stream, sent stored plainly (packet_reduce reads it next) and new_res
+// evict-first (it is read only in the next round), which keeps sent in the
+// L2: packet_reduce after the gate takes 0.0060 ms in the bsp step, where it
+// took 0.0091 ms after the three passes. Measured in the profiled bsp step
+// and async apply (dropfill_designs.py; PERF.md §6) and not kept: 2 or 4
+// float4 a thread (the apply's gate 13 % and 29 % slower), a warp a packet
+// row with no divide (the bsp step's gate 18 % slower), new_res stored
+// plainly (packet_reduce after it 20 % slower), plain loads (40 % slower
+// there), and programmatic dependent launch (faster back to back, no
+// faster in the step). The design's choices stay macros (LTP_DROPFILL_*)
+// for that comparison. The plain gate may run in place (out == x): each
+// thread reads its elements before it writes them and touches no other
+// thread's. A payload that is not a multiple of 4, a stream not 16-byte
+// aligned, and bf16 take one element a thread.
 //
 // randomk: a select over one flat stream, no padding. It moves 12 bytes an
 // element (x and u read, out written) for one compare: at the Fig 5 path's
@@ -301,31 +327,169 @@ int launch_reduce(const float* p, const float* m, float* o, const int* mem,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The gate: dropfill in its two forms, one pass each.
+//   plain (the TPU kernel's function): out = x * (mask * scale)[row]
+//   error feedback (EF):               s = x + res; out = s * mask[row];
+//                                      new_res = s - out
+// The design's choices are macros, so that a build with -D flags can
+// measure the designs that were not kept (PERF.md §6); the defaults are the
+// shipped design.
+
+#ifndef LTP_DROPFILL_VECS  // float4 a thread (a lane's float4 a row sweep)
+#define LTP_DROPFILL_VECS 1
+#endif
+#ifndef LTP_DROPFILL_ROWS  // 1: a warp a packet row, no divide to find it
+#define LTP_DROPFILL_ROWS 0
+#endif
+#ifndef LTP_DROPFILL_LD_STREAM  // 1: 256-byte L2 fetches (ld_stream)
+#define LTP_DROPFILL_LD_STREAM 1
+#endif
+#ifndef LTP_DROPFILL_EVICT_FIRST  // 1: EF's new_res stored evict-first
+#define LTP_DROPFILL_EVICT_FIRST 1
+#endif
+#ifndef LTP_DROPFILL_PDL  // 1: programmatic dependent launch
+#define LTP_DROPFILL_PDL 0
+#endif
+
+struct Gate {
+  const float* x;      // packets (plain) or flat (EF)
+  const float* res;    // EF: the residual
+  const float* mask;   // (n,)
+  const float* scale;  // plain: (n,) or null; EF: null
+  float* out;          // plain: may be x (in place); EF: sent
+  float* new_res;      // EF
+};
+
 __device__ __forceinline__ float gate_of(const float* mask, const float* scale,
                                          std::int64_t row) {
   float g = __ldg(mask + row);
-  if (scale != nullptr) g *= __ldg(scale + row);
+  if (scale != nullptr) g = __fmul_rn(g, __ldg(scale + row));
   return g;
 }
 
-// f32, 4 elements a thread; x and out may alias (in place)
-__global__ void __launch_bounds__(kThreads)
-dropfill_f32x4_kernel(const float* x, const float* __restrict__ mask,
-                      const float* __restrict__ scale, float* out,
-                      std::int64_t n_elems, std::int64_t payload) {
-  const std::int64_t e0 =
-      (static_cast<std::int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
-  if (e0 >= n_elems) return;
-  const float g = gate_of(mask, scale, e0 / payload);
-  float4 v = *reinterpret_cast<const float4*>(x + e0);
-  v.x *= g;
-  v.y *= g;
-  v.z *= g;
-  v.w *= g;
-  *reinterpret_cast<float4*>(out + e0) = v;
+// The rounded operations, so that nvcc cannot contract s - s * g into an
+// FMA: each result is torch's add, mul and sub in f32, bit for bit.
+template <bool EF>
+__device__ __forceinline__ void gate_vec(const float4& x, const float4& r,
+                                         float g, float4& out,
+                                         float4& new_res) {
+  if constexpr (EF) {
+    const float4 s = make_float4(__fadd_rn(x.x, r.x), __fadd_rn(x.y, r.y),
+                                 __fadd_rn(x.z, r.z), __fadd_rn(x.w, r.w));
+    out = make_float4(__fmul_rn(s.x, g), __fmul_rn(s.y, g),
+                      __fmul_rn(s.z, g), __fmul_rn(s.w, g));
+    new_res = make_float4(__fsub_rn(s.x, out.x), __fsub_rn(s.y, out.y),
+                          __fsub_rn(s.z, out.z), __fsub_rn(s.w, out.w));
+  } else {
+    out = make_float4(__fmul_rn(x.x, g), __fmul_rn(x.y, g),
+                      __fmul_rn(x.z, g), __fmul_rn(x.w, g));
+  }
 }
 
-// any payload: one element a thread, computed in f32, stored as T
+__device__ __forceinline__ float4 ld_gate(const float4* p) {
+#if LTP_DROPFILL_LD_STREAM
+  return ld_stream(p);
+#else
+  return *p;
+#endif
+}
+
+// The residual is read again only in the next round: evict-first, so that
+// the L2 keeps `sent` for packet_reduce, which reads it next
+__device__ __forceinline__ void store_res(float4* p, const float4& v) {
+#if LTP_DROPFILL_EVICT_FIRST
+  __stcs(p, v);
+#else
+  *p = v;
+#endif
+}
+
+__device__ __forceinline__ void wait_prior_grid() {
+#if LTP_DROPFILL_PDL
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+#endif
+}
+
+// U float4 a thread over the flat stream of n_vec float4, a block's U *
+// kThreads consecutive; the row of float4 q is q / row_vecs, in I (32 bits
+// unless the stream is longer). Every load is issued before the first
+// multiply; a float4 past the end is loaded as the last one and not
+// stored. In place (plain, out == x) is safe: a thread reads its float4
+// before it writes them and no thread reads another's, so the
+// non-coherent load never sees a write.
+template <bool EF, int U, typename I>
+__global__ void __launch_bounds__(kThreads)
+dropfill_x4_kernel(Gate a, I n_vec, I row_vecs) {
+  wait_prior_grid();
+  const I q0 = static_cast<I>(blockIdx.x) * (U * kThreads) + threadIdx.x;
+  if (q0 >= n_vec) return;
+  const auto* x4 = reinterpret_cast<const float4*>(a.x);
+  const auto* r4 = reinterpret_cast<const float4*>(a.res);
+  I q[U];
+  float4 x[U], r[U];
+  float g[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const I qu = q0 + u * kThreads;
+    q[u] = qu < n_vec ? qu : n_vec - 1;
+    x[u] = ld_gate(x4 + q[u]);
+    if constexpr (EF) r[u] = ld_gate(r4 + q[u]);
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    g[u] = gate_of(a.mask, EF ? nullptr : a.scale, q[u] / row_vecs);
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    if (q0 + u * kThreads >= n_vec) break;
+    float4 o, nr;
+    gate_vec<EF>(x[u], r[u], g[u], o, nr);
+    reinterpret_cast<float4*>(a.out)[q[u]] = o;
+    if constexpr (EF) {
+      store_res(reinterpret_cast<float4*>(a.new_res) + q[u], nr);
+    }
+  }
+}
+
+// A warp a packet row, kThreads / 32 rows a block: the gate is read once
+// a row and no divide finds it; the warp sweeps the row's row_vecs float4
+// U * 32 at a time, all U loads issued before the first multiply.
+template <bool EF, int U, typename I>
+__global__ void __launch_bounds__(kThreads)
+dropfill_rows_kernel(Gate a, I n_rows, I row_vecs) {
+  wait_prior_grid();
+  const I row =
+      static_cast<I>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
+  if (row >= n_rows) return;
+  const float g = gate_of(a.mask, EF ? nullptr : a.scale, row);
+  const I base = row * row_vecs;
+  const auto* x4 = reinterpret_cast<const float4*>(a.x) + base;
+  const auto* r4 = reinterpret_cast<const float4*>(a.res) + base;
+  for (I c0 = threadIdx.x % 32; c0 < row_vecs; c0 += U * 32) {
+    float4 x[U], r[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const I c = c0 + u * 32 < row_vecs ? c0 + u * 32 : row_vecs - 1;
+      x[u] = ld_gate(x4 + c);
+      if constexpr (EF) r[u] = ld_gate(r4 + c);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const I c = c0 + u * 32;
+      if (c >= row_vecs) break;
+      float4 o, nr;
+      gate_vec<EF>(x[u], r[u], g, o, nr);
+      reinterpret_cast<float4*>(a.out)[base + c] = o;
+      if constexpr (EF) {
+        store_res(reinterpret_cast<float4*>(a.new_res) + base + c, nr);
+      }
+    }
+  }
+}
+
+// any payload or alignment: one element a thread, computed in f32, stored
+// as T (EF: f32 only)
 template <typename T>
 __device__ __forceinline__ float to_f32(T v);
 template <>
@@ -344,16 +508,84 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as torch's .to()
 }
 
-template <typename T>
+template <typename T, bool EF>
 __global__ void __launch_bounds__(kThreads)
-dropfill_kernel(const T* x, const float* __restrict__ mask,
-                const float* __restrict__ scale, T* out, std::int64_t n_elems,
+dropfill_kernel(const T* x, Gate a, T* out, std::int64_t n_elems,
                 std::int64_t payload) {
   const std::int64_t e =
       static_cast<std::int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= n_elems) return;
-  const float g = gate_of(mask, scale, e / payload);
-  out[e] = from_f32<T>(to_f32<T>(x[e]) * g);
+  const float g = gate_of(a.mask, a.scale, e / payload);
+  if constexpr (EF) {
+    const float s = __fadd_rn(to_f32<T>(x[e]), __ldg(a.res + e));
+    const float o = __fmul_rn(s, g);
+    out[e] = from_f32<T>(o);
+    a.new_res[e] = __fsub_rn(s, o);
+  } else {
+    out[e] = from_f32<T>(__fmul_rn(to_f32<T>(x[e]), g));
+  }
+}
+
+// Launch on `s`, with programmatic stream serialization under
+// LTP_DROPFILL_PDL, so that the kernel's blocks may start while the
+// stream's previous kernel drains, and wait in griddepcontrol.wait.
+template <typename... P, typename... A>
+void launch_gate_kernel(void (*kernel)(P...), std::int64_t blocks,
+                        cudaStream_t s, A... args) {
+#if LTP_DROPFILL_PDL
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned int>(blocks));
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = s;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  cudaLaunchKernelEx(&cfg, kernel, args...);
+#else
+  kernel<<<static_cast<unsigned int>(blocks), kThreads, 0, s>>>(args...);
+#endif
+}
+
+template <bool EF, typename I>
+void launch_gate_x4(const Gate& a, std::int64_t n_vec, std::int64_t row_vecs,
+                    cudaStream_t s) {
+  constexpr int U = LTP_DROPFILL_VECS;
+#if LTP_DROPFILL_ROWS
+  const std::int64_t n_rows = n_vec / row_vecs;
+  launch_gate_kernel(dropfill_rows_kernel<EF, U, I>,
+                     (n_rows + kThreads / 32 - 1) / (kThreads / 32), s, a,
+                     static_cast<I>(n_rows), static_cast<I>(row_vecs));
+#else
+  launch_gate_kernel(dropfill_x4_kernel<EF, U, I>,
+                     (n_vec + U * kThreads - 1) / (U * kThreads), s, a,
+                     static_cast<I>(n_vec), static_cast<I>(row_vecs));
+#endif
+}
+
+// 16-byte vectors when the payload is a multiple of 4 and every stream is
+// 16-byte aligned (32-bit indices below 2^32 float4), else one element a
+// thread
+template <bool EF>
+int launch_gate(const Gate& a, std::int64_t n_packets, std::int64_t payload,
+                cudaStream_t s) {
+  const std::int64_t n_elems = n_packets * payload;
+  if (n_elems == 0) return 0;
+  const bool vec = payload % 4 == 0 && aligned16(a.x) && aligned16(a.out) &&
+                   (!EF || (aligned16(a.res) && aligned16(a.new_res)));
+  if (vec) {
+    const std::int64_t n_vec = n_elems / 4;
+    if (n_vec + LTP_DROPFILL_VECS * kThreads < (std::int64_t{1} << 32)) {
+      launch_gate_x4<EF, std::uint32_t>(a, n_vec, payload / 4, s);
+    } else {
+      launch_gate_x4<EF, std::int64_t>(a, n_vec, payload / 4, s);
+    }
+  } else {
+    launch_gate_kernel(dropfill_kernel<float, EF>, blocks_for(n_elems), s,
+                       a.x, a, a.out, n_elems, payload);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // f32, 4 elements a thread with 16-byte loads that ask L2 for the whole
@@ -425,29 +657,34 @@ int ltp_tree_reduce(const void* pkts, const void* mask, const void* members,
 int ltp_dropfill(const void* x, const void* mask, const void* scale, void* out,
                  long long n_packets, long long payload, int dtype,
                  void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  const Gate a{static_cast<const float*>(x), nullptr,
+               static_cast<const float*>(mask),
+               static_cast<const float*>(scale), static_cast<float*>(out),
+               nullptr};
+  if (dtype == 0) return launch_gate<false>(a, n_packets, payload, s);
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   const std::int64_t n_elems = static_cast<std::int64_t>(n_packets) * payload;
   if (n_elems == 0) return 0;
-  auto s = static_cast<cudaStream_t>(stream);
-  const auto* m = static_cast<const float*>(mask);
-  const auto* sc = static_cast<const float*>(scale);
-  if (dtype == 0) {
-    const auto* xi = static_cast<const float*>(x);
-    auto* o = static_cast<float*>(out);
-    if (payload % 4 == 0 && aligned16(x) && aligned16(out)) {
-      dropfill_f32x4_kernel<<<blocks_for(n_elems / 4), kThreads, 0, s>>>(
-          xi, m, sc, o, n_elems, payload);
-    } else {
-      dropfill_kernel<float><<<blocks_for(n_elems), kThreads, 0, s>>>(
-          xi, m, sc, o, n_elems, payload);
-    }
-  } else if (dtype == 1) {
-    dropfill_kernel<__nv_bfloat16><<<blocks_for(n_elems), kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), m, sc,
-        static_cast<__nv_bfloat16*>(out), n_elems, payload);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  launch_gate_kernel(dropfill_kernel<__nv_bfloat16, false>,
+                     blocks_for(n_elems), s,
+                     static_cast<const __nv_bfloat16*>(x), a,
+                     static_cast<__nv_bfloat16*>(out), n_elems,
+                     static_cast<std::int64_t>(payload));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The EF form: flat, residual, sent, new_res (n, p) f32, mask (n,) f32, all
+// contiguous; sent and new_res are fresh (they alias nothing).
+int ltp_dropfill_ef(const void* flat, const void* residual, const void* mask,
+                    void* sent, void* new_res, long long n_packets,
+                    long long payload, void* stream) {
+  const Gate a{static_cast<const float*>(flat),
+               static_cast<const float*>(residual),
+               static_cast<const float*>(mask), nullptr,
+               static_cast<float*>(sent), static_cast<float*>(new_res)};
+  return launch_gate<true>(a, n_packets, payload,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // x, out (n,) of dtype code 0 = f32, 1 = bf16; u (n,) f32; all contiguous.

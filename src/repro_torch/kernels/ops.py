@@ -40,6 +40,17 @@ def ltp_dropfill(packets: torch.Tensor, mask: torch.Tensor,
     return out.to(packets.dtype)
 
 
+def ltp_dropfill_ef(flat: torch.Tensor, residual: torch.Tensor,
+                    mask: torch.Tensor):
+    """The error-feedback gate in one pass: flat, residual (n_packets,
+    payload) any float; mask (n_packets,) {0,1}. Returns fresh
+    ``(sent, new_res)`` in flat's dtype: ``s = flat + residual``,
+    ``sent = s * mask``, ``new_res = s - sent``. The kernel takes float32:
+    other float types go through float32 and back."""
+    sent, new_res = _df.dropfill_ef(_f32(flat), _f32(residual), _f32(mask))
+    return sent.to(flat.dtype), new_res.to(flat.dtype)
+
+
 def ltp_packet_reduce(packets: torch.Tensor, mask: torch.Tensor, *,
                       compensation: str = "paper") -> torch.Tensor:
     """packets: (W, n_packets, payload); mask: (W, n_packets).

@@ -19,6 +19,17 @@ def dropfill_ref(packets: torch.Tensor, mask: torch.Tensor,
     return (packets.float() * gate).to(packets.dtype)
 
 
+def dropfill_ef_ref(flat: torch.Tensor, residual: torch.Tensor,
+                    mask: torch.Tensor):
+    """The error-feedback gate (EF-SGD, DESIGN.md §2) as three ops:
+    ``s = flat + residual``, ``sent = s * mask[:, None]``,
+    ``new_res = s - sent``. flat, residual: (n_packets, payload);
+    mask: (n_packets,) {0,1}. Returns (sent, new_res)."""
+    s = flat + residual
+    sent = s * mask[:, None].to(s.dtype)
+    return sent, s - sent
+
+
 def packet_reduce_ref(packets: torch.Tensor, mask: torch.Tensor, *,
                       compensation: str = "paper") -> torch.Tensor:
     """PS-side masked multi-worker aggregation.

@@ -54,6 +54,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch.checkpoint.io import restore_checkpoint, save_checkpoint
 from repro_torch.config import (
@@ -786,27 +787,31 @@ class ClusterRuntime:
     # async/ssp apply path
     # ------------------------------------------------------------------
     def apply_batch(self, batch: List[PendingGrad]) -> None:
-        self._build_apply()
-        pw = self.policy.weights(batch)
-        weights = np.zeros(self.w, np.float32)
-        rows_flat, rows_mask, fracs = [], [], []
-        for i, g in enumerate(batch):
-            flat, mask = g.payload["flat"], g.payload["mask"]
-            if self._ef_gate is not None:
-                flat, new_res = self._ef_gate(flat, self.residual[g.worker],
-                                              mask)
-                self._set_residual(g.worker, new_res)
-            rows_flat.append(flat)
-            rows_mask.append(mask)
-            weights[i] = 1.0 if pw is None else pw[i]
-            fracs.append(g.payload["frac"])
-        # fixed (W, n, p) shape: the 1/W scale counts the padded rows
-        stacked, masks = self._stack_padded(rows_flat, rows_mask)
-        top_it = max(g.iteration for g in batch)
-        lr = lr_at(self.train_cfg, top_it, self._epoch_steps)
-        frac = np.float32(np.mean(fracs))
-        self.params, self.opt_state = self._apply_fn(
-            self.params, self.opt_state, stacked, masks, weights, frac, lr)
+        # a named span, so that a profile can read one apply's device
+        # work (chip_smoke.py's profile_async_apply)
+        with record_function("apply_batch"):
+            self._build_apply()
+            pw = self.policy.weights(batch)
+            weights = np.zeros(self.w, np.float32)
+            rows_flat, rows_mask, fracs = [], [], []
+            for i, g in enumerate(batch):
+                flat, mask = g.payload["flat"], g.payload["mask"]
+                if self._ef_gate is not None:
+                    flat, new_res = self._ef_gate(
+                        flat, self.residual[g.worker], mask)
+                    self._set_residual(g.worker, new_res)
+                rows_flat.append(flat)
+                rows_mask.append(mask)
+                weights[i] = 1.0 if pw is None else pw[i]
+                fracs.append(g.payload["frac"])
+            # fixed (W, n, p) shape: the 1/W scale counts the padded rows
+            stacked, masks = self._stack_padded(rows_flat, rows_mask)
+            top_it = max(g.iteration for g in batch)
+            lr = lr_at(self.train_cfg, top_it, self._epoch_steps)
+            frac = np.float32(np.mean(fracs))
+            self.params, self.opt_state = self._apply_fn(
+                self.params, self.opt_state, stacked, masks, weights, frac,
+                lr)
         self.version += 1
         self.max_applied_iter = max(self.max_applied_iter, top_it)
         stale = [g.staleness for g in batch]

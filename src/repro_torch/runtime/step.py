@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch.func import grad_and_value, vmap
+from torch.profiler import record_function
 
 from repro_torch.config import LTPConfig
 from repro_torch.core import ltp_sync as ls
@@ -49,13 +50,15 @@ def build_fused_step(api, opt: Optimizer, ltp: LTPConfig, plan, w: int,
             # the PS hot loop: ONE fused masked multi-worker reduction
             if residual is not None:
                 # error feedback materializes the gated stream anyway —
-                # gate once (dropfill under cuda), reduce the result
-                flat_w = flat_w + residual
-                sent = ls.apply_delivery(
-                    flat_w.reshape(w * plan.n_packets, plan.packet_floats),
-                    masks.reshape(-1), backend=ltp.sync_backend,
-                ).reshape(flat_w.shape)
-                new_residual = flat_w - sent
+                # gate once (one dropfill pass under cuda), reduce the
+                # result
+                rows = (w * plan.n_packets, plan.packet_floats)
+                with record_function("ef_gate"):
+                    sent, new_residual = ls.apply_delivery_ef(
+                        flat_w.reshape(rows), residual.reshape(rows),
+                        masks.reshape(-1), backend=ltp.sync_backend)
+                sent = sent.reshape(flat_w.shape)
+                new_residual = new_residual.reshape(flat_w.shape)
                 mean_flat = ls.reduce_packet_stream(
                     sent, masks, ltp, w, expected_frac=frac,
                     premasked=True)
@@ -92,13 +95,13 @@ def build_worker_grad_fn(api, plan):
 def build_ef_gate_fn(ltp: LTPConfig):
     """Error-feedback gate for the per-gradient path: accumulate what the
     network dropped, re-add it next round (EF-SGD, DESIGN.md §2). Under
-    sync_backend="cuda"/"auto" on the card the gate is the ``dropfill``
-    kernel at (n_packets, packet_floats)."""
+    sync_backend="cuda"/"auto" on the card the gate is one pass of the
+    ``dropfill`` kernel's EF form at (n_packets, packet_floats)."""
 
     def gate(flat, residual, mask):
-        flat = flat + residual
-        sent = ls.apply_delivery(flat, mask, backend=ltp.sync_backend)
-        return sent, flat - sent
+        with record_function("ef_gate"):
+            return ls.apply_delivery_ef(flat, residual, mask,
+                                        backend=ltp.sync_backend)
 
     return gate
 

@@ -32,7 +32,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "dropfill_designs.py")]
     for d, _, files in os.walk(PORT):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -227,6 +228,50 @@ def test_randomk_on_a_cuda_tensor_launches_or_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA device"):
         rk_mod.randomk(FakeCuda(), FakeCuda(), 0.5)
     assert calls == ["empty"] and rk_mod.LAUNCHES == before
+
+
+def test_dropfill_ef_on_a_cuda_tensor_launches_or_raises(monkeypatch):
+    """The EF form on tensors off the CPU allocates its two fresh outputs
+    and reaches the kernel's loader (which raises without a card), never
+    the plain version; on CPU tensors it takes the plain version, loads
+    nothing and counts no launch."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(_build, "_LIB", None)
+    calls = []
+
+    class FakeCuda:
+        """Stands in for a CUDA tensor: only what the wrapper reads."""
+        dtype = torch.float32
+        device = torch.device("cuda", 0)
+        is_contiguous = staticmethod(lambda: True)
+
+        def __init__(self, *shape):
+            self.shape = torch.Size(shape)
+
+        def dim(self):
+            return len(self.shape)
+
+        def numel(self):
+            return int(np.prod(self.shape))
+
+    monkeypatch.setattr(torch, "empty_like",
+                        lambda t: calls.append("empty") or torch.empty(8))
+    monkeypatch.setattr(df_mod, "dropfill_ef_ref",
+                        lambda *a: calls.append("plain"))
+    before = df_mod.LAUNCHES
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        df_mod.dropfill_ef(FakeCuda(3, 4), FakeCuda(3, 4), FakeCuda(3))
+    assert calls == ["empty", "empty"] and df_mod.LAUNCHES == before
+    monkeypatch.undo()
+
+    def no_load():
+        raise AssertionError("the CPU route loaded the kernels")
+
+    monkeypatch.setattr(_build, "load", no_load)
+    x = torch.ones((5, 8))
+    sent, new_res = ops.ltp_dropfill_ef(x, x, torch.ones(5))
+    assert torch.equal(sent, 2 * x) and not new_res.any()
+    assert df_mod.LAUNCHES == before
 
 
 def test_tree_reduce_on_a_cuda_tensor_launches_or_raises(monkeypatch):

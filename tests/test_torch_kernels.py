@@ -265,3 +265,84 @@ def test_rack_groups_follow_jax_order(layout, monkeypatch):
     assert [members[a:b] for a, b in zip(rack_ptr, rack_ptr[1:])] == seen
     assert sorted(members) == list(range(w)) and rack_ptr[-1] == w
 
+
+
+def _ef_inputs(n, p, seed=11):
+    rng = np.random.default_rng(seed)
+    flat = rng.normal(size=(n, p)).astype(np.float32)
+    residual = rng.normal(size=(n, p)).astype(np.float32)
+    mask = (rng.random(n) < 0.7).astype(np.float32)
+    return flat, residual, mask
+
+
+@pytest.mark.parametrize("n,p", [(37, 129), (1934, 360)])
+def test_dropfill_ef_matches_jax_ef_gate(n, p):
+    """The EF form (its plain route on the CPU) against the JAX package's
+    per-gradient error-feedback gate over the Pallas dropfill in
+    interpret mode: both are float32 add, gate and subtract, bit for
+    bit."""
+    from repro.config import LTPConfig as JLTPConfig
+    from repro.runtime.step import build_ef_gate_fn as jbuild_ef_gate_fn
+
+    flat, residual, mask = _ef_inputs(n, p)
+    jgate = jbuild_ef_gate_fn(JLTPConfig(sync_backend="pallas",
+                                         kernel_interpret=True))
+    jsent, jres = jgate(jnp.asarray(flat), jnp.asarray(residual),
+                        jnp.asarray(mask))
+    sent, new_res = ops.ltp_dropfill_ef(torch.tensor(flat),
+                                        torch.tensor(residual),
+                                        torch.tensor(mask))
+    assert sent.dtype == new_res.dtype == torch.float32
+    assert np.array_equal(sent.numpy(), np.asarray(jsent))
+    assert np.array_equal(new_res.numpy(), np.asarray(jres))
+    assert np.any(np.asarray(jsent) == 0) and np.any(np.asarray(jres) == 0)
+
+
+def test_dropfill_ef_outputs_are_fresh_and_other_dtypes_go_through_f32():
+    flat, residual, mask = _ef_inputs(9, 10)
+    f, r = torch.tensor(flat), torch.tensor(residual)
+    r0 = r.clone()
+    sent, new_res = ops.ltp_dropfill_ef(f, r, torch.tensor(mask))
+    assert torch.equal(r, r0)
+    assert sent.data_ptr() not in (f.data_ptr(), r.data_ptr())
+    assert new_res.data_ptr() not in (f.data_ptr(), r.data_ptr())
+    fh, rh = f.half(), r.half()
+    sent_h, res_h = ops.ltp_dropfill_ef(fh, rh, torch.tensor(mask))
+    s = fh.float() + rh.float()
+    want = s * torch.tensor(mask)[:, None]
+    assert sent_h.dtype == res_h.dtype == torch.float16
+    assert torch.equal(sent_h, want.half())
+    assert torch.equal(res_h, (s - want).half())
+
+
+def test_dropfill_ef_rejects_bad_inputs():
+    from repro_torch.kernels.dropfill import dropfill_ef
+    z = torch.zeros(3, 4)
+    with pytest.raises(ValueError, match=r"\(n, p\)"):
+        dropfill_ef(torch.zeros(12), torch.zeros(12), torch.ones(3))
+    with pytest.raises(ValueError, match=r"\(n, p\)"):
+        dropfill_ef(z, torch.zeros(3, 5), torch.ones(3))
+    with pytest.raises(ValueError, match=r"\(n,\)"):
+        dropfill_ef(z, z, torch.ones(4))
+    with pytest.raises(ValueError, match="CUDA device or on the CPU"):
+        dropfill_ef(z, z, torch.ones(3, device="meta"))
+
+
+@pytest.mark.parametrize("n,p", [(37, 129), (1934, 360)])
+def test_apply_delivery_ef_backends_agree_on_cpu(n, p):
+    """ltp_sync's EF gate: the python backend's three torch ops and the
+    cuda backend (the kernel's plain version on CPU tensors) are
+    identical, and neither writes the residual."""
+    from repro_torch.core import ltp_sync as ls
+
+    flat, residual, mask = _ef_inputs(n, p, seed=n)
+    args = [torch.tensor(a) for a in (flat, residual, mask)]
+    py = ls.apply_delivery_ef(*args, backend="python")
+    cu = ls.apply_delivery_ef(*args, backend="cuda")
+    auto = ls.apply_delivery_ef(*args, backend="auto")
+    for got in (cu, auto):
+        assert all(torch.equal(a, b) for a, b in zip(py, got))
+    assert np.array_equal(args[1].numpy(), residual)
+    s = args[0] + args[1]
+    assert torch.equal(py[0], s * args[2][:, None])
+    assert torch.equal(py[1], s - py[0])
