@@ -524,10 +524,10 @@ def profile_step(torch, run, step=None, select=None, which=None):
     (by the host time of their launch, or where the trace holds no launch
     record, of their start). ``run`` opens the span once, or ``which``
     picks one (an index into the spans of that name, in order). With
-    ``select``, a span inside that one, ``port_kernels_ms`` also holds the
-    device time of each PyTorch op in it (``aten::`` dropped from the
-    name), and ``select_ms`` the device time of everything launched in it
-    by op, a port kernel by its own name (``select_device_ms``, their sum).
+    ``select``, a span inside that one, ``select_ms`` holds the device time
+    of everything launched in it by op: each PyTorch op (``aten::`` dropped
+    from the name) and each port kernel by its own name
+    (``select_device_ms``, their sum).
     Without device kernels (a CPU callable) the idle share is None.
     Profiling slows the host, so the wall time here is not the step time
     reported elsewhere."""
@@ -601,15 +601,12 @@ def profile_step(torch, run, step=None, select=None, which=None):
                     sel.start <= e.time_range.start <= sel.end:
                 for kern in e.kernels:
                     op = e.name[len("aten::"):]
-                    ours[op] = ours.get(op, 0.0) + kern.duration / 1e3
                     by_op[op] = by_op.get(op, 0.0) + kern.duration / 1e3
         for e in kernels:
             if port_kernel(e.name) and sel.start <= launch_of(e) <= sel.end:
                 by_op[e.name[:80]] = (by_op.get(e.name[:80], 0.0)
                                       + e.time_range.elapsed_us() / 1e3)
-        out = {"select_ms": by_op,
-               "select_device_ms": sum(by_op.values()),
-               "launch_records": len(launched)}
+        out = {"select_ms": by_op, "select_device_ms": sum(by_op.values())}
     return {"wall_ms": wall_us / 1e3, "n_kernels": len(kernels),
             "device_busy_ms": busy_us / 1e3,
             "idle_share": (1.0 - busy_us / wall_us) if kernels else None,
@@ -627,7 +624,8 @@ def profile_fig5_randomk(torch, step=1):
     which finds the residual of the step before it: the gradient, the
     select (flatten, residual add, uniforms, the randomk kernel, the new
     residual) and the update. ``port_kernels_ms`` holds the randomk
-    kernel's device time and that of each op of the select."""
+    kernel's device time in the step, ``select_ms`` that of each op of the
+    select, the randomk kernel among them."""
     from repro_torch.config import TrainConfig
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticCIFAR

@@ -49,23 +49,21 @@ def find_nvcc() -> str:
                        "CUDA kernels cannot be built")
 
 
-def _digest(sources, flags) -> str:
+def _digest() -> str:
     h = hashlib.sha256()
-    for src in sources:
-        h.update(Path(src).read_bytes())
-    h.update(" ".join(flags).encode())
+    for src in SOURCES:
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
-def build(sources=SOURCES, defines=()) -> Path:
-    """Compile ``sources`` (if this hash is not built yet); return the
-    library's path. ``defines`` (``-D`` flags) pick a design other than
-    the shipped one, for a comparison (``dropfill_designs.py``). The
-    library is written under a temporary name and renamed, so a
-    concurrent or interrupted build never leaves a torn file behind."""
+def build() -> Path:
+    """Compile the sources (if this hash is not built yet); return the
+    library's path. The library is written under a temporary name and
+    renamed, so a concurrent or interrupted build never leaves a torn
+    file behind."""
     global BUILD_LOG, BUILD_SECONDS
-    flags = (*NVCC_FLAGS, *defines)
-    out_dir = BUILD_ROOT / _digest(sources, flags)
+    out_dir = BUILD_ROOT / _digest()
     lib = out_dir / "libltp_kernels.so"
     if lib.exists():
         return lib
@@ -76,7 +74,7 @@ def build(sources=SOURCES, defines=()) -> Path:
         raise RuntimeError(f"cannot write the kernel build directory "
                            f"{out_dir}: {e}") from e
     os.close(fd)
-    cmd = [find_nvcc(), *flags, "-o", tmp, *map(str, sources)]
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     BUILD_SECONDS = time.perf_counter() - t0
@@ -85,28 +83,6 @@ def build(sources=SOURCES, defines=()) -> Path:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
     os.replace(tmp, lib)
-    return lib
-
-
-_vp, _ll, _ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-#: argument and result types of each entry point of the library
-SIGNATURES = {
-    "ltp_packet_reduce": ([_vp, _vp, _vp, _ci, _ll, _ll, _ci, _vp], _ci),
-    "ltp_tree_reduce": ([_vp, _vp, _vp, _vp, _vp, _ci, _ci, _ll, _ll, _ci,
-                         _vp], _ci),
-    "ltp_dropfill": ([_vp, _vp, _vp, _vp, _ll, _ll, _ci, _vp], _ci),
-    "ltp_dropfill_ef": ([_vp, _vp, _vp, _vp, _vp, _ll, _ll, _vp], _ci),
-    "ltp_randomk": ([_vp, _vp, ctypes.c_float, _vp, _ll, _ci, _vp], _ci),
-    "ltp_error_string": ([_ci], ctypes.c_char_p),
-}
-
-
-def bind(path: Path) -> ctypes.CDLL:
-    """The library at ``path``, its entry points typed."""
-    lib = ctypes.CDLL(str(path))
-    for name, (args, res) in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = args, res
     return lib
 
 
@@ -119,8 +95,24 @@ def load() -> ctypes.CDLL:
     if not torch.cuda.is_available():
         raise RuntimeError("the CUDA kernels need a CUDA device; none is "
                            "available")
-    _LIB = bind(build())
-    return _LIB
+    lib = ctypes.CDLL(str(build()))
+    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    cf = ctypes.c_float
+    lib.ltp_packet_reduce.argtypes = [vp, vp, vp, ci, ll, ll, ci, vp]
+    lib.ltp_packet_reduce.restype = ci
+    lib.ltp_tree_reduce.argtypes = [vp, vp, vp, vp, vp, ci, ci, ll, ll, ci,
+                                    vp]
+    lib.ltp_tree_reduce.restype = ci
+    lib.ltp_dropfill.argtypes = [vp, vp, vp, vp, ll, ll, ci, vp]
+    lib.ltp_dropfill.restype = ci
+    lib.ltp_dropfill_ef.argtypes = [vp, vp, vp, vp, vp, ll, ll, vp]
+    lib.ltp_dropfill_ef.restype = ci
+    lib.ltp_randomk.argtypes = [vp, vp, cf, vp, ll, ci, vp]
+    lib.ltp_randomk.restype = ci
+    lib.ltp_error_string.argtypes = [ci]
+    lib.ltp_error_string.restype = ctypes.c_char_p
+    _LIB = lib
+    return lib
 
 
 def check(lib: ctypes.CDLL, code: int, kernel: str) -> None:

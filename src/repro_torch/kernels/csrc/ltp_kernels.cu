@@ -61,16 +61,15 @@
 // evict-first (it is read only in the next round), which keeps sent in the
 // L2: packet_reduce after the gate takes 0.0060 ms in the bsp step, where it
 // took 0.0091 ms after the three passes. Measured in the profiled bsp step
-// and async apply (dropfill_designs.py; PERF.md §6) and not kept: 2 or 4
-// float4 a thread (the apply's gate 13 % and 29 % slower), a warp a packet
-// row with no divide (the bsp step's gate 18 % slower), new_res stored
-// plainly (packet_reduce after it 20 % slower), plain loads (40 % slower
-// there), and programmatic dependent launch (faster back to back, no
-// faster in the step). The design's choices stay macros (LTP_DROPFILL_*)
-// for that comparison. The plain gate may run in place (out == x): each
-// thread reads its elements before it writes them and touches no other
-// thread's. A payload that is not a multiple of 4, a stream not 16-byte
-// aligned, and bf16 take one element a thread.
+// and async apply (PERF.md §6) and not kept: 2 or 4 float4 a thread (the
+// apply's gate 13 % and 29 % slower), a warp a packet row with no divide
+// (the bsp step's gate 18 % slower), new_res stored plainly (packet_reduce
+// after it 20 % slower), plain loads (40 % slower there), and programmatic
+// dependent launch (faster back to back, no faster in the step). The plain
+// gate may run in place (out == x): each thread reads its elements before
+// it writes them and touches no other thread's. A payload that is not a
+// multiple of 4, a stream not 16-byte aligned, and bf16 take one element a
+// thread.
 //
 // randomk: a select over one flat stream, no padding. It moves 12 bytes an
 // element (x and u read, out written) for one compare: at the Fig 5 path's
@@ -121,9 +120,9 @@ struct Vec {
   float v[V];
 };
 
-// A read of a stream that is read once (the packets, randomk's x and u): kept
-// out of L1, and an L2 miss fetches the whole 256-byte span around it from
-// device memory.
+// A read of a stream that is read once (the packets, dropfill's x and res,
+// randomk's x and u): kept out of L1, and an L2 miss fetches the whole
+// 256-byte span around it from device memory.
 __device__ __forceinline__ float4 ld_stream(const float4* p) {
   float4 v;
   asm("ld.global.nc.L1::no_allocate.L2::256B.v4.f32 {%0, %1, %2, %3}, [%4];"
@@ -332,25 +331,6 @@ int launch_reduce(const float* p, const float* m, float* o, const int* mem,
 //   plain (the TPU kernel's function): out = x * (mask * scale)[row]
 //   error feedback (EF):               s = x + res; out = s * mask[row];
 //                                      new_res = s - out
-// The design's choices are macros, so that a build with -D flags can
-// measure the designs that were not kept (PERF.md §6); the defaults are the
-// shipped design.
-
-#ifndef LTP_DROPFILL_VECS  // float4 a thread (a lane's float4 a row sweep)
-#define LTP_DROPFILL_VECS 1
-#endif
-#ifndef LTP_DROPFILL_ROWS  // 1: a warp a packet row, no divide to find it
-#define LTP_DROPFILL_ROWS 0
-#endif
-#ifndef LTP_DROPFILL_LD_STREAM  // 1: 256-byte L2 fetches (ld_stream)
-#define LTP_DROPFILL_LD_STREAM 1
-#endif
-#ifndef LTP_DROPFILL_EVICT_FIRST  // 1: EF's new_res stored evict-first
-#define LTP_DROPFILL_EVICT_FIRST 1
-#endif
-#ifndef LTP_DROPFILL_PDL  // 1: programmatic dependent launch
-#define LTP_DROPFILL_PDL 0
-#endif
 
 struct Gate {
   const float* x;      // packets (plain) or flat (EF)
@@ -361,10 +341,9 @@ struct Gate {
   float* new_res;      // EF
 };
 
-__device__ __forceinline__ float gate_of(const float* mask, const float* scale,
-                                         std::int64_t row) {
-  float g = __ldg(mask + row);
-  if (scale != nullptr) g = __fmul_rn(g, __ldg(scale + row));
+__device__ __forceinline__ float gate_of(const Gate& a, std::int64_t row) {
+  float g = __ldg(a.mask + row);
+  if (a.scale != nullptr) g = __fmul_rn(g, __ldg(a.scale + row));
   return g;
 }
 
@@ -387,105 +366,26 @@ __device__ __forceinline__ void gate_vec(const float4& x, const float4& r,
   }
 }
 
-__device__ __forceinline__ float4 ld_gate(const float4* p) {
-#if LTP_DROPFILL_LD_STREAM
-  return ld_stream(p);
-#else
-  return *p;
-#endif
-}
-
-// The residual is read again only in the next round: evict-first, so that
-// the L2 keeps `sent` for packet_reduce, which reads it next
-__device__ __forceinline__ void store_res(float4* p, const float4& v) {
-#if LTP_DROPFILL_EVICT_FIRST
-  __stcs(p, v);
-#else
-  *p = v;
-#endif
-}
-
-__device__ __forceinline__ void wait_prior_grid() {
-#if LTP_DROPFILL_PDL
-  asm volatile("griddepcontrol.wait;" ::: "memory");
-#endif
-}
-
-// U float4 a thread over the flat stream of n_vec float4, a block's U *
-// kThreads consecutive; the row of float4 q is q / row_vecs, in I (32 bits
-// unless the stream is longer). Every load is issued before the first
-// multiply; a float4 past the end is loaded as the last one and not
-// stored. In place (plain, out == x) is safe: a thread reads its float4
-// before it writes them and no thread reads another's, so the
+// One float4 a thread over the flat stream of n_vec float4; the row of
+// float4 q is q / row_vecs, in I (32 bits unless the stream is longer).
+// x and res come through the 256-byte L2 fetch, both loads issued before
+// the gate is read; sent is stored plainly (packet_reduce reads it next),
+// new_res evict-first (read again only in the next round), so that the L2
+// keeps sent. In place (plain, out == x) is safe: a thread reads its
+// float4 before it writes it and no thread reads another's, so the
 // non-coherent load never sees a write.
-template <bool EF, int U, typename I>
+template <bool EF, typename I>
 __global__ void __launch_bounds__(kThreads)
 dropfill_x4_kernel(Gate a, I n_vec, I row_vecs) {
-  wait_prior_grid();
-  const I q0 = static_cast<I>(blockIdx.x) * (U * kThreads) + threadIdx.x;
-  if (q0 >= n_vec) return;
-  const auto* x4 = reinterpret_cast<const float4*>(a.x);
-  const auto* r4 = reinterpret_cast<const float4*>(a.res);
-  I q[U];
-  float4 x[U], r[U];
-  float g[U];
-#pragma unroll
-  for (int u = 0; u < U; ++u) {
-    const I qu = q0 + u * kThreads;
-    q[u] = qu < n_vec ? qu : n_vec - 1;
-    x[u] = ld_gate(x4 + q[u]);
-    if constexpr (EF) r[u] = ld_gate(r4 + q[u]);
-  }
-#pragma unroll
-  for (int u = 0; u < U; ++u) {
-    g[u] = gate_of(a.mask, EF ? nullptr : a.scale, q[u] / row_vecs);
-  }
-#pragma unroll
-  for (int u = 0; u < U; ++u) {
-    if (q0 + u * kThreads >= n_vec) break;
-    float4 o, nr;
-    gate_vec<EF>(x[u], r[u], g[u], o, nr);
-    reinterpret_cast<float4*>(a.out)[q[u]] = o;
-    if constexpr (EF) {
-      store_res(reinterpret_cast<float4*>(a.new_res) + q[u], nr);
-    }
-  }
-}
-
-// A warp a packet row, kThreads / 32 rows a block: the gate is read once
-// a row and no divide finds it; the warp sweeps the row's row_vecs float4
-// U * 32 at a time, all U loads issued before the first multiply.
-template <bool EF, int U, typename I>
-__global__ void __launch_bounds__(kThreads)
-dropfill_rows_kernel(Gate a, I n_rows, I row_vecs) {
-  wait_prior_grid();
-  const I row =
-      static_cast<I>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
-  if (row >= n_rows) return;
-  const float g = gate_of(a.mask, EF ? nullptr : a.scale, row);
-  const I base = row * row_vecs;
-  const auto* x4 = reinterpret_cast<const float4*>(a.x) + base;
-  const auto* r4 = reinterpret_cast<const float4*>(a.res) + base;
-  for (I c0 = threadIdx.x % 32; c0 < row_vecs; c0 += U * 32) {
-    float4 x[U], r[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const I c = c0 + u * 32 < row_vecs ? c0 + u * 32 : row_vecs - 1;
-      x[u] = ld_gate(x4 + c);
-      if constexpr (EF) r[u] = ld_gate(r4 + c);
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const I c = c0 + u * 32;
-      if (c >= row_vecs) break;
-      float4 o, nr;
-      gate_vec<EF>(x[u], r[u], g, o, nr);
-      reinterpret_cast<float4*>(a.out)[base + c] = o;
-      if constexpr (EF) {
-        store_res(reinterpret_cast<float4*>(a.new_res) + base + c, nr);
-      }
-    }
-  }
+  const I q = static_cast<I>(blockIdx.x) * kThreads + threadIdx.x;
+  if (q >= n_vec) return;
+  const float4 x = ld_stream(reinterpret_cast<const float4*>(a.x) + q);
+  float4 r{};
+  if constexpr (EF) r = ld_stream(reinterpret_cast<const float4*>(a.res) + q);
+  float4 o, nr;
+  gate_vec<EF>(x, r, gate_of(a, q / row_vecs), o, nr);
+  reinterpret_cast<float4*>(a.out)[q] = o;
+  if constexpr (EF) __stcs(reinterpret_cast<float4*>(a.new_res) + q, nr);
 }
 
 // any payload or alignment: one element a thread, computed in f32, stored
@@ -515,7 +415,7 @@ dropfill_kernel(const T* x, Gate a, T* out, std::int64_t n_elems,
   const std::int64_t e =
       static_cast<std::int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= n_elems) return;
-  const float g = gate_of(a.mask, a.scale, e / payload);
+  const float g = gate_of(a, e / payload);
   if constexpr (EF) {
     const float s = __fadd_rn(to_f32<T>(x[e]), __ldg(a.res + e));
     const float o = __fmul_rn(s, g);
@@ -524,44 +424,6 @@ dropfill_kernel(const T* x, Gate a, T* out, std::int64_t n_elems,
   } else {
     out[e] = from_f32<T>(__fmul_rn(to_f32<T>(x[e]), g));
   }
-}
-
-// Launch on `s`, with programmatic stream serialization under
-// LTP_DROPFILL_PDL, so that the kernel's blocks may start while the
-// stream's previous kernel drains, and wait in griddepcontrol.wait.
-template <typename... P, typename... A>
-void launch_gate_kernel(void (*kernel)(P...), std::int64_t blocks,
-                        cudaStream_t s, A... args) {
-#if LTP_DROPFILL_PDL
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned int>(blocks));
-  cfg.blockDim = dim3(kThreads);
-  cfg.stream = s;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr.val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  cudaLaunchKernelEx(&cfg, kernel, args...);
-#else
-  kernel<<<static_cast<unsigned int>(blocks), kThreads, 0, s>>>(args...);
-#endif
-}
-
-template <bool EF, typename I>
-void launch_gate_x4(const Gate& a, std::int64_t n_vec, std::int64_t row_vecs,
-                    cudaStream_t s) {
-  constexpr int U = LTP_DROPFILL_VECS;
-#if LTP_DROPFILL_ROWS
-  const std::int64_t n_rows = n_vec / row_vecs;
-  launch_gate_kernel(dropfill_rows_kernel<EF, U, I>,
-                     (n_rows + kThreads / 32 - 1) / (kThreads / 32), s, a,
-                     static_cast<I>(n_rows), static_cast<I>(row_vecs));
-#else
-  launch_gate_kernel(dropfill_x4_kernel<EF, U, I>,
-                     (n_vec + U * kThreads - 1) / (U * kThreads), s, a,
-                     static_cast<I>(n_vec), static_cast<I>(row_vecs));
-#endif
 }
 
 // 16-byte vectors when the payload is a multiple of 4 and every stream is
@@ -575,15 +437,19 @@ int launch_gate(const Gate& a, std::int64_t n_packets, std::int64_t payload,
   const bool vec = payload % 4 == 0 && aligned16(a.x) && aligned16(a.out) &&
                    (!EF || (aligned16(a.res) && aligned16(a.new_res)));
   if (vec) {
-    const std::int64_t n_vec = n_elems / 4;
-    if (n_vec + LTP_DROPFILL_VECS * kThreads < (std::int64_t{1} << 32)) {
-      launch_gate_x4<EF, std::uint32_t>(a, n_vec, payload / 4, s);
+    const std::int64_t n_vec = n_elems / 4, row_vecs = payload / 4;
+    if (n_vec + kThreads < (std::int64_t{1} << 32)) {
+      dropfill_x4_kernel<EF, std::uint32_t>
+          <<<blocks_for(n_vec), kThreads, 0, s>>>(
+              a, static_cast<std::uint32_t>(n_vec),
+              static_cast<std::uint32_t>(row_vecs));
     } else {
-      launch_gate_x4<EF, std::int64_t>(a, n_vec, payload / 4, s);
+      dropfill_x4_kernel<EF, std::int64_t>
+          <<<blocks_for(n_vec), kThreads, 0, s>>>(a, n_vec, row_vecs);
     }
   } else {
-    launch_gate_kernel(dropfill_kernel<float, EF>, blocks_for(n_elems), s,
-                       a.x, a, a.out, n_elems, payload);
+    dropfill_kernel<float, EF><<<blocks_for(n_elems), kThreads, 0, s>>>(
+        a.x, a, a.out, n_elems, payload);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -666,11 +532,11 @@ int ltp_dropfill(const void* x, const void* mask, const void* scale, void* out,
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   const std::int64_t n_elems = static_cast<std::int64_t>(n_packets) * payload;
   if (n_elems == 0) return 0;
-  launch_gate_kernel(dropfill_kernel<__nv_bfloat16, false>,
-                     blocks_for(n_elems), s,
-                     static_cast<const __nv_bfloat16*>(x), a,
-                     static_cast<__nv_bfloat16*>(out), n_elems,
-                     static_cast<std::int64_t>(payload));
+  dropfill_kernel<__nv_bfloat16, false>
+      <<<blocks_for(n_elems), kThreads, 0, s>>>(
+          static_cast<const __nv_bfloat16*>(x), a,
+          static_cast<__nv_bfloat16*>(out), n_elems,
+          static_cast<std::int64_t>(payload));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -32,8 +32,7 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py"),
-           os.path.join(ROOT, "dropfill_designs.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, files in os.walk(PORT):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
