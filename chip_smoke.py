@@ -17,7 +17,8 @@ From the root of a checkout it:
    form, three calls: add, mul, sub), with CUDA events around 40
    back-to-back calls over copies of the inputs that exceed the L2;
    packet_reduce is also timed at (32, 1934, 360), where the memory
-   rate outweighs the fixed cost;
+   rate outweighs the fixed cost, and at (16, 1934, 360), the des16
+   path's;
 3. holds ``tree_reduce`` (the rack -> root reduction, one kernel) against
    its plain version and the flat reduction at the main path's packet
    stream, for 4 racks of 2, a 5 + 3 split and interleaved racks, and at
@@ -74,8 +75,31 @@ From the root of a checkout it:
    ``des`` line: host ms a step, images/s and ``Sim`` events a run of
    each transport, the profiled step's idle share, the two kernels'
    device time in it and its EF gate by op;
-8. prints a ``kernels`` JSON line (dropfill's entry with its EF form's
-   numbers beside the plain gate's) and, last, the device JSON line.
+8. drives the paper's Fig 13 time-to-accuracy run (``train.tta.run_tta``,
+   ``run_tta_phase``) at the same width and the benchmark's full
+   schedule: 150 steps, an eval every 10 on 1,024 images, losses 0 /
+   0.001 / 0.01 x ltp / bbr / cubic; checks completion, finite losses,
+   evals in [0, 1], delivered 1.0 for bbr and cubic and one packet_reduce
+   launch an ltp step; holds ltp runs at loss 0.01 of 20 and 10 steps
+   through the kernels against the plain backend (params gated after
+   10, reported after 20 beside a one-ulp rounding control); prints the
+   ``tta`` line (final accuracy, time to 0.45, final loss, delivered,
+   simulated and host time, images/s of each run; ltp minus cubic final
+   accuracy a loss);
+9. drives the des16 fabric-chaos scenario (``train.netfault``,
+   ``run_netfault_phase``) at the same width: 16 workers in 4 racks, two
+   PS shards, 40 steps a run, clean, faulted with the loss-budget
+   controller and faulted without it; checks completion, the
+   conservation of gradients, that faults and controller moves happened
+   and one packet_reduce launch at (16, 1934, 360) a commit; holds a
+   12-step faulted run with the controller through the kernels against
+   the plain backend (equal transport fields and telemetry), profiled
+   over one step during the faults; prints the ``netfault`` line
+   (recovery, goodput and final-loss ratios, fault counts, host ms a
+   step, ``Sim`` events a run, the step's idle share);
+10. prints a ``kernels`` JSON line (dropfill's entry with its EF form's
+    numbers beside the plain gate's, packet_reduce's with its des16
+    shape's) and, last, the device JSON line.
 
 TF32 is switched off for cuDNN convolutions and matmuls for the whole
 run, so that float32 comparisons compare float32 arithmetic. Any
@@ -235,10 +259,12 @@ def check_kernels(torch, timer):
     # timed or not: the main shape and a ragged one take the x4 branch
     # with W unrolled, W = 6 the x4 branch's worker loop; a payload that
     # is not a multiple of 4, and a misaligned stream, take the scalar
-    # one. (32, 1934, 360) is timed to tell the memory rate from the
+    # one. (16, 1934, 360) is the des16 path's shape, listed beside the
+    # main one; (32, 1934, 360) is timed to tell the memory rate from the
     # fixed cost, and is not listed.
     for (w, n, p), off, main, timed in (
             ((8, 1934, 360), 0, True, True),
+            ((16, 1934, 360), 0, True, True),
             ((16, 33, 100), 0, False, False),
             ((6, 33, 100), 0, False, False),
             ((8, 130, 361), 0, False, False),
@@ -263,7 +289,8 @@ def check_kernels(torch, timer):
                 lambda a, b: ref.packet_reduce_ref(a, b, compensation=comp),
                 lib, *reduce_cost(w, n, p), timed and comp == "paper")
             if main and comp == "paper":
-                entries["packet_reduce"] = row
+                entries["packet_reduce" if w == 8 else
+                        f"packet_reduce_w{w}"] = row
     if {r["branch"] for r in checks} != {"x4 unrolled", "x4 loop",
                                          "scalar"}:
         raise AssertionError("packet_reduce cases missed a kernel branch")
@@ -515,7 +542,19 @@ def run_fig5(torch, kind: str, backend: str):
         device="cuda", seed=0, backend=backend, return_params=True)
 
 
-def profile_step(torch, run, step=None, select=None, which=None):
+class Window:
+    """A host-time interval in the profiler's microseconds, read as its
+    spans are."""
+
+    def __init__(self, start, end):
+        self.start, self.end = start, end
+
+    def elapsed_us(self):
+        return self.end - self.start
+
+
+def profile_step(torch, run, step=None, select=None, which=None,
+                 between=False):
     """``run()`` under ``torch.profiler``: its host time, the device's busy
     time (union of kernel intervals), its idle share, device time by kernel
     name, and the port's kernels' own device time. With ``step``, the name
@@ -523,7 +562,11 @@ def profile_step(torch, run, step=None, select=None, which=None):
     inside that span alone: its host time and the kernels launched in it
     (by the host time of their launch, or where the trace holds no launch
     record, of their start). ``run`` opens the span once, or ``which``
-    picks one (an index into the spans of that name, in order). With
+    picks one (an index into the spans of that name, in order, or a
+    callable that returns it once ``run`` has returned). With ``between``,
+    the window is one step of an event loop whose steps end in that span:
+    from the end of the span before the picked one to the end of the
+    picked one. With
     ``select``, a span inside that one, ``select_ms`` holds the device time
     of everything launched in it by op: each PyTorch op (``aten::`` dropped
     from the name) and each port kernel by its own name
@@ -557,9 +600,9 @@ def profile_step(torch, run, step=None, select=None, which=None):
         return launched.get(k.id, k.time_range.start)
 
     def span(name, within=None, pick=None):
-        found = [e.time_range for e in cpu if e.name == name and (
+        found = sorted((e.time_range for e in cpu if e.name == name and (
             within is None or within.start <= e.time_range.start
-            <= within.end)]
+            <= within.end)), key=lambda r: r.start)
         if not found or (pick is None and len(found) != 1):
             raise AssertionError(f"profile: {len(found)} spans {name!r}")
         return found[0 if pick is None else pick]
@@ -569,7 +612,13 @@ def profile_step(torch, run, step=None, select=None, which=None):
                    for k in ("reduce_kernel<", "dropfill", "randomk"))
 
     if step is not None:
-        win = span(step, pick=which)
+        pick = which() if callable(which) else which
+        win = span(step, pick=pick)
+        if between:
+            if pick < 1:
+                raise AssertionError(f"profile: no {step!r} span before "
+                                     f"the picked one")
+            win = Window(span(step, pick=pick - 1).end, win.end)
         wall_us = win.elapsed_us()
         kernels = [e for e in kernels
                    if win.start <= launch_of(e) <= win.end]
@@ -1052,6 +1101,252 @@ def run_des_phase(torch, zero_counts, read_counts, launches_of, steps=5):
     return line, launches
 
 
+def strip_loss(events) -> list:
+    return [{k: v for k, v in e.items() if k != "loss"} for e in events]
+
+
+def run_tta_phase(torch, zero_counts, read_counts, launches_of, *,
+                  device="cuda", cfg=None, steps=150, eval_every=10,
+                  n_test=1024, check_steps=20):
+    """The paper's Fig 13 (``train.tta.run_tta``) at papernet's full width
+    and the benchmark's full schedule: 9 runs of ``steps`` steps (losses
+    0 / 0.001 / 0.01 x ltp / bbr / cubic; 8 workers, batch 128,
+    ``compute_time=0.05``), an eval every ``eval_every`` steps on
+    ``n_test`` images, target 0.45. Checks that every run completes with
+    finite losses and evals in [0, 1], that bbr and cubic deliver 1.0 and
+    that packet_reduce launched once an ltp step. Accuracy is reported,
+    not gated: it is the paper's claim under test. Then ltp runs at loss
+    0.01 of ``check_steps`` steps and of half as many, from one init,
+    through the kernels and on the plain backend, with deterministic
+    convolutions: equal step, bst, sim_time and delivered, evals within
+    2/``n_test``, params within rtol 2e-4 / atol 2e-5 after the half run.
+    The float32 rounding differences between the two reductions grow
+    with every step of training, as much as a one-ulp nudge of the init
+    does: after all ``check_steps`` the params' distance is reported
+    beside that of the plain run from such a nudged init. Returns (the
+    ``tta`` line, the launches of the counted runs)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticCIFAR
+    from repro_torch.models import build
+    from repro_torch.train import tta
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = cfg if cfg is not None else get_config("papernet")
+    line, launches = {"runs": []}, []
+    zero_counts()
+    rows = tta.run_tta(quick=False, cfg=cfg, steps=steps,
+                       eval_every=eval_every, n_test=n_test, device=device)
+    got = read_counts()
+    launches.append(got)
+    line["launches"] = {"runs": got}
+    n_ltp = sum(len(r["history"]) for r in rows if r["protocol"] == "ltp")
+    if got != launches_of(packet_reduce=n_ltp):
+        raise AssertionError(f"tta: launches {got}, not one packet_reduce "
+                             f"an ltp step ({n_ltp})")
+    acc = {}
+    for r in rows:
+        hist = r["history"]
+        evals = [h["eval"] for h in hist if "eval" in h]
+        label = f"{r['protocol']} loss {r['loss']}"
+        if len(hist) != steps or \
+                not all(math.isfinite(h["loss"]) for h in hist) or \
+                len(evals) != steps // eval_every or \
+                not all(0.0 <= e <= 1.0 for e in evals):
+            raise AssertionError(f"tta {label}: bad history {hist}")
+        if r["protocol"] != "ltp" and \
+                any(h["delivered"] != 1.0 for h in hist):
+            raise AssertionError(f"tta {label}: delivered below 1.0")
+        acc[(r["loss"], r["protocol"])] = r["final_acc"]
+        line["runs"].append({
+            k: r[k] for k in ("loss", "protocol", "final_acc", "tta_s",
+                              "target", "final_loss", "delivered",
+                              "total_sim_time_s", "host_s",
+                              "images_per_s")} | {"evals": evals})
+    line["ltp_minus_cubic_final_acc"] = {
+        str(loss): acc[(loss, "ltp")] - acc[(loss, "cubic")]
+        for loss in sorted({r["loss"] for r in rows})}
+
+    test = {k: torch.as_tensor(v).to(device)
+            for k, v in SyntheticCIFAR(seed=5).test_set(n_test).items()}
+    init = build(cfg).init(torch.Generator().manual_seed(0), device=device)
+    # the same init with every element moved by one unit in its last
+    # place, up or down at random: the rounding control
+    gen = torch.Generator(device=device).manual_seed(1)
+    nudged = tree_map(lambda x: torch.nextafter(x, torch.where(
+        torch.rand(x.shape, device=device, generator=gen) < 0.5,
+        -math.inf, math.inf)), init)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    runs = {}
+    try:
+        for label, backend, n, params in (
+                ("cuda", "cuda", check_steps, init),
+                ("python", "python", check_steps, init),
+                ("python_nudged", "python", check_steps, nudged),
+                ("cuda_half", "cuda", check_steps // 2, init),
+                ("python_half", "python", check_steps // 2, init)):
+            zero_counts()
+            runs[label], _ = tta.train_tta(
+                cfg, 0.01, "ltp", n, test, eval_every=eval_every,
+                sync_backend=backend, device=device, params=params)
+            got = read_counts()
+            launches.append(got)
+            line["launches"]["check_" + label] = got
+            if got != launches_of(packet_reduce=n if backend == "cuda"
+                                  else 0):
+                raise AssertionError(f"tta check {label}: launches {got}")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    keys = ("step", "bst", "sim_time", "delivered")
+    for ker, plain in ((runs["cuda"], runs["python"]),
+                       (runs["cuda_half"], runs["python_half"])):
+        for a, b in zip(ker.history, plain.history, strict=True):
+            if [a[k] for k in keys] != [b[k] for k in keys] or \
+                    ("eval" in a) != ("eval" in b) or \
+                    abs(a.get("eval", 0.0) - b.get("eval", 0.0)) > 2 / n_test:
+                raise AssertionError(f"tta check kernels vs plain: {a} vs "
+                                     f"{b}")
+
+    def worst(a, b):
+        return max((x - y).abs().max().item()
+                   for x, y in zip(tree_leaves(a.params), tree_leaves(b.params),
+                                   strict=True))
+
+    # rounding differences grow with the steps: the kernel run is held to
+    # the plain run's params within tolerance after half the steps; after
+    # all of them its distance is reported beside that of the rounding
+    # control (the plain run from the nudged init)
+    line["check_ltp_loss_0.01"] = {
+        "steps": check_steps,
+        "evals": [[a["eval"], b["eval"]] for a, b in zip(
+            runs["cuda"].history, runs["python"].history) if "eval" in a],
+        "params_max_abs_diff_half": max_abs_diff(
+            torch, runs["cuda_half"].params, runs["python_half"].params),
+        "params_max_abs_diff": worst(runs["cuda"], runs["python"]),
+        "params_max_abs_diff_rounding_control": worst(
+            runs["python"], runs["python_nudged"])}
+    return line, launches
+
+
+def run_netfault_phase(torch, zero_counts, read_counts, launches_of, *,
+                       device="cuda", cfg=None, steps=40, check_steps=12):
+    """The des16 fabric-chaos scenario (``train.netfault``) at papernet's
+    full width: 16 workers in 4 racks of 4, two PS shards, batch 64,
+    ``compute_time=0.01``, staleness_comp 0.5, ``steps`` steps a run, three
+    runs on ``DES16_NETFAULTS``: the clean twin, faults with
+    ``BudgetController(interval_s=0.02)``, faults without it. Checks that
+    every run completes, that every gradient is applied, dropped or
+    counted out (``grad_ready == applied + stale + torn + lost +
+    flow_dead``), that faults fired and rerouted or blackholed on both
+    faulted runs, that the controller moved, and that packet_reduce
+    launched once a commit at (16, 1934, 360). Then the faulted budget
+    run of ``check_steps`` steps through the kernels, under the profiler,
+    against the plain backend, with deterministic convolutions: equal
+    step, bst, sim_time and delivered and equal telemetry streams apart
+    from loss; the profile is read over one step, the first to commit
+    after the partition at 0.13 s. Returns (the ``netfault`` line, the
+    launches of the counted runs)."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.net.simcore import PERF
+    from repro_torch.train import netfault as nf
+    from repro_torch.tree import tree_leaves
+
+    api = build(cfg if cfg is not None else get_config("papernet"))
+    tc = TrainConfig(batch=4 * nf.W, lr=0.05, steps=steps)
+    faulted = {"net_faults": nf.DES16_NETFAULTS}
+    line, launches, rts, rows = {}, [], {}, {}
+    nf.des16_cell(api, TrainConfig(batch=4 * nf.W, lr=0.05, steps=1), 1,
+                  device=device)                  # warm-up, not counted
+    zero_counts()
+    for label, kw in (("clean", {}), ("budget", dict(faulted, budget=True)),
+                      ("nobudget", faulted)):
+        ev0 = PERF.events
+        rts[label], rows[label] = nf.des16_cell(api, tc, steps,
+                                                device=device, **kw)
+        row = rows[label]
+        row.update(sim_events=PERF.events - ev0,
+                   host_ms_per_step=row["wall_s"] / steps * 1e3)
+    got = read_counts()
+    launches.append(got)
+    line["launches"] = {"runs": got}
+    n_commits = sum(len(rt.history) for rt in rts.values())
+    if got != launches_of(packet_reduce=n_commits):
+        raise AssertionError(f"netfault: launches {got}, not one "
+                             f"packet_reduce a commit ({n_commits})")
+    metrics = nf.des16_metrics(rows["clean"], rows["budget"],
+                               rows["nobudget"], steps)
+    for label, rt in rts.items():
+        tel, row = rt.tel, rows[label]
+        applied = sum(e["n_grads"] for e in tel.of("apply"))
+        out = (len(tel.of("stale_drop")) + len(tel.of("flow_torn"))
+               + len(tel.of("ps_lost")) + len(tel.of("flow_dead")))
+        row["grad_ready"], row["applied"] = len(tel.of("grad_ready")), applied
+        if row["n_steps_done"] != steps or \
+                row["grad_ready"] != applied + out or \
+                not all(math.isfinite(h["loss"]) for h in rt.history):
+            raise AssertionError(f"netfault {label}: {row}")
+        if label != "clean" and not (
+                row["n_netfaults"] > 0 and
+                row["n_reroutes"] + row["n_blackholes"] > 0):
+            raise AssertionError(f"netfault {label}: no fault took: {row}")
+    if rows["budget"]["n_budget_moves"] == 0:
+        raise AssertionError("netfault: the controller never moved")
+    line["rows"] = rows
+    line["metrics"] = metrics
+
+    check_tc = TrainConfig(batch=4 * nf.W, lr=0.05, steps=check_steps)
+    runs = {}
+
+    def check_run(backend):
+        zero_counts()
+        runs[backend] = nf.des16_cell(
+            api, check_tc, check_steps, budget=True, sync_backend=backend,
+            device=device, **faulted)[0]
+        runs[backend + "_launches"] = read_counts()
+        launches.append(runs[backend + "_launches"])
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    def first_after_partition():
+        return next(i for i, h in enumerate(runs["cuda"].history)
+                    if h["sim_time"] > 0.13)
+
+    try:
+        # the kernel run under the profiler: each step of its event loop
+        # ends in the device work of a bsp commit (span ``bsp_commit``)
+        prof = profile_step(
+            torch, lambda: check_run("cuda"), step="bsp_commit",
+            between=True, which=first_after_partition)
+        check_run("python")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    ker, plain = runs["cuda"], runs["python"]
+    line["launches"].update(check_cuda=runs["cuda_launches"],
+                            check_python=runs["python_launches"])
+    if runs["cuda_launches"] != launches_of(packet_reduce=len(ker.history)) \
+            or runs["python_launches"] != launches_of():
+        raise AssertionError(f"netfault check: launches {line['launches']}")
+    keys = ("step", "bst", "sim_time", "delivered")
+    for a, b in zip(ker.history, plain.history, strict=True):
+        if [a[k] for k in keys] != [b[k] for k in keys]:
+            raise AssertionError(f"netfault check kernels vs plain: {a} vs "
+                                 f"{b}")
+    if len(ker.history) != check_steps or \
+            strip_loss(ker.tel.events) != strip_loss(plain.tel.events):
+        raise AssertionError("netfault check: telemetry streams differ")
+    line["check_budget"] = {
+        "steps": check_steps, "n_events": len(ker.tel.events),
+        "summary": ker.tel.summary(),
+        "params_max_abs_diff": max(
+            (x - y).abs().max().item() for x, y in zip(
+                tree_leaves(ker.params), tree_leaves(plain.params)))}
+    line["profile_faulted_step"] = {"step": first_after_partition(), **prof}
+    line["idle_share"] = prof["idle_share"]
+    return line, launches
+
+
 def main() -> int:
     import torch
 
@@ -1214,11 +1509,22 @@ def main() -> int:
                                            launches_of)
     print("des " + json.dumps(des_line))
 
+    # the paper's Fig 13 time-to-accuracy run
+    tta_line, tta_launches = run_tta_phase(torch, zero_counts, read_counts,
+                                           launches_of)
+    print("tta " + json.dumps(tta_line))
+
+    # the des16 fabric-chaos scenario: network faults and the controller
+    nf_line, nf_launches = run_netfault_phase(torch, zero_counts,
+                                              read_counts, launches_of)
+    print("netfault " + json.dumps(nf_line))
+
     # tree_reduce is on no training path: its count is the check calls'
     by_path = {
         "lockstep": [r[2] for r in runs.values()],
         "Fig 5": [r["launches"] for r in fig5.values()],
-        "runtime": rt_launches, "des": des_launches}
+        "runtime": rt_launches, "des": des_launches, "Fig 13": tta_launches,
+        "des16": nf_launches}
     path_launches = {name: {path: sum(r[name] for r in rs)
                             for path, rs in by_path.items()}
                      for name in counters}
@@ -1256,6 +1562,15 @@ def main() -> int:
                                    "bound_ms", "bound_by", "library_ms",
                                    "library_calls")}
                 for r in entries["dropfill_ef"]]
+        if name == "packet_reduce":
+            # the des16 path's shape: every launch of that phase
+            e = entries["packet_reduce_w16"]
+            line[-1]["w16"] = {
+                "shape": e["shape"],
+                "launches": path_launches[name]["des16"],
+                "launches_from": "main paths: des16",
+                **{k: e[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")}}
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

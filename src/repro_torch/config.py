@@ -8,10 +8,10 @@ architecture is described by a ``ModelConfig``; the transport/protocol
 knobs live in ``NetConfig`` and ``LTPConfig``; training in
 ``TrainConfig``; the cluster runtime's knobs in ``RuntimeConfig``
 (overlaid on ``LTPConfig``), ``ObservabilityConfig`` and
-``FaultConfig``. The mesh and run configs and the network-fault config
-come with the slices that read them (ROADMAP.md, queue 1). The JAX
-package's ``LTPConfig.mtu_bytes``, ``header_bytes`` and
-``udp_ip_overhead`` are read by neither package: the senders size
+``FaultConfig``; the network fault plane's in ``NetFaultConfig``. The
+mesh and run configs come with the slices that read them (ROADMAP.md,
+queue 1). The JAX package's ``LTPConfig.mtu_bytes``, ``header_bytes``
+and ``udp_ip_overhead`` are read by neither package: the senders size
 packets with their own constants (``net/senders.py``: ``MSS``,
 ``LTP_PAYLOAD``), so the port leaves them out.
 """
@@ -178,4 +178,33 @@ class FaultConfig:
     ps_recovery_s: float = 0.05      # PS downtime before checkpoint failover
     checkpoint_every_s: float = 0.0  # snapshot grid (0 = initial state only)
     min_active: int = 1              # random schedules never go below this
+    seed: int = 0
+
+
+@dataclass(frozen=True)
+class NetFaultConfig:
+    """Network-layer fault-injection knobs (DESIGN.md §14).
+
+    Converted into a concrete ``net.netfaults.LinkFaultSchedule`` once
+    the run horizon and topology are known
+    (``netfault_schedule_from_config``); the all-zero default draws an
+    empty schedule, which the runtime treats exactly like no fabric
+    fault plane at all (zero-fault parity).
+    """
+
+    link_down_rate: float = 0.0      # uplink admin-downs, per link-second
+    link_recover_s: float = 0.05     # downtime before the link comes back
+    flap_rate: float = 0.0           # uplink flap episodes, per link-second
+    flap_period_s: float = 0.02      # flap square-wave period
+    flap_duty: float = 0.5           # fraction of each period spent down
+    flap_duration_s: float = 0.2     # length of one flap episode
+    degrade_rate: float = 0.0        # degrade episodes, per link-second
+    degrade_rate_factor: float = 0.25  # line-rate multiplier while degraded
+    degrade_extra_loss: float = 0.05   # added loss probability
+    degrade_duration_s: float = 0.2
+    switch_crash_at: Tuple[float, ...] = ()  # sim times of ToR crashes
+    switch_recover_s: float = 0.05
+    partition_at: Tuple[float, ...] = ()     # sim times of rack partitions
+    partition_heal_s: float = 0.1
+    max_cut: int = 1                 # concurrent-severed-racks ceiling
     seed: int = 0

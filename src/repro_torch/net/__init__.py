@@ -6,8 +6,8 @@ Fig 3 (incast FCT long tail), Fig 4 (TCP under non-congestion loss),
 Fig 12/14 (training throughput / BST), Fig 15 (fairness) — plus the
 composable topology engine behind the multi-PS / straggler / cross-traffic
 scenarios (DESIGN.md §5). Run any scenario by name via ``run_scenario``.
-The network fault plane (``netfaults``) comes with its port (ROADMAP.md,
-queue 1 item 8b(ii)).
+The network fault plane is ``netfaults`` (DESIGN.md §14); the runtime
+package re-exports it.
 """
 from repro_torch.net.simcore import (  # noqa: F401
     CrossTrafficSource,

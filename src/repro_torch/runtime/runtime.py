@@ -39,9 +39,14 @@ residual by reference. That is a copy only while nothing writes them in
 place: the optimizers return new tensors, and the residual is replaced
 out of place (``index_copy``), never written through ``residual[w] =``.
 
-Network faults (``net_faults=``) and the loss-budget controller
-(``budget=``) come with their port (ROADMAP.md, queue 1 item 8b(ii)) and
-raise ``NotImplementedError`` until then.
+Network faults (DESIGN.md §14): a ``LinkFaultSchedule`` (or a
+``NetFaultConfig`` drawn at run time) cuts, flaps, degrades and
+partitions the packet-level fabric through a ``NetFaultPlane``, and
+turns on the senders' self-healing; a flow that blackholes
+(``on_flow_dead``) drops out of its round while its worker lives on. A
+``BudgetController`` (``budget=``) moves each PS shard's Early-Close
+threshold on a fixed sim-time grid. Both need ``transport="des"``, and
+both, like the node faults, leave a run untouched when absent or empty.
 
 Truncation safety: if the event loop stops on ``max_events`` mid-run the
 runtime raises instead of returning a partial history.
@@ -61,6 +66,7 @@ from repro_torch.config import (
     FaultConfig,
     LTPConfig,
     NetConfig,
+    NetFaultConfig,
     ObservabilityConfig,
     RuntimeConfig,
     TrainConfig,
@@ -73,6 +79,11 @@ from repro_torch.core.early_close import (
 )
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.api import ModelApi
+from repro_torch.net.netfaults import (
+    LinkFaultSchedule,
+    NetFaultPlane,
+    netfault_schedule_from_config,
+)
 from repro_torch.net.simcore import PERF, Sim
 from repro_torch.net.topology import GatherSpec, resolve_topology
 from repro_torch.obs.metrics import MetricsRegistry
@@ -99,10 +110,6 @@ from repro_torch.runtime.policies import (
 from repro_torch.runtime.telemetry import Telemetry
 from repro_torch.runtime.transport import AnalyticPerWorkerNet, DESTransport
 from repro_torch.tree import tree_map
-
-_NOT_PORTED = ("is not ported to repro_torch yet: it needs the network "
-               "fault plane and the loss-budget controller; see "
-               "ROADMAP.md, queue 1 item 8b(ii)")
 
 
 class _BSPRound:
@@ -163,10 +170,6 @@ class ClusterRuntime:
     ):
         if transport not in ("analytic", "des"):
             raise ValueError(f"unknown transport {transport!r}")
-        if net_faults is not None:
-            raise NotImplementedError(f"net_faults= {_NOT_PORTED}")
-        if budget is not None:
-            raise NotImplementedError(f"budget= {_NOT_PORTED}")
         self.device = resolve_device(device)
         ltp = ltp.with_runtime(runtime_cfg)
         self.topology = resolve_topology(topology, n_ps=n_ps, spec=spec,
@@ -278,6 +281,39 @@ class ClusterRuntime:
             raise TypeError(
                 f"faults must be a FaultSchedule or FaultConfig, "
                 f"got {type(faults)!r}")
+        # network fault plane (net/netfaults.py, DESIGN.md §14): same
+        # dormant-unless-armed contract as the node-fault layer.
+        # ``net_faults`` is a LinkFaultSchedule (explicit timeline) or a
+        # NetFaultConfig (random fabric churn drawn in run()). Fabric
+        # faults act on the packet-level topology, so they require
+        # transport="des"; an empty schedule arms nothing and the run
+        # stays bitwise-identical to a fault-unaware one.
+        self._netfault_cfg: Optional[NetFaultConfig] = None
+        self.net_faults: Optional[LinkFaultSchedule] = None
+        self.netfault_plane: Optional[NetFaultPlane] = None
+        if isinstance(net_faults, LinkFaultSchedule):
+            self.net_faults = net_faults
+        elif isinstance(net_faults, NetFaultConfig):
+            self._netfault_cfg = net_faults
+        elif net_faults is not None:
+            raise TypeError(
+                f"net_faults must be a LinkFaultSchedule or "
+                f"NetFaultConfig, got {type(net_faults)!r}")
+        if (self.net_faults is not None or self._netfault_cfg is not None) \
+                and transport != "des":
+            raise ValueError(
+                "net_faults requires transport='des' — the analytic "
+                "transport has no links or switches to fail")
+        # closed-loop loss-budget controller (runtime/budget.py): bound
+        # and ticked in run() only when provided (None -> untouched
+        # thresholds, zero-fault parity)
+        self.budget = budget
+        if budget is not None and transport != "des":
+            raise ValueError(
+                "budget controller requires transport='des' — the "
+                "analytic transport has no per-shard Early-Close "
+                "receivers to actuate")
+        self._budget_cancel = None
         self._ckpt_every = float(checkpoint_every_s)
         self._ckpt_dir = checkpoint_dir
         self._snap: Optional[dict] = None
@@ -612,9 +648,11 @@ class ClusterRuntime:
                 self.protocol)
         lr = lr_at(self.train_cfg, it, self._epoch_steps)
         # the arguments the lockstep PSTrainer passes, so both engines
-        # run the same step on the same inputs
-        (self.params, self.opt_state, self.residual, loss, realized) = \
-            self._fused_step(
+        # run the same step on the same inputs. A profile finds each bsp
+        # commit's device work, full or degraded, by its span.
+        with record_function("bsp_commit"):
+            (self.params, self.opt_state, self.residual, loss,
+             realized) = self._fused_step(
                 self.params, self.opt_state, self.residual,
                 self._shaped_batch(it), self._mask_on_device(masks),
                 torch.as_tensor(np.asarray(frac, np.float32)).to(
@@ -723,33 +761,35 @@ class ClusterRuntime:
         def commit():
             if epoch != self._ps_epoch:
                 return
-            if self._grad_fn is None:
-                self._grad_fn = stp.build_worker_grad_fn(self.api, self.plan)
-            self._build_apply()
-            weights = np.zeros(self.w, np.float32)
-            rows_flat, rows_mask, losses = [], [], []
-            scale = self.w / len(survivors)
-            for i, wkr in enumerate(survivors):
-                snap = self.workers[wkr].params_snap
-                loss, flat = self._grad_fn(
-                    self.params if snap is None else snap,
-                    self._worker_batch(wkr, it))
-                mask = self._mask_on_device(masks[wkr])
-                if self._ef_gate is not None:
-                    flat, new_res = self._ef_gate(
-                        flat, self.residual[wkr], mask)
-                    self._set_residual(wkr, new_res)
-                rows_flat.append(flat)
-                rows_mask.append(mask)
-                weights[i] = scale
-                losses.append(loss)
-            stacked, mrows = self._stack_padded(rows_flat, rows_mask)
-            lr = lr_at(self.train_cfg, it, self._epoch_steps)
-            fr = float(np.mean(frac_arr[survivors]))
-            self.params, self.opt_state = self._apply_fn(
-                self.params, self.opt_state, stacked, mrows, weights,
-                np.float32(fr), lr)
-            loss = torch.stack(losses).mean()
+            with record_function("bsp_commit"):
+                if self._grad_fn is None:
+                    self._grad_fn = stp.build_worker_grad_fn(self.api,
+                                                             self.plan)
+                self._build_apply()
+                weights = np.zeros(self.w, np.float32)
+                rows_flat, rows_mask, losses = [], [], []
+                scale = self.w / len(survivors)
+                for i, wkr in enumerate(survivors):
+                    snap = self.workers[wkr].params_snap
+                    loss, flat = self._grad_fn(
+                        self.params if snap is None else snap,
+                        self._worker_batch(wkr, it))
+                    mask = self._mask_on_device(masks[wkr])
+                    if self._ef_gate is not None:
+                        flat, new_res = self._ef_gate(
+                            flat, self.residual[wkr], mask)
+                        self._set_residual(wkr, new_res)
+                    rows_flat.append(flat)
+                    rows_mask.append(mask)
+                    weights[i] = scale
+                    losses.append(loss)
+                stacked, mrows = self._stack_padded(rows_flat, rows_mask)
+                lr = lr_at(self.train_cfg, it, self._epoch_steps)
+                fr = float(np.mean(frac_arr[survivors]))
+                self.params, self.opt_state = self._apply_fn(
+                    self.params, self.opt_state, stacked, mrows, weights,
+                    np.float32(fr), lr)
+                loss = torch.stack(losses).mean()
             self.version += 1
             self.max_applied_iter = it
             self._visible = (self.version, self.params)
@@ -860,6 +900,62 @@ class ClusterRuntime:
             self._fault_ps_fail(ev.target % self.n_ps, ev.recover_s)
         elif ev.kind == "ps_recover":
             self._fault_ps_recover(ev.target % self.n_ps)
+
+    # -- network fault plane (DESIGN.md §14) ---------------------------
+
+    def _on_netfault(self, ev) -> None:
+        """NetFaultPlane ``on_event`` tap: one record per realized
+        LinkFaultEvent (mirrors the node-fault ``fault`` records)."""
+        self.tel.record("netfault", self.sim.now, fault=ev.kind,
+                        target=str(ev.target))
+
+    def _on_path_state(self, kind: str, target: str) -> None:
+        """NetFaultPlane ``on_path`` tap: path-state transitions —
+        ``reroute`` (backup absorbed the cut) or ``blackhole`` (no
+        redundancy; traffic on the path is being dropped)."""
+        self.tel.record(kind, self.sim.now, link=str(target))
+
+    def on_flow_dead(self, idx: int) -> None:
+        """LTP blackhole detection fired for worker ``idx``: its sender
+        hit BLACKHOLE_RTOS consecutive timeouts and aborted the flow.
+        The worker itself is alive — only its transport leg is gone —
+        so this drops the in-flight contribution (bsp: shrink the
+        barrier; async/ssp: fence the flight entry) and tears the
+        worker's flow state so the next iteration starts clean."""
+        if self._stopped:
+            return
+        for key in [k for k in self._flight if k[0] == idx]:
+            del self._flight[key]
+            self.tel.record("flow_dead", self.sim.now, worker=idx,
+                            iteration=key[1])
+        if self.net_des is not None:
+            self.net_des.teardown_worker(idx)
+        if isinstance(self.policy, BSPPolicy):
+            self._bsp_round_flow_dead(idx)
+        self.wake_blocked()
+        self.maybe_finish()
+
+    def _bsp_round_flow_dead(self, worker: int) -> None:
+        """A blackholed flow removed ``worker``'s contribution from the
+        in-flight round. Same barrier surgery as a crash
+        (_bsp_round_member_lost) but the event is ``flow_dead`` — the
+        worker survives and rejoins the barrier next round."""
+        rnd = self._bsp_round
+        if rnd is None or worker not in rnd.members:
+            return
+        rnd.members.discard(worker)
+        if worker in rnd.ready:
+            rnd.ready.discard(worker)
+            self.tel.record("flow_dead", self.sim.now, worker=worker,
+                            iteration=rnd.iteration)
+        if rnd.gather is not None:
+            rnd.gather.abandon_worker(worker)
+            return
+        if not rnd.members:
+            self._bsp_round_dissolved()
+            return
+        if self.net_des is not None:
+            self._bsp_reliable_check(rnd)
 
     def _fault_worker_crash(self, idx: int) -> None:
         wk = self.workers[idx]
@@ -1032,6 +1128,8 @@ class ClusterRuntime:
             self._sampler_cancel()
         if self._ckpt_cancel is not None:
             self._ckpt_cancel()
+        if self._budget_cancel is not None:
+            self._budget_cancel()
 
     _sampler_cancel = None
 
@@ -1058,6 +1156,28 @@ class ClusterRuntime:
                                                self._take_snapshot)
         if self.faults is not None:
             self.faults.arm(self.sim, self.on_fault)
+        if self._netfault_cfg is not None and self.net_faults is None:
+            base = float(getattr(self.compute, "base", 0.05))
+            t_end = max(self.steps * base * 3.0, 1.0)
+            self.net_faults = netfault_schedule_from_config(
+                self._netfault_cfg, self.topology, t_end)
+        if self.net_faults is not None and len(self.net_faults) > 0 \
+                and self.net_des is not None:
+            # fabric faults armed: build the plane over the live DES
+            # topology and turn on sender self-healing (RTO backoff +
+            # blackhole abort -> on_flow_dead). An EMPTY schedule skips
+            # all of this, so pipes stay unfaulted and senders keep the
+            # exact unhealed timing (zero-fault parity pin).
+            self.netfault_plane = NetFaultPlane(
+                self.sim, self.net_des.topo, self.topology,
+                seed=self.seed, on_event=self._on_netfault,
+                on_path=self._on_path_state)
+            self.net_faults.arm(self.sim, self.netfault_plane.dispatch)
+            self.net_des.enable_healing(self.on_flow_dead)
+        if self.budget is not None:
+            self.budget.bind(self)
+            self._budget_cancel = self.sim.every(self.budget.interval_s,
+                                                 self.budget.tick)
         if self.net_des is not None and self.tel.enabled:
             # trunk-queue sampler: an actor hook on the shared clock.
             # The O(n_ps) topology walk lives HERE, on the wall grid —
@@ -1117,6 +1237,8 @@ class ClusterRuntime:
             self._sampler_cancel()
         if self._ckpt_cancel is not None:
             self._ckpt_cancel()
+        if self._budget_cancel is not None:
+            self._budget_cancel()
         self._finalize_history()
         if self.tracker is not None:
             self._emit_observability()

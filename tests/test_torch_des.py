@@ -430,12 +430,3 @@ def test_des_truncation_raises(apis):
     with pytest.warns(RuntimeWarning, match="max_events"):
         with pytest.raises(RuntimeError, match="truncated"):
             rt.run(batches(SyntheticCIFAR(seed=0), 32, 5), max_events=50)
-
-
-@pytest.mark.parametrize("kw", ["net_faults", "budget"])
-def test_net_faults_and_budget_wait_for_8b_ii(apis, kw):
-    tc = TrainConfig(batch=8, steps=1)
-    with pytest.raises(NotImplementedError, match=r"item 8b\(ii\)"):
-        ClusterRuntime(apis[1], make_optimizer(tc), tc, LTPConfig(),
-                       NetConfig(), n_workers=2, transport="des",
-                       device="cpu", **{kw: object()})

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: it imports with JAX blocked, no file of
-it (nor chip_smoke.py) imports ``jax`` or ``repro``, and nothing falls
-back to the CPU unless the caller asked for it."""
+it (nor chip_smoke.py) imports ``jax``, ``repro`` or ``benchmarks``, and
+nothing falls back to the CPU unless the caller asked for it."""
 import ast
 import os
 import subprocess
@@ -11,7 +11,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.config import LTPConfig, NetConfig, TrainConfig
+from repro_torch.config import (
+    LTPConfig,
+    NetConfig,
+    NetFaultConfig,
+    TrainConfig,
+)
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import ltp_sync as ls
@@ -23,12 +28,12 @@ from repro_torch.kernels import packet_reduce as pr_mod
 from repro_torch.kernels import randomk as rk_mod
 from repro_torch.models import build
 from repro_torch.optim import make_optimizer
-from repro_torch.runtime import ClusterRuntime
+from repro_torch.runtime import BudgetController, ClusterRuntime
 from repro_torch.train import PSTrainer
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 PORT = os.path.join(ROOT, "src", "repro_torch")
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def _port_files():
@@ -59,7 +64,8 @@ def test_port_imports_with_jax_blocked():
     assert int(proc.stdout.strip()) >= 56
 
 
-# the packet-level simulator, the DES transport and the port's linter
+# the packet-level simulator, the DES transport, the fault plane, the
+# budget controller, the Fig 13 and des16 drivers and the port's linter
 SIM_MODULES = (
     "repro_torch.net",
     "repro_torch.net.genfence",
@@ -68,6 +74,10 @@ SIM_MODULES = (
     "repro_torch.net.aggtree",
     "repro_torch.net.scenarios",
     "repro_torch.runtime.transport",
+    "repro_torch.net.netfaults",
+    "repro_torch.runtime.budget",
+    "repro_torch.train.tta",
+    "repro_torch.train.netfault",
     "repro_torch.devtools.replint",
     "repro_torch.devtools.replint.core",
     "repro_torch.devtools.replint.rules",
@@ -321,9 +331,9 @@ def test_resolve_backend_rules():
 
 def test_runtime_engine_and_other_families_wait_for_their_port():
     """The runtime engine runs over the analytic and the packet-level
-    transports; network faults and the loss-budget controller wait for
-    their port (queue 1 item 8b(ii)), the other model families for
-    theirs."""
+    transports, with network faults and the loss-budget controller on the
+    packet-level one only; the other model families wait for their
+    port."""
     cfg = get_config("papernet").replace(d_model=8, n_layers=3)
     tc = TrainConfig(batch=8, steps=1)
 
@@ -333,10 +343,13 @@ def test_runtime_engine_and_other_families_wait_for_their_port():
                               device="cpu", **kw)
 
     assert runtime(transport="des").net_des is not None
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.*8b\(ii\)"):
-        runtime(net_faults=object())
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.*8b\(ii\)"):
-        runtime(budget=object())
+    rt = runtime(transport="des", net_faults=NetFaultConfig(),
+                 budget=BudgetController())
+    assert rt.budget is not None and rt._netfault_cfg == NetFaultConfig()
+    with pytest.raises(ValueError, match="transport='des'"):
+        runtime(net_faults=NetFaultConfig())
+    with pytest.raises(ValueError, match="transport='des'"):
+        runtime(budget=BudgetController())
     tr = PSTrainer(build(cfg), make_optimizer(tc), tc, LTPConfig(),
                    NetConfig(), n_workers=2, engine="runtime",
                    transport="des", device="cpu")
@@ -355,7 +368,8 @@ def test_configs_stay_hashable():
 
 @pytest.mark.parametrize("name", ["ModelConfig", "LTPConfig", "NetConfig",
                                   "TrainConfig", "RuntimeConfig",
-                                  "ObservabilityConfig", "FaultConfig"])
+                                  "ObservabilityConfig", "FaultConfig",
+                                  "NetFaultConfig"])
 def test_config_fields_are_the_jax_packages(name):
     """Every field the port keeps is the JAX package's field, with the same
     default; only ``sync_backend`` differs (the port's backends)."""
