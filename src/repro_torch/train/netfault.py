@@ -53,6 +53,8 @@ from repro_torch.runtime import (
 NET = NetConfig(10, 1, 0.001, 4096)
 W = 16
 RACKS = 4
+#: the benchmark's seed of every des16 run (init and transport)
+SEED = 11
 
 #: the des16 fabric-chaos scenario: a flap storm on one uplink (the
 #: plane reroutes it over the spare spine path), an aggregation-switch
@@ -110,8 +112,7 @@ def _recovery_s(rt) -> float:
 
 
 def des16_cell(api, tc: TrainConfig, steps: int, *, net_faults=None,
-               budget: bool = False, seed: int = 11,
-               sync_backend: str = "auto", device: DeviceLike = None,
+               budget: bool = False, sync_backend: str = "auto", device: DeviceLike = None,
                params: Any = None) -> Tuple[ClusterRuntime, Dict[str, Any]]:
     """One des16 run of ``steps`` steps (bsp over ltp, ``compute_time=
     0.01``, staleness_comp 0.5), with ``BudgetController(interval_s=
@@ -119,7 +120,7 @@ def des16_cell(api, tc: TrainConfig, steps: int, *, net_faults=None,
     benchmark's row, unrounded; ``wall_s`` is the run's host seconds."""
     rt = ClusterRuntime(
         api, make_optimizer(tc), tc, LTPConfig(), NET, n_workers=W,
-        protocol="ltp", policy="bsp", compute_time=0.01, seed=seed,
+        protocol="ltp", policy="bsp", compute_time=0.01, seed=SEED,
         transport="des",
         topology=rack_spine(RACKS, W // RACKS, n_ps=2),
         net_faults=net_faults,
@@ -169,15 +170,14 @@ def des16_metrics(clean: Dict[str, Any], on: Dict[str, Any],
     return metrics
 
 
-def run(quick: bool = True, *, cfg: Optional[ModelConfig] = None,
-        steps: Optional[int] = None, device: DeviceLike = None,
+def run(*, cfg: Optional[ModelConfig] = None, steps: int = 40,
+        device: DeviceLike = None,
         params: Any = None) -> Tuple[List[Dict[str, Any]], Dict[str, Any]]:
-    """The rows and metrics of ``netfault_sweep.run(quick)``: the clean
-    twin, faulted with the controller, faulted without it. Unset,
-    ``cfg`` (papernet at width 8, 3 layers, for both) and ``steps`` (40
-    quick, 56 full) are the benchmark's. Every run starts from ``params``
-    when given, else from seed 11's init."""
-    steps = steps if steps is not None else (40 if quick else 56)
+    """The rows and metrics of ``netfault_sweep.run(quick=True)``: the
+    clean twin, faulted with the controller, faulted without it. Unset,
+    ``cfg`` (papernet at width 8, 3 layers) and ``steps`` are the
+    benchmark's quick settings. Every run starts from ``params`` when
+    given, else from ``SEED``'s init."""
     api = build(cfg if cfg is not None else
                 get_config("papernet").replace(d_model=8, n_layers=3))
     tc = TrainConfig(batch=4 * W, lr=0.05, steps=steps)
