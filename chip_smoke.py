@@ -98,10 +98,32 @@ From the root of a checkout it:
    over one step during the faults; prints the ``netfault`` line
    (recovery, goodput and final-loss ratios, fault counts, host ms a
    step, ``Sim`` events a run, the step's idle share);
-10. prints a ``kernels`` JSON line (dropfill's entry with its EF form's
+10. drives the LM path (``run_lm_phase``): ``smollm_360m``'s CONFIG at
+    its published widths and all 32 layers, float32 (361,821,120
+    parameters, 1,005,059 packets), on ``train.lm.lm_trainer``, the
+    setup of ``examples/train_lm.py`` (8 workers, batch 32, seq 128,
+    AdamW at lr 3e-4, ``LTPConfig()``, the runtime engine over the
+    analytic transport), fed from ``SyntheticLM(vocab=8192)``. First it
+    holds packet_reduce at (8, 1005059, 360) and dropfill's EF form at
+    (8040472, 360), the first streams past 2^31 floats, against their
+    plain versions and times them. Then 5 steps of paper compensation
+    and 3 of error feedback, each through the kernels, on the plain
+    backend and on the plain backend from an init nudged by one ulp:
+    one packet_reduce (and with EF one dropfill) launch a step on the
+    kernel runs alone, equal transport fields, losses within rtol 1e-4
+    that start near ln 49152 and fall, the first step's reduced stream
+    kernel against plain, params within twice the rounding control's
+    distance; host ms a step, tokens/s and peak device memory a run,
+    and one profiled step of each form; prints the ``lm`` line;
+11. serves the same model by KV-cache decode (``run_serve_phase``,
+    ``train.serve.serve``: batch 4, a 16-token prompt, 24 new tokens),
+    checks that the logits of the prompt's decode steps match one
+    ``forward`` over the prompt, and prints the ``serve`` line;
+12. prints a ``kernels`` JSON line (dropfill's entry with its EF form's
     numbers beside the plain gate's, packet_reduce's with its des16
-    shape's, whose launches are counted there alone) and, last, the
-    device JSON line.
+    shape's, whose launches are counted there alone, and both with
+    their LM shape's under ``lm``, whose launches are counted there
+    alone) and, last, the device JSON line.
 
 TF32 is switched off for cuDNN convolutions and matmuls for the whole
 run, so that float32 comparisons compare float32 arithmetic. Any
@@ -111,6 +133,7 @@ result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -159,17 +182,18 @@ class Timer:
         return [args] + [tuple(a.clone() if isinstance(a, torch.Tensor)
                                else a for a in args) for _ in range(k - 1)]
 
-    def ms(self, fn, inputs: list) -> float:
-        """Median ms of ``fn(*inputs[i % len(inputs)])``."""
+    def ms(self, fn, inputs: list, n_timed: int = N_TIMED) -> float:
+        """Median ms of ``fn(*inputs[i % len(inputs)])``, ``n_timed``
+        calls a run."""
         torch = self.torch
         fn(*inputs[0])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for i in range(N_TIMED):
+        for i in range(n_timed):
             fn(*inputs[i % len(inputs)])
-        host_s_per_call = (time.perf_counter() - t0) / N_TIMED
+        host_s_per_call = (time.perf_counter() - t0) / n_timed
         torch.cuda.synchronize()
-        n, runs = N_TIMED, []
+        n, runs = n_timed, []
         for _ in range(N_RUNS + 12):
             torch.cuda._sleep(int(2 * n * host_s_per_call * SM_HZ) + 200_000)
             start = torch.cuda.Event(enable_timing=True)
@@ -1362,6 +1386,314 @@ def run_netfault_phase(torch, zero_counts, read_counts, launches_of, *,
     return line, launches
 
 
+# the LM path: smollm-360m at its published widths and depth, on
+# examples/train_lm.py's setup
+LM_W, LM_BATCH, LM_SEQ = 8, 32, 128
+LM_DATA_VOCAB = 8192         # the corpus examples/train_lm.py itself uses
+LM_STEPS, LM_EF_STEPS = 5, 3
+LM_LOSS_RTOL = 1e-4
+
+
+def lm_kernel_row(timer, shape, err, tol, inputs, fn, plain, library,
+                  n_bytes, n_ops) -> dict:
+    """One kernel checked and timed at an LM stream: 5 calls a timed
+    run (one call reads far more than the L2 holds)."""
+    if not err <= tol:
+        raise AssertionError(f"{shape}: max abs err {err} > {tol}")
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    return {"shape": list(shape), "max_abs_err": err, "tol": tol,
+            "ms": timer.ms(fn, inputs, 5),
+            "plain_ms": timer.ms(plain, inputs, 5),
+            "library_ms": timer.ms(library, inputs, 5),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes}
+
+
+def check_lm_kernels(torch, timer, w: int, n: int, p: int,
+                     device="cuda") -> dict:
+    """packet_reduce (paper compensation) at the LM step's (W, n, p)
+    stream and dropfill's error-feedback form at its (W n, p) rows, the
+    first streams past 2^31 floats (2,894,569,920 at smollm's full size),
+    each against its plain version on random inputs: packet_reduce
+    within 1e-5 (a sum of W terms of size ~1 in another order), the EF
+    form exactly (the same float32 add, multiply and subtract). The plain
+    EF gate runs in blocks of 2^20 rows: it is elementwise, so each block
+    is the plain function's own output, and a whole second copy of its
+    three 11.6 GB outputs would not fit beside the kernel's. The library
+    yardsticks are ``einsum("wnp,wn->np") / W`` and the plain EF gate's
+    three calls. Returns rows keyed by kernel name."""
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    rows = {}
+    x = torch.randn((w, n, p), device=device, generator=gen)
+    m = (torch.rand(w, n, device=device, generator=gen) < 0.8).float()
+    got = ops.ltp_packet_reduce(x, m)
+    want = ref.packet_reduce_ref(x, m)
+    err = (got - want).abs().max().item()
+    del got, want
+    rows["packet_reduce"] = lm_kernel_row(
+        timer, (w, n, p), err, 1e-5, [(x, m)], ops.ltp_packet_reduce,
+        ref.packet_reduce_ref,
+        lambda a, b: torch.einsum("wnp,wn->np", a, b) / w,
+        *reduce_cost(w, n, p))
+    del x, m
+    n_rows, blk = w * n, 1 << 20
+    f = torch.randn((n_rows, p), device=device, generator=gen)
+    r = torch.randn((n_rows, p), device=device, generator=gen)
+    mk = (torch.rand(n_rows, device=device, generator=gen) < 0.7).float()
+    sent, new_res = ops.ltp_dropfill_ef(f, r, mk)
+    err = 0.0
+    for i in range(0, n_rows, blk):
+        ws, wr = ref.dropfill_ef_ref(f[i:i + blk], r[i:i + blk],
+                                     mk[i:i + blk])
+        err = max(err, (sent[i:i + blk] - ws).abs().max().item(),
+                  (new_res[i:i + blk] - wr).abs().max().item())
+    del sent, new_res, ws, wr
+    rows["dropfill_ef"] = lm_kernel_row(
+        timer, (n_rows, p), err, 0.0, [(f, r, mk)], ops.ltp_dropfill_ef,
+        ref.dropfill_ef_ref, ref.dropfill_ef_ref,
+        4 * (4 * n_rows * p + n_rows), 3 * n_rows * p)
+    rows["dropfill_ef"]["library_calls"] = "3: torch.add, torch.mul, torch.sub"
+    return rows
+
+
+class StampedBatch(dict):
+    """A host batch that notes the host clock, after a synchronise, when
+    the runtime first reads it: under bsp, at the start of its step's
+    commit, so successive stamps bound one step each."""
+
+    def __init__(self, batch, stamps, torch):
+        super().__init__(batch)
+        self.stamps, self.torch = stamps, torch
+
+    def items(self):
+        self.torch.cuda.synchronize()
+        self.stamps.append(time.perf_counter())
+        return super().items()
+
+
+def capture_first_reduction():
+    """Wrap ``ltp_sync.reduce_packet_stream`` so that its first call, the
+    first step's PS reduction through the kernels, also runs the plain
+    route on the same inputs (no launch counted). Returns the record it
+    fills and the function that takes the wrapper off."""
+    import dataclasses
+
+    from repro_torch.core import ltp_sync as ls
+
+    orig = ls.reduce_packet_stream
+    rec = {}
+
+    def wrapped(flat, masks, ltp, w, **kw):
+        out = orig(flat, masks, ltp, w, **kw)
+        if not rec:
+            plain = orig(flat, masks, dataclasses.replace(
+                ltp, sync_backend="python"), w, **kw)
+            rec.update(shape=list(flat.shape),
+                       max_abs_diff=(out - plain).abs().max().item(),
+                       max_abs=out.abs().max().item())
+        return out
+
+    ls.reduce_packet_stream = wrapped
+    return rec, lambda: setattr(ls, "reduce_packet_stream", orig)
+
+
+def run_lm_phase(torch, timer, zero_counts, read_counts, launches_of, *,
+                 device="cuda", cfg=None):
+    """The LM path: ``smollm_360m``'s CONFIG at float32 (d_model 960, 15
+    heads / 5 KV heads of 64, d_ff 2560, vocab 49,152, tied embeddings,
+    32 layers; 361,821,120 parameters, 1,005,059 packets), on
+    ``train.lm.lm_trainer``, the setup of ``examples/train_lm.py``: 8
+    workers, batch 32, seq 128, AdamW at lr 3e-4, ``LTPConfig()``,
+    ``NetConfig(10, 1, 0.001, 4096)``, the runtime engine over the
+    analytic transport. The one cut: tokens come from
+    ``SyntheticLM(vocab=8192)``, whose dense tables at 49,152 would take
+    19.3 GB each; the model keeps all its output columns.
+
+    First ``check_lm_kernels`` at the step's streams. Then, from one
+    init: paper compensation, ``LM_STEPS`` steps through the kernels, on
+    the plain backend, and on the plain backend from the init nudged by
+    one ulp (the rounding control); then error feedback (count
+    compensation), ``LM_EF_STEPS`` steps the same three ways. Checks:
+    one packet_reduce launch a step (and one dropfill a step with EF) on
+    the kernel runs and none elsewhere; equal step, bst, delivered and
+    sim_time; losses within rtol ``LM_LOSS_RTOL``; finite losses that
+    fall; the first step's reduced stream through the kernel against the
+    plain route on the same inputs within 2e-6 of its largest element;
+    params within twice the rounding control's distance (AdamW's first
+    update is about lr * sign(g), so no fixed tolerance holds them). Host
+    ms a step from ``StampedBatch``; peak device memory a run. Then one
+    1-step run of each form profiled. Returns (the ``lm`` line, the
+    launches of the counted runs, the kernel rows, the config and the
+    init)."""
+    import gc
+
+    from repro_torch.config import LTPConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core import packets as pk
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build
+    from repro_torch.train.lm import lm_trainer
+
+    cfg = cfg or get_config("smollm_360m").replace(dtype="float32")
+    line = {"config": {k: getattr(cfg, k) for k in (
+        "name", "n_layers", "d_model", "n_heads", "n_kv", "head_dim",
+        "d_ff", "vocab", "tie_embeddings", "dtype")},
+        "workers": LM_W, "batch": LM_BATCH, "seq": LM_SEQ,
+        "data_vocab": LM_DATA_VOCAB, "runs": {}}
+    init = build(cfg).init(torch.Generator().manual_seed(0), device=device)
+    plan = pk.make_plan(init, 360)
+    line.update(n_params=plan.n_floats, n_packets=plan.n_packets,
+                n_critical=plan.n_critical)
+    t0 = time.perf_counter()
+    kernels = check_lm_kernels(torch, timer, LM_W, plan.n_packets,
+                               plan.packet_floats, device)
+    line["kernel_checks"] = kernels
+    line["kernel_checks_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    corpus = SyntheticLM(vocab=LM_DATA_VOCAB, seed=0)
+    control = nudged(torch, init, 1)
+    launches = []
+
+    def trainer_for(steps, backend, params, ltp_kw):
+        return lm_trainer(cfg, steps=steps, workers=LM_W, seq=LM_SEQ,
+                          batch=LM_BATCH, corpus=corpus, device=device,
+                          ltp=LTPConfig(sync_backend=backend, **ltp_kw),
+                          params=params)
+
+    def run(label, steps, backend, params, ltp_kw):
+        tr, data = trainer_for(steps, backend, params, ltp_kw)
+        stamps = []
+        data = [StampedBatch(b, stamps, torch) for b in data]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        tr.run(data, epoch_steps=100)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        got = read_counts()
+        launches.append(got)
+        step_s = [b - a for a, b in zip(stamps, stamps[1:])]
+        hist = tr.history
+        if len(step_s) != steps or len(hist) != steps or not all(
+                math.isfinite(h["loss"]) and 0.0 < h["delivered"] <= 1.0
+                and h["bst"] > 0.0 for h in hist):
+            raise AssertionError(f"lm {label}: bad run {hist} {step_s}")
+        steady = statistics.median(step_s[1:])
+        line["runs"][label] = {
+            "launches": got, "step_ms": [t * 1e3 for t in step_s],
+            "median_step_ms": steady * 1e3,
+            "tokens_per_s": LM_BATCH * LM_SEQ / steady,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "loss": [h["loss"] for h in hist], "history": hist}
+        out = (tr.params, hist)
+        del tr, data
+        return out
+
+    for form, steps, ltp_kw, want in (
+            ("paper", LM_STEPS, {}, launches_of(packet_reduce=LM_STEPS)),
+            ("count_ef", LM_EF_STEPS,
+             {"compensation": "count", "error_feedback": True},
+             launches_of(packet_reduce=LM_EF_STEPS, dropfill=LM_EF_STEPS))):
+        first, undo = capture_first_reduction()
+        try:
+            ker, ker_h = run(f"{form}_cuda", steps, "cuda", init, ltp_kw)
+        finally:
+            undo()
+        plain, plain_h = run(f"{form}_python", steps, "python", init, ltp_kw)
+        ctl, ctl_h = run(f"{form}_python_nudged", steps, "python", control,
+                         ltp_kw)
+        runs = line["runs"]
+        if runs[f"{form}_cuda"]["launches"] != want or \
+                runs[f"{form}_python"]["launches"] != launches_of() or \
+                runs[f"{form}_python_nudged"]["launches"] != launches_of():
+            raise AssertionError(f"lm {form}: launches "
+                                 f"{[r['launches'] for r in runs.values()]}")
+        keys = ("step", "bst", "delivered", "sim_time")
+        for a, b in zip(ker_h, plain_h, strict=True):
+            if [a[k] for k in keys] != [b[k] for k in keys] or \
+                    abs(a["loss"] - b["loss"]) > LM_LOSS_RTOL * abs(b["loss"]):
+                raise AssertionError(f"lm {form} kernels vs plain: {a} vs "
+                                     f"{b}")
+        if not first["max_abs_diff"] <= 2e-6 * first["max_abs"]:
+            raise AssertionError(f"lm {form}: first reduced stream {first}")
+        line[form] = {
+            "first_step_reduced_stream": first,
+            "loss_max_rel_diff": max(abs(a["loss"] - b["loss"]) / b["loss"]
+                                     for a, b in zip(ker_h, plain_h)),
+            "loss_max_rel_diff_rounding_control": max(
+                abs(a["loss"] - b["loss"]) / b["loss"]
+                for a, b in zip(ctl_h, plain_h)),
+            **within_rounding(f"lm {form}", ker, plain, ctl)}
+        del ker, plain, ctl
+    loss = line["runs"]["paper_cuda"]["loss"]
+    if not (abs(loss[0] - math.log(cfg.vocab)) < 1.0 and loss[-1] < loss[0]):
+        raise AssertionError(f"lm: loss does not start near ln V or fall: "
+                             f"{loss}")
+    line["ln_vocab"] = math.log(cfg.vocab)
+
+    # one step of each form profiled (not counted): its idle share and the
+    # port kernels' device time in it
+    for form, ltp_kw, select in (
+            ("paper", {}, None),
+            ("count_ef", {"compensation": "count", "error_feedback": True},
+             "ef_gate")):
+        tr, data = trainer_for(1, "cuda", init, ltp_kw)
+        gc.collect()
+        torch.cuda.empty_cache()
+        prof = profile_step(torch, lambda: tr.run(data, epoch_steps=100),
+                            select=select)
+        if select is not None:
+            ef_gate_launches(prof, f"lm {form} step")
+        line[f"profile_{form}_step"] = prof
+        del tr, data
+    line["idle_share"] = line["profile_paper_step"]["idle_share"]
+    del control
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line, launches, kernels, cfg, init
+
+
+def run_serve_phase(torch, cfg, params, batch=4, prompt_len=16, new=24,
+                    device="cuda"):
+    """``train.serve.serve`` at ``cfg`` (smollm_360m's CONFIG at float32,
+    the LM phase's init) with ``examples/serve.py``'s defaults: batch 4,
+    a 16-token prompt decoded token by token, 24 new tokens greedily.
+    Twice: the first call pays the card's warm-up; both are reported.
+    Checks finite logits of the expected shape, and that decode matches
+    forward: the logits ``decode_step`` gave at the 16 prompt positions
+    against one ``forward`` over the prompt, within rtol 1e-4 / atol 1e-4
+    (the same float32 math, one position at a time against the whole
+    sequence, on other matrix-product shapes)."""
+    from repro_torch.models import build
+    from repro_torch.train.serve import serve
+
+    line = {"batch": batch, "prompt_len": prompt_len, "new": new,
+            "runs": []}
+    for _ in range(2):
+        out = serve(cfg, batch=batch, prompt_len=prompt_len, new=new,
+                    device=device, params=params)
+        line["runs"].append({k: out[k] for k in (
+            "prefill_s", "decode_s", "tokens_per_s")})
+    pl = out["prompt_logits"]
+    if tuple(pl.shape) != (batch, prompt_len, cfg.vocab_padded) or \
+            not bool(torch.isfinite(pl).all()) or \
+            out["tokens"].shape != (batch, new):
+        raise AssertionError(f"serve: bad output {pl.shape} "
+                             f"{out['tokens'].shape}")
+    with torch.no_grad():
+        full, _, _ = build(cfg).forward(
+            params, {"tokens": torch.as_tensor(out["prompts"]).to(device)})
+    torch.testing.assert_close(pl, full, rtol=1e-4, atol=1e-4)
+    line["decode_vs_forward_max_abs_diff"] = (pl - full).abs().max().item()
+    line["decode_vs_forward_tol"] = "rtol 1e-4, atol 1e-4"
+    line["logits_max_abs"] = full.abs().max().item()
+    line["tokens_first_2"] = out["tokens"][:2].tolist()
+    return line
+
+
 def main() -> int:
     import torch
 
@@ -1534,18 +1866,33 @@ def main() -> int:
                                               read_counts, launches_of)
     print("netfault " + json.dumps(nf_line))
 
+    # the LM path: smollm-360m at its published widths, trained over the
+    # LTP PS and served by KV-cache decode
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_line, lm_launches, lm_kernels, lm_cfg, lm_init = run_lm_phase(
+        torch, timer, zero_counts, read_counts, launches_of)
+    print("lm " + json.dumps(lm_line))
+    print("serve " + json.dumps(run_serve_phase(torch, lm_cfg, lm_init)))
+    del lm_init
+
     # tree_reduce is on no training path: its count is the check calls'
     by_path = {
         "lockstep": [r[2] for r in runs.values()],
         "Fig 5": [r["launches"] for r in fig5.values()],
         "runtime": rt_launches, "des": des_launches, "Fig 13": tta_launches,
-        "des16": nf_launches}
+        "des16": nf_launches, "lm": lm_launches}
     path_launches = {name: {path: sum(r[name] for r in rs)
                             for path, rs in by_path.items()}
                      for name in counters}
     # des16 launches packet_reduce at (16, 1934, 360) alone: its count
     # goes to that shape's entry, not to the (8, 1934, 360) one
     w16_launches = path_launches["packet_reduce"].pop("des16")
+    # so does the LM path at its stream, and dropfill's EF form at its
+    # rows: those counts go to the LM shapes' entries
+    lm_path = {name: path_launches[name].pop("lm") for name in counters}
+    if lm_path["tree_reduce"] or lm_path["randomk"]:
+        raise AssertionError(f"the LM path launched {lm_path}")
     main_launches = {name: sum(path_launches[name].values())
                      for name in counters}
     if main_launches["tree_reduce"] != 0:
@@ -1589,6 +1936,18 @@ def main() -> int:
                 "launches_from": "main paths: des16",
                 **{k: e[k] for k in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms")}}
+    for e in line:
+        if e["name"] in ("packet_reduce", "dropfill"):
+            row = lm_kernels["packet_reduce" if e["name"] == "packet_reduce"
+                             else "dropfill_ef"]
+            e["lm"] = {
+                "shape": row["shape"],
+                "form": "paper" if e["name"] == "packet_reduce" else "ef",
+                "launches": lm_path[e["name"]],
+                "launches_from": "main paths: lm",
+                **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by",
+                                       "library_ms")}}
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

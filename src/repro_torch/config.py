@@ -1,19 +1,20 @@
 """Config system for the LTP reproduction framework (PyTorch port).
 
-The JAX package's ``config.py`` cut to the fields this port reads.
-``sync_backend`` takes ``python | cuda | auto`` and defaults to
-``"auto"``; ``kernel_interpret`` is gone (a CUDA kernel has no
-interpret mode). Plain dataclasses (no external deps). Every
-architecture is described by a ``ModelConfig``; the transport/protocol
-knobs live in ``NetConfig`` and ``LTPConfig``; training in
-``TrainConfig``; the cluster runtime's knobs in ``RuntimeConfig``
-(overlaid on ``LTPConfig``), ``ObservabilityConfig`` and
-``FaultConfig``; the network fault plane's in ``NetFaultConfig``. The
-mesh and run configs come with the slices that read them (ROADMAP.md,
-queue 1). The JAX package's ``LTPConfig.mtu_bytes``, ``header_bytes``
-and ``udp_ip_overhead`` are read by neither package: the senders size
-packets with their own constants (``net/senders.py``: ``MSS``,
-``LTP_PAYLOAD``), so the port leaves them out.
+The JAX package's ``config.py`` cut to the fields this port reads, apart
+from ``ModelConfig``, which carries every field so that each model
+family's port finds its knobs there. ``sync_backend`` takes ``python |
+cuda | auto`` and defaults to ``"auto"``; ``kernel_interpret`` is gone
+(a CUDA kernel has no interpret mode). Plain dataclasses (no external
+deps). Every architecture is described by a ``ModelConfig``; the
+transport/protocol knobs live in ``NetConfig`` and ``LTPConfig``;
+training in ``TrainConfig``; the cluster runtime's knobs in
+``RuntimeConfig`` (overlaid on ``LTPConfig``), ``ObservabilityConfig``
+and ``FaultConfig``; the network fault plane's in ``NetFaultConfig``.
+The mesh and run configs come with the slices that read them
+(ROADMAP.md, queue 1). The JAX package's ``LTPConfig.mtu_bytes``,
+``header_bytes`` and ``udp_ip_overhead`` are read by neither package:
+the senders size packets with their own constants (``net/senders.py``:
+``MSS``, ``LTP_PAYLOAD``), so the port leaves them out.
 """
 from __future__ import annotations
 
@@ -22,18 +23,83 @@ from dataclasses import dataclass
 from typing import Any, Optional, Tuple
 
 
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
 @dataclass(frozen=True)
 class ModelConfig:
-    """Architecture description: the fields the ported model families
-    read. The JAX package's transformer, MoE, SSM and MLA fields come
-    with the slices that port those families (ROADMAP.md, queue 1)."""
+    """Architecture description, every field of the JAX package's.
+
+    ``block_pattern`` drives the per-layer mixer choice; it is tiled to
+    ``n_layers``.  Codes: 'A' full attention, 'W' sliding-window attention,
+    'M' mamba1, 'M2' mamba2, 'L' MLA (deepseek latent attention).
+    """
 
     name: str
-    family: str                      # cnn (the only family ported so far)
+    family: str                      # dense | moe | ssm | hybrid | vlm | audio | cnn
     n_layers: int
     d_model: int
-    vocab: int                       # classes for the cnn family
+    n_heads: int
+    n_kv: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0                # 0 -> d_model // n_heads
+    block_pattern: Tuple[str, ...] = ("A",)
+    window: int = 0                  # sliding window size for 'W' layers
+    rope_theta: float = 1e4
+    qk_norm: bool = False
+    tie_embeddings: bool = False
+    # --- MoE ---
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0                # per-expert hidden (d_ff used if 0)
+    first_dense_layers: int = 0      # leading dense layers before MoE starts
+    # --- SSM (mamba) ---
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    ssm_heads: int = 0               # mamba2 heads (d_inner // head size)
+    # --- MLA (deepseek) ---
+    kv_lora: int = 0
+    q_lora: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
+    # --- hybrid (zamba2): shared attention block every N mixer layers ---
+    shared_attn_every: int = 0
+    # --- enc-dec (whisper) ---
+    encoder_layers: int = 0
+    encoder_frames: int = 0          # stubbed conv-frontend output length
+    # --- vlm (qwen2-vl) ---
+    vision_patches: int = 0          # stubbed ViT output length
+    mrope_sections: Tuple[int, ...] = ()
+    # --- misc ---
+    norm_type: str = "rms"           # rms | ln
+    mlp_type: str = "swiglu"         # swiglu | gelu
+    pos_type: str = "rope"           # rope | mrope | learned | none
+    norm_eps: float = 1e-6
+    dtype: str = "bfloat16"
     source: str = ""                 # citation
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or (self.d_model // self.n_heads)
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def vocab_padded(self) -> int:
+        return _round_up(self.vocab, 128)
+
+    @property
+    def pattern_layers(self) -> Tuple[str, ...]:
+        """Per-layer mixer codes, length n_layers."""
+        reps = (self.n_layers + len(self.block_pattern) - 1) // len(self.block_pattern)
+        return (self.block_pattern * reps)[: self.n_layers]
 
     def replace(self, **kw: Any) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -152,6 +218,7 @@ class NetConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     batch: int = 32
+    seq: int = 256                   # tokens a sequence (LM families)
     lr: float = 0.1
     momentum: float = 0.9
     weight_decay: float = 0.0

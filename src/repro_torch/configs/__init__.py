@@ -1,32 +1,66 @@
 """Registry of model configurations ported so far.
 
-Only the paper's own model, ``papernet``, is here: the transformer
-families of the JAX package's ``configs`` wait for the port of their
-models (ROADMAP.md, queue 1 item 12). Each submodule exposes ``CONFIG``
-(the full-size config) and ``REDUCED`` (a smoke variant).
+The paper's own model, ``papernet``, and the transformer families whose
+layers are attention mixers alone: dense (smollm, yi, qwen3, gemma3's
+5 local : 1 global pattern) and the VLM backbone (qwen2-vl, M-RoPE and
+a patch-embedding stub). The other architectures of the JAX package's
+``configs`` wait for the port of their models, each named with its
+ROADMAP.md item (queue 1, items 12b-12e). Each submodule exposes
+``CONFIG`` (the full-size config) and ``REDUCED`` (a smoke variant).
 """
 from __future__ import annotations
 
 import importlib
-from typing import List
+from typing import Dict, List
 
 from repro_torch.config import ModelConfig
 
 ARCH_IDS: List[str] = [
+    "yi_34b",
+    "smollm_360m",
+    "qwen2_vl_72b",
+    "gemma3_1b",
+    "qwen3_14b",
     "papernet",
 ]
 
+# the JAX package's other architectures, by the ROADMAP.md item that
+# ports the model they need
+NOT_PORTED: Dict[str, str] = {
+    "mixtral_8x22b": "12b (moe.py)",
+    "deepseek_v2_236b": "12c (mla.py and MoE)",
+    "falcon_mamba_7b": "12d (ssm.py)",
+    "zamba2_7b": "12d (ssm.py, then the shared-attention hybrid)",
+    "whisper_small": "12e (encdec.py)",
+}
+
+_ALIASES = {
+    "yi-34b": "yi_34b",
+    "mixtral-8x22b": "mixtral_8x22b",
+    "smollm-360m": "smollm_360m",
+    "falcon-mamba-7b": "falcon_mamba_7b",
+    "qwen2-vl-72b": "qwen2_vl_72b",
+    "gemma3-1b": "gemma3_1b",
+    "qwen3-14b": "qwen3_14b",
+    "whisper-small": "whisper_small",
+    "zamba2-7b": "zamba2_7b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
+}
+
 
 def _norm(name: str) -> str:
-    return name.replace("-", "_")
+    return _ALIASES.get(name, name.replace("-", "_"))
 
 
 def _module(name: str):
     arch = _norm(name)
     if arch not in ARCH_IDS:
+        item = NOT_PORTED.get(arch)
+        where = (f"see ROADMAP.md, queue 1 item {item}" if item else
+                 "no such architecture")
         raise KeyError(
-            f"{name!r} is not ported to repro_torch yet (ported: "
-            f"{', '.join(ARCH_IDS)}); see ROADMAP.md, queue 1 item 12")
+            f"{name!r} is not ported to repro_torch (ported: "
+            f"{', '.join(ARCH_IDS)}); {where}")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 

@@ -13,7 +13,13 @@ CONFIG = ModelConfig(
     family="cnn",
     n_layers=6,              # 3 stages x 2 basic blocks
     d_model=32,              # stem width
+    n_heads=0,
+    n_kv=0,
+    d_ff=0,
     vocab=10,                # classes
+    pos_type="none",
+    norm_type="ln",          # per-channel scale/offset (GroupNorm-ish, BN-free)
+    dtype="float32",
     source="paper §V (ResNet/CIFAR-10 testbed workload)",
 )
 

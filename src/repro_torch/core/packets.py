@@ -88,12 +88,25 @@ def flatten(plan: PacketPlan, tree: Any) -> torch.Tensor:
     (*batch, n_packets, packet_floats)."""
     leaves = tree_leaves(tree)
     lead = tuple(leaves[0].shape[: leaves[0].dim() - len(plan.leaf_shapes[0])])
-    flat = torch.cat([x.to(torch.float32).reshape(*lead, -1) for x in leaves],
-                     dim=-1)
-    pad = plan.padded_floats - plan.n_floats
-    if pad:
-        flat = torch.nn.functional.pad(flat, (0, pad))
-    return flat.reshape(*lead, plan.n_packets, plan.packet_floats)
+    out = torch.empty(lead + (plan.n_packets, plan.packet_floats),
+                      dtype=torch.float32, device=leaves[0].device)
+    return flatten_into(plan, tree, out)
+
+
+def flatten_into(plan: PacketPlan, tree: Any,
+                 out: torch.Tensor) -> torch.Tensor:
+    """``flatten`` written into ``out``, a contiguous (*batch, n_packets,
+    packet_floats) float32 tensor (a slice of a larger stream, say): each
+    leaf is copied to its offset once and the tail is zeroed. Returns
+    ``out``."""
+    lead = tuple(out.shape[:-2])
+    flat = out.view(lead + (-1,))
+    for x, shape, off in zip(tree_leaves(tree), plan.leaf_shapes,
+                             plan.leaf_offsets):
+        sz = int(np.prod(shape)) if shape else 1
+        flat[..., off : off + sz].copy_(x.reshape(lead + (sz,)))
+    flat[..., plan.n_floats :].zero_()
+    return out
 
 
 def unflatten(plan: PacketPlan, packets: torch.Tensor,

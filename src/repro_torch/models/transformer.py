@@ -1,0 +1,364 @@
+"""Decoder-only transformer for the attention-mixer families (dense and
+VLM): per-layer mixer codes 'A' (full attention) and 'W' (sliding
+window).
+
+The PyTorch counterpart of the JAX package's ``models/transformer.py``,
+over the same parameter tree:
+
+  params = {
+    embed, lead: (layer...), stack: {p0..p{P-1}: stacked over periods},
+    rem: (layer...), final_norm
+  }
+
+Layers are grouped by *pattern period*: each position within the period
+has a static mixer code, and its leaves are stacked over the periods
+(gemma3's 5 W : 1 A gives ``stack/p0..p5``, plus 2 trailing ``rem``
+layers at 26 layers). The stacked layout is kept on purpose: the
+gradient stream's leaves, and so ``core.packets.make_plan``'s critical
+packets and the packet masks, are the reference's. Where the reference
+scans over the stack, ``forward`` loops in Python over its leading
+axis, unbinding each stacked leaf once (its backward is one stack of
+the per-period grads). ``remat`` is accepted and has no effect: the
+port keeps every activation for the backward, which fits an 80 GB card
+at the sizes ``chip_smoke.py`` trains.
+
+Decode (``decode_step``) loops over layers so every layer can carry its
+own cache shape (ring buffers for 'W' layers).
+
+The other mixer codes and features raise ``NotImplementedError`` naming
+the ROADMAP.md item (queue 1) that ports them: MoE (12b), MLA 'L'
+(12c), mamba 'M' / 'M2' and the shared-attention hybrid (12d).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (
+    Params,
+    apply_mlp,
+    apply_norm,
+    cross_entropy,
+    dtype_of,
+    embed_params,
+    embed_tokens,
+    mlp_params,
+    norm_params,
+    unembed,
+)
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+_ROADMAP = "see ROADMAP.md, queue 1 item"
+_NOT_PORTED = {"L": "12c (mla.py)", "M": "12d (ssm.py)",
+               "M2": "12d (ssm.py)"}
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what this port does not cover
+    yet, naming the ROADMAP.md item that ports it."""
+    for code in dict.fromkeys(cfg.pattern_layers):
+        if code in _NOT_PORTED:
+            raise NotImplementedError(
+                f"mixer code {code!r} ({cfg.name}) is not ported to "
+                f"repro_torch yet; {_ROADMAP} {_NOT_PORTED[code]}")
+        if code not in ("A", "W"):
+            raise ValueError(f"unknown mixer code {code!r}")
+    if cfg.n_experts > 0:
+        raise NotImplementedError(
+            f"MoE layers ({cfg.name}) are not ported to repro_torch yet; "
+            f"{_ROADMAP} 12b (moe.py)")
+    if cfg.shared_attn_every > 0:
+        raise NotImplementedError(
+            f"the shared-attention hybrid ({cfg.name}) is not ported to "
+            f"repro_torch yet; {_ROADMAP} 12d")
+
+
+# ----------------------------------------------------------------------------
+# Layer plan
+# ----------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerPlan:
+    lead_codes: Tuple[str, ...]   # unstacked leading layers (deepseek dense-0)
+    period_codes: Tuple[str, ...] # codes within one stacked period
+    n_periods: int
+    rem_codes: Tuple[str, ...]    # unstacked trailing layers
+    shared_attn: bool             # zamba2: shared block at each period end
+
+    @property
+    def n_layers(self) -> int:
+        return (
+            len(self.lead_codes)
+            + self.n_periods * len(self.period_codes)
+            + len(self.rem_codes)
+        )
+
+
+def make_plan(cfg: ModelConfig) -> LayerPlan:
+    codes = cfg.pattern_layers
+    lead = cfg.first_dense_layers if cfg.n_experts > 0 else 0
+    rest = codes[lead:]
+    if cfg.shared_attn_every > 0:
+        period = cfg.shared_attn_every
+        shared = True
+    else:
+        period = len(cfg.block_pattern)
+        shared = False
+    n_full = len(rest) // period
+    rem = rest[n_full * period :]
+    return LayerPlan(
+        lead_codes=codes[:lead],
+        period_codes=rest[:period] if n_full > 0 else (),
+        n_periods=n_full,
+        rem_codes=rem if n_full > 0 else rest,
+        shared_attn=shared,
+    )
+
+
+def _layer_has_mlp(cfg: ModelConfig, code: str) -> bool:
+    if code in ("M", "M2"):
+        return False  # mamba block is the whole layer
+    return cfg.d_ff > 0 or cfg.n_experts > 0
+
+
+def window_for(cfg: ModelConfig, code: str) -> int:
+    return cfg.window if code == "W" else 0
+
+
+# ----------------------------------------------------------------------------
+# Init
+# ----------------------------------------------------------------------------
+
+
+def _layer_params(gen: torch.Generator, cfg: ModelConfig, code: str,
+                  dtype) -> Params:
+    p: Params = {
+        "norm1": norm_params(cfg, cfg.d_model),
+        "mixer": attn.attn_params(gen, cfg, dtype),
+    }
+    if _layer_has_mlp(cfg, code):
+        p["norm2"] = norm_params(cfg, cfg.d_model)
+        p["mlp"] = mlp_params(gen, cfg, cfg.d_model, cfg.d_ff, dtype)
+    return p
+
+
+def init(generator: torch.Generator, cfg: ModelConfig, *,
+         device: DeviceLike = None) -> Params:
+    """Drawn from a CPU ``generator`` (the same values on any device),
+    then moved to ``device`` (``None`` means ``cuda``)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = dtype_of(cfg.dtype)
+    plan = make_plan(cfg)
+    gen = generator
+    params: Params = {"embed": embed_params(gen, cfg, dtype)}
+    params["lead"] = tuple(_layer_params(gen, cfg, c, dtype)
+                           for c in plan.lead_codes)
+    if plan.n_periods > 0:
+        stack: Dict[str, Any] = {}
+        for j, code in enumerate(plan.period_codes):
+            per = [_layer_params(gen, cfg, code, dtype)
+                   for _ in range(plan.n_periods)]
+            stack[f"p{j}"] = tree_map(lambda *xs: torch.stack(xs), *per)
+        params["stack"] = stack
+    params["rem"] = tuple(_layer_params(gen, cfg, c, dtype)
+                          for c in plan.rem_codes)
+    params["final_norm"] = norm_params(cfg, cfg.d_model)
+    return tree_map(lambda x: x.to(dev), params)
+
+
+# ----------------------------------------------------------------------------
+# Forward (train / prefill)
+# ----------------------------------------------------------------------------
+
+
+def _apply_mixer(cfg, code, p, x, positions, *, collect_cache=False):
+    """Returns (out, cache_or_None)."""
+    w = window_for(cfg, code)
+    q, k, v = attn._project_qkv(cfg, p, x)
+    q, k = attn._apply_pos(cfg, q, k, positions)
+    out = attn.multi_head_attention(q, k, v, causal=True, window=w)
+    b, s = x.shape[:2]
+    out = out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"]
+    cache = None
+    if collect_cache:
+        if w > 0 and s > w:
+            cache = {"k": k[:, s - w :], "v": v[:, s - w :]}
+        else:
+            cache = {"k": k, "v": v}
+    return out, cache
+
+
+def _apply_layer(cfg, code, p, x, positions, *, collect_cache=False):
+    h = apply_norm(cfg, p["norm1"], x)
+    mix, cache = _apply_mixer(cfg, code, p["mixer"], h, positions,
+                              collect_cache=collect_cache)
+    x = x + mix
+    if "mlp" in p:
+        x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+    return x, cache
+
+
+def _positions_for(cfg: ModelConfig, inputs: Dict[str, Any], s: int, b: int,
+                   device):
+    pos = torch.arange(s, device=device).expand(b, s)
+    if cfg.pos_type == "mrope":
+        if "positions3" in inputs:
+            return inputs["positions3"]
+        return pos.expand(3, b, s)
+    return pos
+
+
+def embed_inputs(cfg: ModelConfig, params: Params, inputs: Dict[str, Any]):
+    """Token (+ modality-stub) embedding. Returns (x, positions)."""
+    tok = inputs["tokens"]
+    x = embed_tokens(params["embed"], tok).to(dtype_of(cfg.dtype))
+    if cfg.family == "vlm" and "patch_embeds" in inputs:
+        x = torch.cat([inputs["patch_embeds"].to(x.dtype), x], dim=1)
+    b, s = x.shape[:2]
+    return x, _positions_for(cfg, inputs, s, b, x.device)
+
+
+def _unstack(stack: Params, n: int) -> List[Params]:
+    """The stacked period tree as ``n`` per-period trees: each leaf is
+    unbound once, so the backward stacks the per-period grads in one
+    pass."""
+    cols = [torch.unbind(x, 0) for x in tree_leaves(stack)]
+    return [tree_unflatten(stack, [c[i] for c in cols]) for i in range(n)]
+
+
+def forward(
+    cfg: ModelConfig,
+    params: Params,
+    inputs: Dict[str, Any],
+    *,
+    collect_cache: bool = False,
+    remat: bool = True,
+    last_only: bool = False,
+):
+    """Full-sequence forward. ``remat`` has no effect (module docstring).
+
+    Returns (logits, aux_loss, caches) — caches is a dict with 'lead'/'stack'/
+    'rem'/'shared' entries when collect_cache else None; ``stack`` holds
+    each period position's cache stacked over the periods.
+    """
+    del remat
+    plan = make_plan(cfg)
+    x, positions = embed_inputs(cfg, params, inputs)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    caches: Dict[str, Any] = {"lead": [], "rem": [], "stack": None,
+                              "shared": None}
+
+    for p, code in zip(params["lead"], plan.lead_codes):
+        x, c = _apply_layer(cfg, code, p, x, positions,
+                            collect_cache=collect_cache)
+        caches["lead"].append(c)
+
+    if plan.n_periods > 0:
+        period_caches = []
+        for sl in _unstack(params["stack"], plan.n_periods):
+            pc = {}
+            for j, code in enumerate(plan.period_codes):
+                x, pc[f"p{j}"] = _apply_layer(
+                    cfg, code, sl[f"p{j}"], x, positions,
+                    collect_cache=collect_cache)
+            period_caches.append(pc)
+        if collect_cache:
+            caches["stack"] = tree_map(lambda *xs: torch.stack(xs),
+                                       *period_caches)
+    for p, code in zip(params["rem"], plan.rem_codes):
+        x, c = _apply_layer(cfg, code, p, x, positions,
+                            collect_cache=collect_cache)
+        caches["rem"].append(c)
+
+    x = apply_norm(cfg, params["final_norm"], x)
+    if last_only:
+        x = x[:, -1:, :]
+    logits = unembed(params["embed"], x)
+    return logits, aux, (caches if collect_cache else None)
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
+            *, remat: bool = True):
+    logits, _, _ = forward(cfg, params, batch, remat=remat)
+    return cross_entropy(logits, batch["labels"], cfg.vocab)
+
+
+# ----------------------------------------------------------------------------
+# Decode (serve_step)
+# ----------------------------------------------------------------------------
+
+
+def _mixer_cache_spec(cfg: ModelConfig, code: str, batch: int, max_seq: int,
+                      dtype, device):
+    w = window_for(cfg, code)
+    s = min(w, max_seq) if w > 0 else max_seq
+    shp = (batch, s, cfg.n_kv, cfg.hd)
+    return {"k": torch.zeros(shp, dtype=dtype, device=device),
+            "v": torch.zeros(shp, dtype=dtype, device=device)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               dtype=torch.bfloat16, *, device: DeviceLike = None):
+    """Cache tree for decode: one entry per layer. ``device`` ``None``
+    means ``cuda``; ``"meta"`` gives shapes and dtypes alone."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    if isinstance(dtype, str):
+        dtype = dtype_of(dtype)
+    plan = make_plan(cfg)
+    codes = (plan.lead_codes + plan.period_codes * plan.n_periods
+             + plan.rem_codes)
+    return {"layers": tuple(
+        _mixer_cache_spec(cfg, code, batch, max_seq, dtype, dev)
+        for code in codes)}
+
+
+def _layer_param_at(params: Params, plan: LayerPlan,
+                    idx: int) -> Tuple[Params, str]:
+    """Layer params + code for flat layer index (decode path)."""
+    nl = len(plan.lead_codes)
+    if idx < nl:
+        return params["lead"][idx], plan.lead_codes[idx]
+    idx -= nl
+    per = len(plan.period_codes)
+    if idx < plan.n_periods * per:
+        i, j = divmod(idx, per)
+        return (tree_map(lambda x: x[i], params["stack"][f"p{j}"]),
+                plan.period_codes[j])
+    idx -= plan.n_periods * per
+    return params["rem"][idx], plan.rem_codes[idx]
+
+
+def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, Any],
+                token, pos):
+    """One decode step. token: (B,) integer; pos: int or 0-d integer
+    tensor, the position.
+
+    Returns (logits (B, vocab_padded), new_cache).
+    """
+    plan = make_plan(cfg)
+    x = embed_tokens(params["embed"], token[:, None]).to(dtype_of(cfg.dtype))
+    pos = attn.pos_tensor(pos, x.device)
+    new_layers = []
+    for idx in range(plan.n_layers):
+        p, code = _layer_param_at(params, plan, idx)
+        c = cache["layers"][idx]
+        w = window_for(cfg, code)
+        h = apply_norm(cfg, p["norm1"], x)
+        mix, nk, nv = attn.self_attention_decode(
+            cfg, p["mixer"], h, c["k"], c["v"], pos,
+            window=w if (w > 0 and c["k"].shape[1] == w) else 0)
+        new_layers.append({"k": nk, "v": nv})
+        x = x + mix
+        if "mlp" in p:
+            x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+    x = apply_norm(cfg, params["final_norm"], x)
+    logits = unembed(params["embed"], x)[:, 0]
+    return logits, {"layers": tuple(new_layers)}

@@ -24,9 +24,28 @@ from repro_torch.optim import Optimizer
 from repro_torch.tree import tree_leaves, tree_map
 
 
+# gradient floats that one vmap chunk of the fused step may hold: 3 x 2^29
+# (6 GiB). A chunk's activations, grads and their stacked copy take
+# several times its grads, and all W = 8 workers of smollm-360m (batch 32
+# x seq 128) under one vmap did not fit an 80 GB H100 beside the stream,
+# the optimizer moments and the EF residual; 4 at a time peak at 45 GB,
+# 61-68 GB with EF (chip_smoke.py, lm line). So a model of more than
+# 3 x 2^29 / W floats takes its workers a few at a time, while papernet
+# and the example LMs keep one vmap of all W: fewer chunks, fewer
+# dispatches.
+WORKER_CHUNK_FLOATS = 3 << 29
+
+
+def worker_chunk(plan, w: int) -> int:
+    """Workers one vmap of the fused step takes: as many of the ``w`` as
+    fit ``WORKER_CHUNK_FLOATS`` of grads, and at least one."""
+    return max(1, min(w, WORKER_CHUNK_FLOATS // plan.n_floats))
+
+
 def build_fused_step(api, opt: Optimizer, ltp: LTPConfig, plan, w: int,
                      protocol: str):
-    """The lockstep/BSP train step: per-worker grads via ``vmap``, one
+    """The lockstep/BSP train step: per-worker grads via ``vmap`` (in
+    chunks of ``worker_chunk`` workers, written into one stream), one
     fused masked reduction (the ``packet_reduce`` kernel under
     sync_backend="cuda"/"auto" on the card), one optimizer update.
     Signature:
@@ -37,15 +56,31 @@ def build_fused_step(api, opt: Optimizer, ltp: LTPConfig, plan, w: int,
     ``batch`` leaves carry the worker axis first: (W, B/W, ...).
     """
     use_ltp = protocol == "ltp"
+    chunk = worker_chunk(plan, w)
 
     def one(params, b):
         return grad_and_value(lambda p: api.loss_fn(p, b))(params)
 
-    per_worker = vmap(one, in_dims=(None, 0))   # (W, ...) grads, (W,) losses
+    per_worker = vmap(one, in_dims=(None, 0))   # (k, ...) grads, (k,) losses
+
+    def grads_stream(params, batch):
+        """The (W, n_packets, payload) stream of per-worker grads and the
+        (W,) losses: ``chunk`` workers a ``vmap``, each chunk's grads
+        written into the stream before the next chunk's are taken."""
+        dev = tree_leaves(params)[0].device
+        flat_w = torch.empty((w, plan.n_packets, plan.packet_floats),
+                             dtype=torch.float32, device=dev)
+        losses = []
+        for a in range(0, w, chunk):
+            grads, loss = per_worker(
+                params, {k: v[a:a + chunk] for k, v in batch.items()})
+            pk.flatten_into(plan, grads, flat_w[a:a + chunk])
+            losses.append(loss)
+            del grads
+        return flat_w, torch.cat(losses)
 
     def step(params, opt_state, residual, batch, masks, frac, lr):
-        grads_w, losses = per_worker(params, batch)
-        flat_w = pk.flatten(plan, grads_w)       # (W, n_packets, payload)
+        flat_w, losses = grads_stream(params, batch)
         if use_ltp:
             # the PS hot loop: ONE fused masked multi-worker reduction
             if residual is not None:

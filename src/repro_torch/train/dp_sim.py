@@ -210,12 +210,18 @@ class PSTrainer:
     def run(self, batches, *, epoch_steps: int = 0, eval_fn=None,
             eval_every: int = 0, log_every: int = 0) -> List[Dict]:
         if self._rt is not None:
-            out = self._rt.run(batches, epoch_steps=epoch_steps,
-                               eval_fn=eval_fn, eval_every=eval_every,
-                               log_every=log_every)
-            self.params = self._rt.params
-            self.opt_state = self._rt.opt_state
-            self.residual = self._rt.residual
+            # the mirrors would hold the state the run started from (the
+            # optimizer moments and the EF residual: W x the model) beside
+            # the live one on the device; they are set again at the end
+            self.params = self.opt_state = self.residual = None
+            try:
+                out = self._rt.run(batches, epoch_steps=epoch_steps,
+                                   eval_fn=eval_fn, eval_every=eval_every,
+                                   log_every=log_every)
+            finally:
+                self.params = self._rt.params
+                self.opt_state = self._rt.opt_state
+                self.residual = self._rt.residual
             self.sim_time = self._rt.sim_time
             self.step_idx = self._rt.step_idx
             self.history = self._rt.history

@@ -17,7 +17,7 @@ from repro_torch.config import (
     NetFaultConfig,
     TrainConfig,
 )
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, get_reduced
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import ltp_sync as ls
 from repro_torch.device import resolve_device
@@ -27,9 +27,11 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import packet_reduce as pr_mod
 from repro_torch.kernels import randomk as rk_mod
 from repro_torch.models import build
+from repro_torch.models.api import demo_inputs
 from repro_torch.optim import make_optimizer
 from repro_torch.runtime import BudgetController, ClusterRuntime
-from repro_torch.train import PSTrainer
+from repro_torch.shapes import InputShape
+from repro_torch.train import PSTrainer, serve, train_lm
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 PORT = os.path.join(ROOT, "src", "repro_torch")
@@ -157,6 +159,25 @@ def test_pstrainer_without_device_and_gpu_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PSTrainer(build(cfg), make_optimizer(tc), tc, LTPConfig(),
                   NetConfig(), n_workers=2)
+
+
+def test_lm_entry_points_without_device_and_gpu_raise(monkeypatch):
+    """The transformer's init and cache, its demo inputs, ``train_lm``
+    and ``serve`` run on the card unless given ``device="cpu"``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_reduced("smollm_360m").replace(dtype="float32")
+    api = build(cfg)
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.init(gen)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.init_cache(2, 8, torch.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        demo_inputs(cfg, InputShape("t", 8, 2, "train"), gen)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_lm(tiny=True, steps=1, workers=2, batch=2, seq=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve(batch=1, prompt_len=2, new=2)
 
 
 def test_cluster_runtime_without_device_and_gpu_raises(monkeypatch):
@@ -355,9 +376,9 @@ def test_runtime_engine_and_other_families_wait_for_their_port():
                    transport="des", device="cpu")
     assert tr._rt.net_des is not None
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("smollm_360m")
+        get_config("mixtral_8x22b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(cfg.replace(family="dense"))
+        build(cfg.replace(family="moe"))
 
 
 def test_configs_stay_hashable():

@@ -1,0 +1,175 @@
+"""The port's LM driver (``repro_torch.train.lm``) against a JAX loop
+written like ``examples/train_lm.py``, and its serve loop
+(``repro_torch.train.serve``) against one written like
+``examples/serve.py``, on the CPU.
+
+Training runs at the example's ``--tiny`` model (2 layers, d_model 128,
+vocab 512) on 4 workers, batch 8, seq 16, 3 steps, both from the JAX
+init of seed 0. ``step``, ``bst`` and ``sim_time`` come from the numpy
+transport model and agree exactly, ``delivered`` within rtol 1e-6 (a
+float32 mean of the same {0, 1} masks summed in another order); losses
+agree within rtol 1e-4. Params are compared (rtol 2e-4 / atol 2e-5) on
+SGD-momentum runs only: AdamW's first update is about lr * sign(g), so
+an element whose 4-worker sum lies within rounding of zero moves by
+2 * lr between the two packages, a difference that says nothing about
+the port. Greedy decode of REDUCED smollm gives the same tokens."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.config import LTPConfig as JLTPConfig
+from repro.config import NetConfig as JNetConfig
+from repro.config import TrainConfig as JTrainConfig
+from repro.configs import get_config as jget_config
+from repro.configs import get_reduced as jget_reduced
+from repro.data import SyntheticLM as JSyntheticLM
+from repro.models import build as jbuild
+from repro.optim import make_optimizer as jmake_optimizer
+from repro.train import PSTrainer as JPSTrainer
+from repro_torch.config import LTPConfig, TrainConfig
+from repro_torch.convert import params_from_numpy
+from repro_torch.configs import get_reduced
+from repro_torch.runtime import step as stp
+from repro_torch.train import serve, train_lm
+from repro_torch.train.lm import lm_config, lm_trainer
+from repro_torch.tree import tree_leaves
+
+W, BATCH, SEQ, STEPS = 4, 8, 16, 3
+EF = dict(compensation="count", error_feedback=True)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _jax_cfg():
+    return jget_config("smollm_360m").replace(
+        n_layers=2, d_model=128, n_heads=4, n_kv=2, head_dim=32, d_ff=256,
+        vocab=512, dtype="float32")
+
+
+def _jax_loop(optimizer="adamw", lr=3e-4, **ltp_kw):
+    """``examples/train_lm.py --tiny`` at the test's sizes; returns the
+    trainer and the init it started from."""
+    cfg = _jax_cfg()
+    api = jbuild(cfg)
+    lm = JSyntheticLM(vocab=cfg.vocab, seed=0)
+    tc = JTrainConfig(batch=BATCH, seq=SEQ, lr=lr, optimizer=optimizer,
+                      steps=STEPS)
+    tr = JPSTrainer(api, jmake_optimizer(tc), tc, JLTPConfig(**ltp_kw),
+                    JNetConfig(10, 1, 0.001, 4096), n_workers=W,
+                    protocol="ltp", compute_time=0.05, seed=0)
+    init = jax.tree.map(np.asarray, api.init(jax.random.PRNGKey(0)))
+
+    def gen():
+        for step in range(STEPS):
+            yield lm.train_batch(BATCH, SEQ, step)
+
+    tr.run(gen(), epoch_steps=100)
+    return tr, init
+
+
+def _same_transport(hist, jhist):
+    assert len(hist) == len(jhist) == STEPS
+    for a, b in zip(hist, jhist):
+        assert (a["step"], a["bst"], a["sim_time"]) == \
+            (b["step"], b["bst"], b["sim_time"])
+        np.testing.assert_allclose(a["delivered"], b["delivered"], rtol=1e-6)
+        np.testing.assert_allclose(a["loss"], b["loss"], rtol=1e-4)
+
+
+def test_tiny_config_is_the_examples():
+    cfg = lm_config(tiny=True)
+    jcfg = _jax_cfg()
+    for f in ("n_layers", "d_model", "n_heads", "n_kv", "head_dim", "d_ff",
+              "vocab", "dtype", "tie_embeddings", "family"):
+        assert getattr(cfg, f) == getattr(jcfg, f), f
+    full = lm_config()
+    assert (full.n_layers, full.d_model, full.vocab) == (12, 768, 8192)
+
+
+def test_train_lm_adamw_matches_jax_loop():
+    jtr, init = _jax_loop()
+    hist = train_lm(tiny=True, steps=STEPS, workers=W, seq=SEQ, batch=BATCH,
+                    device="cpu", params=params_from_numpy(init, "cpu"))
+    _same_transport(hist, jtr.history)
+    assert hist[-1]["loss"] < hist[0]["loss"]
+
+
+@pytest.mark.parametrize("ltp_kw, chunked", [({}, False), (EF, False),
+                                             ({}, True), (EF, True)],
+                         ids=["paper", "count_ef", "paper_chunk1",
+                              "count_ef_chunk1"])
+def test_lm_trainer_sgdm_params_match_jax_loop(ltp_kw, chunked,
+                                                monkeypatch):
+    """``chunked``: the fused step takes its workers one vmap at a time,
+    as it does for models of more than 3 x 2^29 / W floats."""
+    if chunked:
+        monkeypatch.setattr(stp, "WORKER_CHUNK_FLOATS", 1)
+    jtr, init = _jax_loop(optimizer="sgdm", lr=0.1, **ltp_kw)
+    tc = TrainConfig(batch=BATCH, seq=SEQ, lr=0.1, optimizer="sgdm",
+                     steps=STEPS)
+    tr, data = lm_trainer(lm_config(tiny=True), workers=W, train=tc,
+                          ltp=LTPConfig(**ltp_kw), device="cpu",
+                          params=params_from_numpy(init, "cpu"))
+    assert stp.worker_chunk(tr.plan, W) == (1 if chunked else W)
+    tr.run(data, epoch_steps=100)
+    _same_transport(tr.history, jtr.history)
+    got, want = tree_leaves(tr.params), jax.tree.leaves(jtr.params)
+    assert len(got) == len(want) == 11
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-4,
+                                   atol=2e-5)
+    if ltp_kw:
+        np.testing.assert_allclose(tr.residual.numpy(),
+                                   np.asarray(jtr.residual), rtol=2e-4,
+                                   atol=2e-5)
+
+
+def test_lm_trainer_feeds_a_smaller_corpus():
+    """``data_vocab`` draws tokens from a smaller corpus; the model keeps
+    its vocab."""
+    tr, data = lm_trainer(lm_config(tiny=True), steps=2, workers=2,
+                          batch=4, seq=8, data_vocab=64, device="cpu")
+    assert len(data) == 2 and data[0]["tokens"].shape == (4, 8)
+    assert max(int(b[k].max()) for b in data for k in b) < 64
+    assert tr.params["embed"]["embed"].shape == (512, 128)
+
+
+def test_serve_greedy_tokens_match_jax():
+    """``examples/serve.py``'s loop on REDUCED smollm at float32, batch
+    4, prompt 16, 24 new tokens, from the same params and prompts."""
+    batch, plen, new = 4, 16, 24
+    cfg = jget_reduced("smollm_360m").replace(dtype="float32")
+    api = jbuild(cfg)
+    key = jax.random.PRNGKey(0)
+    params = api.init(key)
+    cache = api.init_cache(batch, plen + new, jnp.float32)
+    prompts = jax.random.randint(key, (batch, plen), 0, cfg.vocab)
+    for t in range(plen):
+        logits, cache = api.decode_step(params, cache, prompts[:, t],
+                                        jnp.int32(t))
+    tok = jnp.argmax(logits[:, : cfg.vocab], axis=-1).astype(jnp.int32)
+    out = [tok]
+    for i in range(new - 1):
+        logits, cache = api.decode_step(params, cache, tok,
+                                        jnp.int32(plen + i))
+        tok = jnp.argmax(logits[:, : cfg.vocab], axis=-1).astype(jnp.int32)
+        out.append(tok)
+    want = np.stack([np.asarray(t) for t in out], axis=1)
+
+    got = serve(get_reduced("smollm_360m").replace(dtype="float32"),
+                batch=batch, prompt_len=plen, new=new, device="cpu",
+                params=params_from_numpy(jax.tree.map(np.asarray, params),
+                                         "cpu"),
+                prompts=np.asarray(prompts))
+    assert got["tokens"].shape == (batch, new)
+    np.testing.assert_array_equal(got["tokens"], want)
+    assert got["prompt_logits"].shape == (batch, plen, cfg.vocab_padded)
+    assert got["tokens_per_s"] > 0
