@@ -119,11 +119,29 @@ From the root of a checkout it:
     ``train.serve.serve``: batch 4, a 16-token prompt, 24 new tokens),
     checks that the logits of the prompt's decode steps match one
     ``forward`` over the prompt, and prints the ``serve`` line;
-12. prints a ``kernels`` JSON line (dropfill's entry with its EF form's
+12. drives the MoE path, trained (``run_moe_phase``):
+    ``mixtral_8x22b``'s CONFIG at its published widths in bfloat16, its
+    own dtype, cut to 1 layer (2,906,720,256 parameters, 8,074,223
+    packets), on ``train.lm.lm_trainer`` with W = 2 and SGD-momentum
+    (both forced by memory), batch 8 x seq 128, 3 steps through the
+    kernels: one packet_reduce launch a step, finite losses, step 1
+    near ln V plus the random head's logit variance over 2, the first
+    step's reduced stream against the plain route in blocks; peak
+    memory, host ms a step, tokens/s, one profiled step; then, with the
+    model freed, packet_reduce at (2, 8074223, 360) against its plain
+    version and timed (the ``moe`` line; the kernel's row goes to the
+    ``kernels`` line);
+13. serves the MoE family (``run_moe_serve_phase``, ``train.serve.
+    serve`` at float32, batch 4, 16 + 24 tokens): ``mixtral_8x22b`` and
+    ``deepseek_v2_236b`` (MLA, 160 routed + 2 shared experts) at 2
+    layers each, with decode against the forward of sequences of 8
+    tokens, where no assignment is dropped (the ``moe_serve`` line);
+14. prints a ``kernels`` JSON line (dropfill's entry with its EF form's
     numbers beside the plain gate's, packet_reduce's with its des16
     shape's, whose launches are counted there alone, and both with
-    their LM shape's under ``lm``, whose launches are counted there
-    alone) and, last, the device JSON line.
+    their LM shape's under ``lm``, packet_reduce also with its MoE
+    shape's under ``moe``, whose launches are counted there alone) and,
+    last, the device JSON line.
 
 TF32 is switched off for cuDNN convolutions and matmuls for the whole
 run, so that float32 comparisons compare float32 arithmetic. Any
@@ -166,8 +184,9 @@ class Timer:
     ahead of the first event holds the card while the host enqueues the
     run, so the events time the device and not the host's launch path. A
     run whose first event had passed before the host finished enqueueing
-    (a call of many small kernels fills the launch queue) is taken again
-    with half the calls."""
+    (a call of many small kernels fills the launch queue, or the host
+    stalls) is taken again with half the calls and four times the spin
+    a call."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -193,9 +212,10 @@ class Timer:
             fn(*inputs[i % len(inputs)])
         host_s_per_call = (time.perf_counter() - t0) / n_timed
         torch.cuda.synchronize()
-        n, runs = n_timed, []
+        n, slack, runs = n_timed, 1, []
         for _ in range(N_RUNS + 12):
-            torch.cuda._sleep(int(2 * n * host_s_per_call * SM_HZ) + 200_000)
+            torch.cuda._sleep(min(int(SM_HZ), slack * (
+                int(2 * n * host_s_per_call * SM_HZ) + 200_000)))
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -205,7 +225,7 @@ class Timer:
             late = start.query()
             torch.cuda.synchronize()
             if late:
-                n = max(1, n // 2)
+                n, slack = max(1, n // 2), 4 * slack
                 continue
             runs.append(start.elapsed_time(end) / n)
             if len(runs) == N_RUNS:
@@ -1409,17 +1429,20 @@ def lm_kernel_row(timer, shape, err, tol, inputs, fn, plain, library,
 
 
 def check_lm_kernels(torch, timer, w: int, n: int, p: int,
-                     device="cuda") -> dict:
+                     device="cuda", ef: bool = True) -> dict:
     """packet_reduce (paper compensation) at the LM step's (W, n, p)
-    stream and dropfill's error-feedback form at its (W n, p) rows, the
-    first streams past 2^31 floats (2,894,569,920 at smollm's full size),
-    each against its plain version on random inputs: packet_reduce
-    within 1e-5 (a sum of W terms of size ~1 in another order), the EF
-    form exactly (the same float32 add, multiply and subtract). The plain
+    stream and, with ``ef``, dropfill's error-feedback form at its (W n,
+    p) rows, the first streams past 2^31 floats (2,894,569,920 at
+    smollm's full size), each against its plain version on random
+    inputs: packet_reduce within 1e-5 (a sum of W terms of size ~1 in
+    another order), the EF form exactly (the same float32 add, multiply
+    and subtract). The plain
     EF gate runs in blocks of 2^20 rows: it is elementwise, so each block
     is the plain function's own output, and a whole second copy of its
     three 11.6 GB outputs would not fit beside the kernel's. The library
-    yardsticks are ``einsum("wnp,wn->np") / W`` and the plain EF gate's
+    yardsticks are ``einsum("wnp,wn->np") / W`` (``linalg.vecdot`` over
+    the worker axis where the stream holds 2^31 floats a worker or more,
+    past what einsum's batched GEMM indexes) and the plain EF gate's
     three calls. Returns rows keyed by kernel name."""
     from repro_torch.kernels import ops, ref
 
@@ -1431,12 +1454,24 @@ def check_lm_kernels(torch, timer, w: int, n: int, p: int,
     want = ref.packet_reduce_ref(x, m)
     err = (got - want).abs().max().item()
     del got, want
+    if n * p < 2 ** 31:
+        call = 'einsum("wnp,wn->np") / W'
+
+        def library(a, b):
+            return torch.einsum("wnp,wn->np", a, b) / w
+    else:
+        # einsum's batched GEMM takes a leading dimension below 2^31
+        call = "linalg.vecdot(x, m[..., None], dim=0) / W"
+
+        def library(a, b):
+            return torch.linalg.vecdot(a, b[..., None], dim=0) / w
     rows["packet_reduce"] = lm_kernel_row(
         timer, (w, n, p), err, 1e-5, [(x, m)], ops.ltp_packet_reduce,
-        ref.packet_reduce_ref,
-        lambda a, b: torch.einsum("wnp,wn->np", a, b) / w,
-        *reduce_cost(w, n, p))
+        ref.packet_reduce_ref, library, *reduce_cost(w, n, p))
+    rows["packet_reduce"]["library_call"] = call
     del x, m
+    if not ef:
+        return rows
     n_rows, blk = w * n, 1 << 20
     f = torch.randn((n_rows, p), device=device, generator=gen)
     r = torch.randn((n_rows, p), device=device, generator=gen)
@@ -1472,11 +1507,18 @@ class StampedBatch(dict):
         return super().items()
 
 
+PLAIN_BLOCK = 1 << 18       # packets a block of the plain reduction
+
+
 def capture_first_reduction():
     """Wrap ``ltp_sync.reduce_packet_stream`` so that its first call, the
     first step's PS reduction through the kernels, also runs the plain
-    route on the same inputs (no launch counted). Returns the record it
-    fills and the function that takes the wrapper off."""
+    route on the same inputs (no launch counted), ``PLAIN_BLOCK``
+    packets at a time: each packet's reduction is its own, so each block
+    is the plain function's own output, and the route's temporaries at
+    the whole stream (47 GB at the MoE path's) need not fit beside the
+    model. Returns the record it fills and the function that takes the
+    wrapper off."""
     import dataclasses
 
     from repro_torch.core import ltp_sync as ls
@@ -1487,10 +1529,17 @@ def capture_first_reduction():
     def wrapped(flat, masks, ltp, w, **kw):
         out = orig(flat, masks, ltp, w, **kw)
         if not rec:
-            plain = orig(flat, masks, dataclasses.replace(
-                ltp, sync_backend="python"), w, **kw)
-            rec.update(shape=list(flat.shape),
-                       max_abs_diff=(out - plain).abs().max().item(),
+            plain_ltp = dataclasses.replace(ltp, sync_backend="python")
+            n, step = flat.shape[1], PLAIN_BLOCK
+            diff, equal = 0.0, True
+            for i in range(0, n, step):
+                plain = orig(flat[:, i:i + step], masks[:, i:i + step],
+                             plain_ltp, w, **kw)
+                diff = max(diff, (out[i:i + step] - plain).abs().max().item())
+                equal = equal and bool((out[i:i + step] == plain).all())
+                del plain
+            rec.update(shape=list(flat.shape), max_abs_diff=diff,
+                       equal=equal, plain_block_packets=step,
                        max_abs=out.abs().max().item())
         return out
 
@@ -1694,6 +1743,226 @@ def run_serve_phase(torch, cfg, params, batch=4, prompt_len=16, new=24,
     return line
 
 
+# the MoE family: mixtral-8x22b trained over the LTP PS at its published
+# widths in bfloat16, and mixtral and deepseek-v2 served
+MOE_W, MOE_BATCH, MOE_SEQ, MOE_STEPS = 2, 8, 128, 3
+MOE_LR = 3e-4                # examples/train_lm.py's
+
+
+def run_moe_phase(torch, zero_counts, read_counts, launches_of, *,
+                  device="cuda"):
+    """The MoE path, trained: ``mixtral_8x22b``'s CONFIG at its published
+    widths in bfloat16, the config's own dtype (d_model 6144, 48 query
+    and 8 KV heads of 128, 8 experts of d_ff 16384, top-2, a 4096
+    window, vocab 32,768 untied), cut to 1 layer of 56: 2,906,720,256
+    parameters, 8,074,223 packets. Weights from a generator on the card
+    seeded with 0 (its init times here). On ``train.lm.lm_trainer``, the
+    setup of ``examples/train_lm.py`` (batch 8 x seq 128,
+    ``LTPConfig()``, ``NetConfig(10, 1, 0.001, 4096)``, the runtime
+    engine over the analytic transport, data from
+    ``SyntheticLM(vocab=8192)``, whose dense tables at 32,768 would take
+    8.6 GB each) with two cuts forced by memory: W = 2 workers, not 8
+    (the float32 stream is 11.6 GB a worker), and SGD-momentum (0.9, lr
+    3e-4), not AdamW, whose float32 moments would take 23.3 GB.
+    ``MOE_STEPS`` steps through the kernels.
+
+    Checks: one packet_reduce launch a step and no other; finite losses;
+    step 1 within 1.0 of ln V + s^2 / 2 + 0.01, the loss of random
+    logits of variance s^2 = 0.02^2 d_model (the final norm's unit RMS
+    under the head's normal x 0.02 init) plus the aux term at balanced
+    routing; the first step's reduced stream through the kernel against
+    the plain route on the same stream (``capture_first_reduction``)
+    within 1e-6 of its largest element. Host ms a step
+    (``StampedBatch``), tokens/s and peak device memory; then one more
+    step profiled. Returns (the ``moe`` line, the launches of the
+    counted run, the plan's (W, n_packets, payload))."""
+    from repro_torch.config import LTPConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core import packets as pk
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build
+    from repro_torch.train.lm import lm_trainer
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("mixtral_8x22b").replace(n_layers=1)
+    line = {"config": {k: getattr(cfg, k) for k in (
+        "name", "n_layers", "d_model", "n_heads", "n_kv", "head_dim",
+        "d_ff", "n_experts", "top_k", "window", "vocab", "dtype")},
+        "workers": MOE_W, "batch": MOE_BATCH, "seq": MOE_SEQ,
+        "optimizer": "sgdm", "lr": MOE_LR, "data_vocab": LM_DATA_VOCAB}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    init = build(cfg).init(torch.Generator(device=device).manual_seed(0),
+                           device=device)
+    torch.cuda.synchronize()
+    line["init_s"] = time.perf_counter() - t0
+    plan = pk.make_plan(init, 360)
+    line.update(n_params=plan.n_floats, n_packets=plan.n_packets,
+                n_critical=plan.n_critical,
+                leaf_dtypes=sorted({str(x.dtype) for x in
+                                    tree_leaves(init)}))
+    tc = TrainConfig(batch=MOE_BATCH, seq=MOE_SEQ, lr=MOE_LR,
+                     optimizer="sgdm", steps=MOE_STEPS)
+    tr, data = lm_trainer(cfg, workers=MOE_W, train=tc,
+                          corpus=SyntheticLM(vocab=LM_DATA_VOCAB, seed=0),
+                          ltp=LTPConfig(sync_backend="cuda"), device=device,
+                          params=init)
+    del init    # the trainer holds the params
+    stamps = []
+    data = [StampedBatch(b, stamps, torch) for b in data]
+    first, undo = capture_first_reduction()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    try:
+        tr.run(data, epoch_steps=100)
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    stamps.append(time.perf_counter())
+    launches = read_counts()
+    hist = tr.history
+    step_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    if launches != launches_of(packet_reduce=MOE_STEPS):
+        raise AssertionError(f"moe: launches {launches}")
+    if len(hist) != MOE_STEPS or len(step_s) != MOE_STEPS or not all(
+            math.isfinite(h["loss"]) and 0.0 < h["delivered"] <= 1.0
+            and h["bst"] > 0.0 for h in hist):
+        raise AssertionError(f"moe: bad run {hist} {step_s}")
+    expect = math.log(cfg.vocab) + 0.5 * 0.02 ** 2 * cfg.d_model + 0.01
+    if not abs(hist[0]["loss"] - expect) < 1.0:
+        raise AssertionError(f"moe: step 1 loss {hist[0]['loss']}, "
+                             f"expected {expect} +- 1.0")
+    if not first["max_abs_diff"] <= 1e-6 * first["max_abs"]:
+        raise AssertionError(f"moe: first reduced stream {first}")
+    steady = statistics.median(step_s[1:])
+    line.update(
+        launches=launches, loss=[h["loss"] for h in hist],
+        loss_step1_expected=expect, ln_vocab=math.log(cfg.vocab),
+        first_step_reduced_stream=first,
+        step_ms=[t * 1e3 for t in step_s], median_step_ms=steady * 1e3,
+        tokens_per_s=MOE_BATCH * MOE_SEQ / steady,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        card_memory_gb=torch.cuda.get_device_properties(0).total_memory
+        / 1e9, history=hist)
+    # one more step, profiled (not counted), after the cached blocks of
+    # the counted run are released
+    batch = SyntheticLM(vocab=LM_DATA_VOCAB, seed=0).train_batch(
+        MOE_BATCH, MOE_SEQ, MOE_STEPS)
+    del data
+    gc.collect()
+    torch.cuda.empty_cache()
+    prof = profile_step(torch, lambda: tr.run([batch], epoch_steps=100))
+    line["profile_step"] = prof
+    line["idle_share"] = prof["idle_share"]
+    shape = (MOE_W, plan.n_packets, plan.packet_floats)
+    del tr, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line, launches, shape
+
+
+def moe_drop_counter():
+    """Wrap ``moe.apply_moe`` so that each call also counts the
+    assignments its routing drops at capacity (the router's ids, the
+    group's counts past ``capacity``). Returns the list of counts it
+    fills and the function that takes the wrapper off."""
+    from repro_torch.models import moe
+
+    orig = moe.apply_moe
+    dropped = []
+
+    def wrapped(cfg, p, x, *, capacity_factor=1.25):
+        xf = x.reshape(-1, x.shape[-1])
+        _, ids, _ = moe.router(cfg, p, xf)
+        cap = moe.capacity(cfg, xf.shape[0], capacity_factor)
+        counts = ids.reshape(-1).bincount(minlength=cfg.n_experts)
+        dropped.append(int((counts - cap).clamp(min=0).sum()))
+        return orig(cfg, p, x, capacity_factor=capacity_factor)
+
+    moe.apply_moe = wrapped
+    return dropped, lambda: setattr(moe, "apply_moe", orig)
+
+
+def run_moe_serve_phase(torch, batch=4, prompt_len=16, new=24, n_check=8,
+                        device="cuda"):
+    """The MoE path, served: ``train.serve.serve`` at float32 with
+    ``examples/serve.py``'s defaults (batch 4, a 16-token prompt decoded
+    token by token, 24 new tokens greedily), twice each (the first pays
+    the card's warm-up), for ``mixtral_8x22b``'s CONFIG at 2 layers
+    (5,410,781,184 parameters, 21.6 GB) and ``deepseek_v2_236b``'s at 2
+    (5,358,679,040: its dense lead layer, then its first MoE layer of 160
+    routed experts of 1536 and 2 shared, top-6; MLA in both), one at a
+    time, weights from a generator on the card seeded with 0.
+
+    Checks finite logits of the expected shape, and decode against the
+    full-sequence forward: each prompt's first ``n_check`` tokens through
+    one ``forward`` of that sequence alone, against the logits its decode
+    steps gave. Capacity drops would make the two differ by design; a
+    sequence of 8 tokens fills at most 8 slots of an expert, whose
+    capacity is at least 8, and a decode step routes 4 tokens, so
+    neither drops an assignment (the forwards' drops are counted and
+    printed). Both archs are held within 1e-5 of the largest logit:
+    deepseek-v2's absorbed MLA decode reorders its float32 products
+    against the decompressed forward, and reads about 2e-6 of the
+    largest logit on an H100, as mixtral does."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.train.serve import serve
+    from repro_torch.tree import tree_leaves
+
+    line = {"batch": batch, "prompt_len": prompt_len, "new": new,
+            "archs": {}}
+    for arch in ("mixtral_8x22b", "deepseek_v2_236b"):
+        cfg = get_config(arch).replace(n_layers=2, dtype="float32")
+        t0 = time.perf_counter()
+        params = build(cfg).init(
+            torch.Generator(device=device).manual_seed(0), device=device)
+        torch.cuda.synchronize()
+        row = {"n_layers": cfg.n_layers, "init_s": time.perf_counter() - t0,
+               "n_params": sum(x.numel() for x in tree_leaves(params)),
+               "runs": []}
+        for _ in range(2):
+            out = serve(cfg, batch=batch, prompt_len=prompt_len, new=new,
+                        device=device, params=params)
+            row["runs"].append({k: out[k] for k in (
+                "prefill_s", "decode_s", "tokens_per_s")})
+        pl = out["prompt_logits"]
+        if tuple(pl.shape) != (batch, prompt_len, cfg.vocab_padded) or \
+                not bool(torch.isfinite(pl).all()) or \
+                out["tokens"].shape != (batch, new):
+            raise AssertionError(f"moe_serve {arch}: bad output {pl.shape} "
+                                 f"{out['tokens'].shape}")
+        toks = torch.as_tensor(out["prompts"]).to(device)
+        dropped, undo = moe_drop_counter()
+        try:
+            with torch.no_grad():
+                full = torch.cat([build(cfg).forward(
+                    params, {"tokens": toks[i:i + 1, :n_check]})[0]
+                    for i in range(batch)])
+        finally:
+            undo()
+        dec = pl[:, :n_check]
+        diff = (dec - full).abs().max().item()
+        top = full.abs().max().item()
+        tol = "1e-5 of the largest logit"
+        if not diff <= 1e-5 * top or sum(dropped):
+            raise AssertionError(f"moe_serve {arch}: decode vs forward "
+                                 f"{diff} of {top} ({tol}), dropped "
+                                 f"{dropped}")
+        row.update(decode_vs_forward_max_abs_diff=diff, logits_max_abs=top,
+                   decode_vs_forward_tol=tol,
+                   checked=f"{batch} x {n_check} tokens",
+                   forward_dropped_assignments=sum(dropped),
+                   tokens_first_2=out["tokens"][:2].tolist())
+        line["archs"][arch] = row
+        del params, out, pl, full, dec
+        gc.collect()
+        torch.cuda.empty_cache()
+    return line
+
+
 def main() -> int:
     import torch
 
@@ -1876,12 +2145,26 @@ def main() -> int:
     print("serve " + json.dumps(run_serve_phase(torch, lm_cfg, lm_init)))
     del lm_init
 
+    # the MoE family: mixtral-8x22b at its published widths trained over
+    # the LTP PS in bfloat16, then its packet_reduce stream checked and
+    # timed with the model freed; mixtral and deepseek-v2 served
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_line, moe_launches, moe_shape = run_moe_phase(
+        torch, zero_counts, read_counts, launches_of)
+    print("moe " + json.dumps(moe_line))
+    moe_kernel = check_lm_kernels(torch, timer, *moe_shape,
+                                  ef=False)["packet_reduce"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("moe_serve " + json.dumps(run_moe_serve_phase(torch)))
+
     # tree_reduce is on no training path: its count is the check calls'
     by_path = {
         "lockstep": [r[2] for r in runs.values()],
         "Fig 5": [r["launches"] for r in fig5.values()],
         "runtime": rt_launches, "des": des_launches, "Fig 13": tta_launches,
-        "des16": nf_launches, "lm": lm_launches}
+        "des16": nf_launches, "lm": lm_launches, "moe": [moe_launches]}
     path_launches = {name: {path: sum(r[name] for r in rs)
                             for path, rs in by_path.items()}
                      for name in counters}
@@ -1893,6 +2176,10 @@ def main() -> int:
     lm_path = {name: path_launches[name].pop("lm") for name in counters}
     if lm_path["tree_reduce"] or lm_path["randomk"]:
         raise AssertionError(f"the LM path launched {lm_path}")
+    # and the MoE path at its (2, 8074223, 360) stream
+    moe_path = {name: path_launches[name].pop("moe") for name in counters}
+    if moe_path != launches_of(packet_reduce=MOE_STEPS):
+        raise AssertionError(f"the MoE path launched {moe_path}")
     main_launches = {name: sum(path_launches[name].values())
                      for name in counters}
     if main_launches["tree_reduce"] != 0:
@@ -1948,6 +2235,14 @@ def main() -> int:
                 **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by",
                                        "library_ms")}}
+            if e["name"] == "packet_reduce":
+                e["moe"] = {
+                    "shape": moe_kernel["shape"], "form": "paper",
+                    "launches": moe_path["packet_reduce"],
+                    "launches_from": "main paths: moe",
+                    **{k: moe_kernel[k] for k in (
+                        "max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms")}}
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,17 +4,21 @@ The twin of ``examples/train_lm.py`` on ``repro_torch``
 (``train.lm.train_lm``): the ~100M-parameter smollm-family model (or a
 2-layer one with ``--tiny``) trained by 8 simulated workers and one PS
 on the synthetic bigram corpus, AdamW, the Early Close controller and
-packet masks; a checkpoint is written at the end. Runs on the CUDA card
-(the PS reduction goes through the hand-written kernels) unless
-``--device cpu`` is given.
+packet masks; a checkpoint is written at the end. ``--arch`` trains a
+ported architecture's REDUCED config instead (``mixtral_8x22b`` and
+``deepseek_v2_236b`` among them) at its own dtype, bfloat16. Runs on
+the CUDA card (the PS reduction goes through the hand-written kernels)
+unless ``--device cpu`` is given.
 
   PYTHONPATH=src python examples/train_lm_torch.py --steps 300 [--tiny] [--device cpu]
+  PYTHONPATH=src python examples/train_lm_torch.py --arch mixtral_8x22b [--device cpu]
 """
 import argparse
 import time
 
 import numpy as np
 
+from repro_torch.configs import get_reduced
 from repro_torch.data import SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.train.lm import lm_config, train_lm
@@ -28,13 +32,17 @@ def main(argv=None):
     ap.add_argument("--workers", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--arch", default=None,
+                    help="a ported architecture's REDUCED config in place "
+                         "of the example's model")
     ap.add_argument("--ckpt", default="/tmp/repro_torch_lm_ckpt")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu; never falls back by itself")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
 
-    cfg = lm_config(args.tiny)
+    cfg = lm_config(args.tiny) if args.arch is None else \
+        get_reduced(args.arch)
     floor = SyntheticLM(vocab=cfg.vocab, seed=0).entropy_floor
     print(f"model: {cfg.name} on {device}; bigram entropy floor "
           f"{floor:.3f} nats (init loss ~ {np.log(cfg.vocab):.3f})")

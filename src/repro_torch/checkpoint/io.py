@@ -22,10 +22,12 @@ def _path_str(path) -> str:
     return "/".join(str(p) for p in path)
 
 
-def _to_numpy(v: Any) -> np.ndarray:
+def to_numpy(v: Any) -> np.ndarray:
+    """A leaf -> a numpy array on the host. numpy has no bfloat16: such
+    a tensor comes out as float32, which holds it exactly."""
     if isinstance(v, torch.Tensor):
         v = v.detach().cpu()
-        if v.dtype == torch.bfloat16:   # numpy has no bfloat16; exact in f32
+        if v.dtype == torch.bfloat16:
             v = v.to(torch.float32)
         return v.numpy()
     return np.asarray(v)
@@ -33,7 +35,7 @@ def _to_numpy(v: Any) -> np.ndarray:
 
 def save_checkpoint(path: str, tree: Any, step: int = 0) -> None:
     arrays: Dict[str, np.ndarray] = {
-        _path_str(p): _to_numpy(v) for p, v in tree_leaves_with_path(tree)
+        _path_str(p): to_numpy(v) for p, v in tree_leaves_with_path(tree)
     }
     arrays["__step__"] = np.asarray(step)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)

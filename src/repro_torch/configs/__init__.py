@@ -1,12 +1,15 @@
 """Registry of model configurations ported so far.
 
 The paper's own model, ``papernet``, and the transformer families whose
-layers are attention mixers alone: dense (smollm, yi, qwen3, gemma3's
-5 local : 1 global pattern) and the VLM backbone (qwen2-vl, M-RoPE and
-a patch-embedding stub). The other architectures of the JAX package's
-``configs`` wait for the port of their models, each named with its
-ROADMAP.md item (queue 1, items 12b-12e). Each submodule exposes
-``CONFIG`` (the full-size config) and ``REDUCED`` (a smoke variant).
+mixers are attention layers: dense (smollm, yi, qwen3, gemma3's 5 local
+: 1 global pattern), the VLM backbone (qwen2-vl, M-RoPE and a
+patch-embedding stub) and the MoE family (mixtral's 8 experts under
+sliding-window attention, deepseek-v2's MLA with 160 routed and 2
+shared experts after a dense lead layer). The other architectures of
+the JAX package's ``configs`` wait for the port of their models, each
+named with its ROADMAP.md item (queue 1, items 12d-12e). Each submodule
+exposes ``CONFIG`` (the full-size config) and ``REDUCED`` (a smoke
+variant).
 """
 from __future__ import annotations
 
@@ -17,18 +20,18 @@ from repro_torch.config import ModelConfig
 
 ARCH_IDS: List[str] = [
     "yi_34b",
+    "mixtral_8x22b",
     "smollm_360m",
     "qwen2_vl_72b",
     "gemma3_1b",
     "qwen3_14b",
+    "deepseek_v2_236b",
     "papernet",
 ]
 
 # the JAX package's other architectures, by the ROADMAP.md item that
 # ports the model they need
 NOT_PORTED: Dict[str, str] = {
-    "mixtral_8x22b": "12b (moe.py)",
-    "deepseek_v2_236b": "12c (mla.py and MoE)",
     "falcon_mamba_7b": "12d (ssm.py)",
     "zamba2_7b": "12d (ssm.py, then the shared-attention hybrid)",
     "whisper_small": "12e (encdec.py)",

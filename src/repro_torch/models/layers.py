@@ -2,10 +2,12 @@
 
 The PyTorch counterpart of the JAX package's ``models/layers.py``, over
 the same parameter trees (nested dicts of tensors, weights stored
-``(d_in, d_out)`` and applied as ``x @ w``). Inits draw from a CPU
-``torch.Generator``: the distribution of the reference (normal x 0.02,
-RMS scales zero), not its values. Every op is out of place, so the
-functions run under ``torch.func.vmap`` / ``grad``.
+``(d_in, d_out)`` and applied as ``x @ w``). Inits draw from a
+``torch.Generator`` on its own device (a CPU one gives the same values
+whatever device the model then lives on): the distribution of the
+reference (normal x 0.02, RMS scales zero), not its values. Every op is
+out of place, so the functions run under ``torch.func.vmap`` /
+``grad``.
 """
 from __future__ import annotations
 
@@ -29,9 +31,14 @@ def dtype_of(name: str) -> torch.dtype:
 # ----------------------------------------------------------------------------
 
 
+def normal(gen: torch.Generator, shape) -> torch.Tensor:
+    """Standard normals of ``shape`` drawn from ``gen`` on its device."""
+    return torch.randn(shape, generator=gen, device=gen.device)
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
                scale: float = 0.02) -> torch.Tensor:
-    return (torch.randn((d_in, d_out), generator=gen) * scale).to(dtype)
+    return (normal(gen, (d_in, d_out)) * scale).to(dtype)
 
 
 # ----------------------------------------------------------------------------

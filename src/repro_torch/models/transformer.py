@@ -1,6 +1,7 @@
-"""Decoder-only transformer for the attention-mixer families (dense and
-VLM): per-layer mixer codes 'A' (full attention) and 'W' (sliding
-window).
+"""Decoder-only transformer for the attention-mixer families (dense,
+VLM and MoE): per-layer mixer codes 'A' (full attention), 'W' (sliding
+window) and 'L' (MLA, DeepSeek's latent attention), with a dense MLP or
+a mixture of experts after each.
 
 The PyTorch counterpart of the JAX package's ``models/transformer.py``,
 over the same parameter tree:
@@ -22,12 +23,18 @@ the per-period grads). ``remat`` is accepted and has no effect: the
 port keeps every activation for the backward, which fits an 80 GB card
 at the sizes ``chip_smoke.py`` trains.
 
+MoE layers (``cfg.n_experts > 0``) carry ``p["moe"]`` in place of
+``p["mlp"]``, except the ``first_dense_layers`` leading ones, which stay
+dense and unstacked (``lead``: deepseek-v2's dense layer 0); their
+load-balance losses sum into ``forward``'s aux loss, and ``loss_fn``
+adds ``0.01 * aux``.
+
 Decode (``decode_step``) loops over layers so every layer can carry its
-own cache shape (ring buffers for 'W' layers).
+own cache shape (ring buffers for 'W' layers, latent caches for 'L').
 
 The other mixer codes and features raise ``NotImplementedError`` naming
-the ROADMAP.md item (queue 1) that ports them: MoE (12b), MLA 'L'
-(12c), mamba 'M' / 'M2' and the shared-attention hybrid (12d).
+the ROADMAP.md item (queue 1) that ports them: mamba 'M' / 'M2' and the
+shared-attention hybrid (12d).
 """
 from __future__ import annotations
 
@@ -39,6 +46,8 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     Params,
     apply_mlp,
@@ -54,8 +63,7 @@ from repro_torch.models.layers import (
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 _ROADMAP = "see ROADMAP.md, queue 1 item"
-_NOT_PORTED = {"L": "12c (mla.py)", "M": "12d (ssm.py)",
-               "M2": "12d (ssm.py)"}
+_NOT_PORTED = {"M": "12d (ssm.py)", "M2": "12d (ssm.py)"}
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -66,12 +74,8 @@ def check_supported(cfg: ModelConfig) -> None:
             raise NotImplementedError(
                 f"mixer code {code!r} ({cfg.name}) is not ported to "
                 f"repro_torch yet; {_ROADMAP} {_NOT_PORTED[code]}")
-        if code not in ("A", "W"):
+        if code not in ("A", "W", "L"):
             raise ValueError(f"unknown mixer code {code!r}")
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            f"MoE layers ({cfg.name}) are not ported to repro_torch yet; "
-            f"{_ROADMAP} 12b (moe.py)")
     if cfg.shared_attn_every > 0:
         raise NotImplementedError(
             f"the shared-attention hybrid ({cfg.name}) is not ported to "
@@ -127,6 +131,10 @@ def _layer_has_mlp(cfg: ModelConfig, code: str) -> bool:
     return cfg.d_ff > 0 or cfg.n_experts > 0
 
 
+def _layer_is_moe(cfg: ModelConfig, code: str, is_lead: bool) -> bool:
+    return cfg.n_experts > 0 and not is_lead and _layer_has_mlp(cfg, code)
+
+
 def window_for(cfg: ModelConfig, code: str) -> int:
     return cfg.window if code == "W" else 0
 
@@ -136,38 +144,51 @@ def window_for(cfg: ModelConfig, code: str) -> int:
 # ----------------------------------------------------------------------------
 
 
-def _layer_params(gen: torch.Generator, cfg: ModelConfig, code: str,
+def _mixer_params(gen: torch.Generator, cfg: ModelConfig, code: str,
                   dtype) -> Params:
+    if code == "L":
+        return mla_mod.mla_params(gen, cfg, dtype)
+    return attn.attn_params(gen, cfg, dtype)
+
+
+def _layer_params(gen: torch.Generator, cfg: ModelConfig, code: str, *,
+                  is_lead: bool, dtype) -> Params:
     p: Params = {
         "norm1": norm_params(cfg, cfg.d_model),
-        "mixer": attn.attn_params(gen, cfg, dtype),
+        "mixer": _mixer_params(gen, cfg, code, dtype),
     }
     if _layer_has_mlp(cfg, code):
         p["norm2"] = norm_params(cfg, cfg.d_model)
-        p["mlp"] = mlp_params(gen, cfg, cfg.d_model, cfg.d_ff, dtype)
+        if _layer_is_moe(cfg, code, is_lead):
+            p["moe"] = moe_mod.moe_params(gen, cfg, dtype)
+        else:
+            p["mlp"] = mlp_params(gen, cfg, cfg.d_model, cfg.d_ff, dtype)
     return p
 
 
 def init(generator: torch.Generator, cfg: ModelConfig, *,
          device: DeviceLike = None) -> Params:
-    """Drawn from a CPU ``generator`` (the same values on any device),
-    then moved to ``device`` (``None`` means ``cuda``)."""
+    """Drawn from ``generator`` on its device (a CPU one gives the same
+    values whatever ``device`` is), then moved to ``device`` (``None``
+    means ``cuda``)."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
     plan = make_plan(cfg)
     gen = generator
     params: Params = {"embed": embed_params(gen, cfg, dtype)}
-    params["lead"] = tuple(_layer_params(gen, cfg, c, dtype)
+    params["lead"] = tuple(_layer_params(gen, cfg, c, is_lead=True,
+                                         dtype=dtype)
                            for c in plan.lead_codes)
     if plan.n_periods > 0:
         stack: Dict[str, Any] = {}
         for j, code in enumerate(plan.period_codes):
-            per = [_layer_params(gen, cfg, code, dtype)
+            per = [_layer_params(gen, cfg, code, is_lead=False, dtype=dtype)
                    for _ in range(plan.n_periods)]
             stack[f"p{j}"] = tree_map(lambda *xs: torch.stack(xs), *per)
         params["stack"] = stack
-    params["rem"] = tuple(_layer_params(gen, cfg, c, dtype)
+    params["rem"] = tuple(_layer_params(gen, cfg, c, is_lead=False,
+                                        dtype=dtype)
                           for c in plan.rem_codes)
     params["final_norm"] = norm_params(cfg, cfg.d_model)
     return tree_map(lambda x: x.to(dev), params)
@@ -180,6 +201,13 @@ def init(generator: torch.Generator, cfg: ModelConfig, *,
 
 def _apply_mixer(cfg, code, p, x, positions, *, collect_cache=False):
     """Returns (out, cache_or_None)."""
+    if code == "L":
+        out = mla_mod.mla_attention(cfg, p, x, positions)
+        cache = None
+        if collect_cache:
+            ckv, krope = mla_mod._latents(cfg, p, x, positions)
+            cache = {"ckv": ckv, "krope": krope[:, :, 0, :]}
+        return out, cache
     w = window_for(cfg, code)
     q, k, v = attn._project_qkv(cfg, p, x)
     q, k = attn._apply_pos(cfg, q, k, positions)
@@ -195,14 +223,26 @@ def _apply_mixer(cfg, code, p, x, positions, *, collect_cache=False):
     return out, cache
 
 
+def _apply_ffn(cfg, p, x):
+    """The layer's dense MLP or mixture of experts (or nothing) on the
+    residual ``x``. Returns (x, aux loss or None)."""
+    if "mlp" in p:
+        h = apply_norm(cfg, p["norm2"], x)
+        return x + apply_mlp(cfg, p["mlp"], h), None
+    if "moe" in p:
+        y, aux = moe_mod.apply_moe(cfg, p["moe"],
+                                   apply_norm(cfg, p["norm2"], x))
+        return x + y, aux
+    return x, None
+
+
 def _apply_layer(cfg, code, p, x, positions, *, collect_cache=False):
+    """Returns (x, aux loss or None, cache_or_None)."""
     h = apply_norm(cfg, p["norm1"], x)
     mix, cache = _apply_mixer(cfg, code, p["mixer"], h, positions,
                               collect_cache=collect_cache)
-    x = x + mix
-    if "mlp" in p:
-        x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
-    return x, cache
+    x, aux = _apply_ffn(cfg, p, x + mix)
+    return x, aux, cache
 
 
 def _positions_for(cfg: ModelConfig, inputs: Dict[str, Any], s: int, b: int,
@@ -255,9 +295,16 @@ def forward(
     caches: Dict[str, Any] = {"lead": [], "rem": [], "stack": None,
                               "shared": None}
 
+    def layer(p, code, x):
+        nonlocal aux
+        x, a, c = _apply_layer(cfg, code, p, x, positions,
+                               collect_cache=collect_cache)
+        if a is not None:
+            aux = aux + a
+        return x, c
+
     for p, code in zip(params["lead"], plan.lead_codes):
-        x, c = _apply_layer(cfg, code, p, x, positions,
-                            collect_cache=collect_cache)
+        x, c = layer(p, code, x)
         caches["lead"].append(c)
 
     if plan.n_periods > 0:
@@ -265,16 +312,13 @@ def forward(
         for sl in _unstack(params["stack"], plan.n_periods):
             pc = {}
             for j, code in enumerate(plan.period_codes):
-                x, pc[f"p{j}"] = _apply_layer(
-                    cfg, code, sl[f"p{j}"], x, positions,
-                    collect_cache=collect_cache)
+                x, pc[f"p{j}"] = layer(sl[f"p{j}"], code, x)
             period_caches.append(pc)
         if collect_cache:
             caches["stack"] = tree_map(lambda *xs: torch.stack(xs),
                                        *period_caches)
     for p, code in zip(params["rem"], plan.rem_codes):
-        x, c = _apply_layer(cfg, code, p, x, positions,
-                            collect_cache=collect_cache)
+        x, c = layer(p, code, x)
         caches["rem"].append(c)
 
     x = apply_norm(cfg, params["final_norm"], x)
@@ -286,8 +330,11 @@ def forward(
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
             *, remat: bool = True):
-    logits, _, _ = forward(cfg, params, batch, remat=remat)
-    return cross_entropy(logits, batch["labels"], cfg.vocab)
+    logits, aux, _ = forward(cfg, params, batch, remat=remat)
+    loss = cross_entropy(logits, batch["labels"], cfg.vocab)
+    if cfg.n_experts > 0:
+        loss = loss + 0.01 * aux
+    return loss
 
 
 # ----------------------------------------------------------------------------
@@ -297,6 +344,13 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
 
 def _mixer_cache_spec(cfg: ModelConfig, code: str, batch: int, max_seq: int,
                       dtype, device):
+    if code == "L":
+        return {
+            "ckv": torch.zeros((batch, max_seq, cfg.kv_lora), dtype=dtype,
+                               device=device),
+            "krope": torch.zeros((batch, max_seq, cfg.qk_rope_dim),
+                                 dtype=dtype, device=device),
+        }
     w = window_for(cfg, code)
     s = min(w, max_seq) if w > 0 else max_seq
     shp = (batch, s, cfg.n_kv, cfg.hd)
@@ -336,6 +390,18 @@ def _layer_param_at(params: Params, plan: LayerPlan,
     return params["rem"][idx], plan.rem_codes[idx]
 
 
+def _decode_mixer(cfg, code, p, x1, cache, pos):
+    if code == "L":
+        out, nckv, nkrope = mla_mod.mla_decode(
+            cfg, p, x1, cache["ckv"], cache["krope"], pos)
+        return out, {"ckv": nckv, "krope": nkrope}
+    w = window_for(cfg, code)
+    out, nk, nv = attn.self_attention_decode(
+        cfg, p, x1, cache["k"], cache["v"], pos,
+        window=w if (w > 0 and cache["k"].shape[1] == w) else 0)
+    return out, {"k": nk, "v": nv}
+
+
 def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, Any],
                 token, pos):
     """One decode step. token: (B,) integer; pos: int or 0-d integer
@@ -349,16 +415,11 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, Any],
     new_layers = []
     for idx in range(plan.n_layers):
         p, code = _layer_param_at(params, plan, idx)
-        c = cache["layers"][idx]
-        w = window_for(cfg, code)
         h = apply_norm(cfg, p["norm1"], x)
-        mix, nk, nv = attn.self_attention_decode(
-            cfg, p["mixer"], h, c["k"], c["v"], pos,
-            window=w if (w > 0 and c["k"].shape[1] == w) else 0)
-        new_layers.append({"k": nk, "v": nv})
-        x = x + mix
-        if "mlp" in p:
-            x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+        mix, nc = _decode_mixer(cfg, code, p["mixer"], h,
+                                cache["layers"][idx], pos)
+        new_layers.append(nc)
+        x, _ = _apply_ffn(cfg, p, x + mix)
     x = apply_norm(cfg, params["final_norm"], x)
     logits = unembed(params["embed"], x)[:, 0]
     return logits, {"layers": tuple(new_layers)}

@@ -4,15 +4,17 @@ written like ``examples/train_lm.py``, and its serve loop
 ``examples/serve.py``, on the CPU.
 
 Training runs at the example's ``--tiny`` model (2 layers, d_model 128,
-vocab 512) on 4 workers, batch 8, seq 16, 3 steps, both from the JAX
-init of seed 0. ``step``, ``bst`` and ``sim_time`` come from the numpy
-transport model and agree exactly, ``delivered`` within rtol 1e-6 (a
+vocab 512), and with SGD-momentum also at the REDUCED mixtral-8x22b and
+deepseek-v2 (MoE, MLA), on 4 workers, batch 8, seq 16, 3 steps, both
+from the JAX init of seed 0. ``step``, ``bst`` and ``sim_time`` come
+from the numpy transport model and agree exactly, ``delivered`` within rtol 1e-6 (a
 float32 mean of the same {0, 1} masks summed in another order); losses
 agree within rtol 1e-4. Params are compared (rtol 2e-4 / atol 2e-5) on
 SGD-momentum runs only: AdamW's first update is about lr * sign(g), so
 an element whose 4-worker sum lies within rounding of zero moves by
 2 * lr between the two packages, a difference that says nothing about
-the port. Greedy decode of REDUCED smollm gives the same tokens."""
+the port. Greedy decode of REDUCED smollm, mixtral-8x22b and deepseek-v2
+gives the same tokens."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -54,10 +56,10 @@ def _jax_cfg():
         vocab=512, dtype="float32")
 
 
-def _jax_loop(optimizer="adamw", lr=3e-4, **ltp_kw):
-    """``examples/train_lm.py --tiny`` at the test's sizes; returns the
-    trainer and the init it started from."""
-    cfg = _jax_cfg()
+def _jax_loop(optimizer="adamw", lr=3e-4, cfg=None, **ltp_kw):
+    """``examples/train_lm.py --tiny`` (or ``cfg``) at the test's sizes;
+    returns the trainer and the init it started from."""
+    cfg = cfg or _jax_cfg()
     api = jbuild(cfg)
     lm = JSyntheticLM(vocab=cfg.vocab, seed=0)
     tc = JTrainConfig(batch=BATCH, seq=SEQ, lr=lr, optimizer=optimizer,
@@ -102,27 +104,43 @@ def test_train_lm_adamw_matches_jax_loop():
     assert hist[-1]["loss"] < hist[0]["loss"]
 
 
-@pytest.mark.parametrize("ltp_kw, chunked", [({}, False), (EF, False),
-                                             ({}, True), (EF, True)],
-                         ids=["paper", "count_ef", "paper_chunk1",
-                              "count_ef_chunk1"])
-def test_lm_trainer_sgdm_params_match_jax_loop(ltp_kw, chunked,
+@pytest.mark.parametrize("arch, ltp_kw, chunked", [
+    pytest.param(None, {}, False, id="paper"),
+    pytest.param(None, EF, False, id="count_ef"),
+    pytest.param(None, {}, True, id="paper_chunk1"),
+    pytest.param(None, EF, True, id="count_ef_chunk1"),
+    pytest.param("mixtral_8x22b", {}, False, id="mixtral-paper"),
+    pytest.param("mixtral_8x22b", EF, True, id="mixtral-count_ef_chunk1"),
+    pytest.param("deepseek_v2_236b", {}, False, id="deepseek-paper"),
+    pytest.param("deepseek_v2_236b", EF, True,
+                 id="deepseek-count_ef_chunk1"),
+])
+def test_lm_trainer_sgdm_params_match_jax_loop(arch, ltp_kw, chunked,
                                                 monkeypatch):
-    """``chunked``: the fused step takes its workers one vmap at a time,
-    as it does for models of more than 3 x 2^29 / W floats."""
+    """``arch``: the REDUCED config of an MoE arch (its loss carries 0.01
+    aux) in place of the example's tiny model. ``chunked``: the fused
+    step takes its workers one vmap at a time, as it does for models of
+    more than 3 x 2^29 / W floats."""
     if chunked:
         monkeypatch.setattr(stp, "WORKER_CHUNK_FLOATS", 1)
-    jtr, init = _jax_loop(optimizer="sgdm", lr=0.1, **ltp_kw)
+    if arch is None:
+        jcfg, cfg = None, lm_config(tiny=True)
+    else:
+        jcfg = jget_reduced(arch).replace(dtype="float32")
+        cfg = get_reduced(arch).replace(dtype="float32")
+    jtr, init = _jax_loop(optimizer="sgdm", lr=0.1, cfg=jcfg, **ltp_kw)
     tc = TrainConfig(batch=BATCH, seq=SEQ, lr=0.1, optimizer="sgdm",
                      steps=STEPS)
-    tr, data = lm_trainer(lm_config(tiny=True), workers=W, train=tc,
+    tr, data = lm_trainer(cfg, workers=W, train=tc,
                           ltp=LTPConfig(**ltp_kw), device="cpu",
                           params=params_from_numpy(init, "cpu"))
     assert stp.worker_chunk(tr.plan, W) == (1 if chunked else W)
     tr.run(data, epoch_steps=100)
     _same_transport(tr.history, jtr.history)
     got, want = tree_leaves(tr.params), jax.tree.leaves(jtr.params)
-    assert len(got) == len(want) == 11
+    assert len(got) == len(want)
+    assert len(got) == 11 if arch is None else \
+        "moe" in tr.params["stack"]["p0"]
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-4,
                                    atol=2e-5)
@@ -142,11 +160,12 @@ def test_lm_trainer_feeds_a_smaller_corpus():
     assert tr.params["embed"]["embed"].shape == (512, 128)
 
 
-def test_serve_greedy_tokens_match_jax():
-    """``examples/serve.py``'s loop on REDUCED smollm at float32, batch
-    4, prompt 16, 24 new tokens, from the same params and prompts."""
+def _serve_both(arch):
+    """``examples/serve.py``'s loop on ``arch``'s REDUCED config at
+    float32, batch 4, prompt 16, 24 new tokens, and ``serve`` from the
+    same params and prompts: equal greedy tokens."""
     batch, plen, new = 4, 16, 24
-    cfg = jget_reduced("smollm_360m").replace(dtype="float32")
+    cfg = jget_reduced(arch).replace(dtype="float32")
     api = jbuild(cfg)
     key = jax.random.PRNGKey(0)
     params = api.init(key)
@@ -164,8 +183,8 @@ def test_serve_greedy_tokens_match_jax():
         out.append(tok)
     want = np.stack([np.asarray(t) for t in out], axis=1)
 
-    got = serve(get_reduced("smollm_360m").replace(dtype="float32"),
-                batch=batch, prompt_len=plen, new=new, device="cpu",
+    got = serve(arch=arch, batch=batch, prompt_len=plen, new=new,
+                device="cpu",
                 params=params_from_numpy(jax.tree.map(np.asarray, params),
                                          "cpu"),
                 prompts=np.asarray(prompts))
@@ -173,3 +192,14 @@ def test_serve_greedy_tokens_match_jax():
     np.testing.assert_array_equal(got["tokens"], want)
     assert got["prompt_logits"].shape == (batch, plen, cfg.vocab_padded)
     assert got["tokens_per_s"] > 0
+
+
+def test_serve_greedy_tokens_match_jax():
+    _serve_both("smollm_360m")
+
+
+@pytest.mark.parametrize("arch", ["mixtral_8x22b", "deepseek_v2_236b"])
+def test_serve_greedy_tokens_match_jax_moe(arch):
+    """MoE decode: each step routes the batch's 4 tokens (no token is
+    dropped at a capacity of 8); deepseek-v2 decodes by absorbed MLA."""
+    _serve_both(arch)

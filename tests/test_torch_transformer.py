@@ -151,13 +151,23 @@ def test_decode_logits_and_caches_match_jax(arch_pair):
 
 
 def test_decode_matches_forward(arch_pair):
+    """For an MoE arch the forward routes each sequence of 8 tokens
+    alone: 8 tokens fill at most 8 slots of an expert, and its capacity
+    is at least 8, so the forward drops no assignment, as no decode step
+    of B tokens does (where it dropped, the two would differ by
+    design)."""
     _, cfg, _, tp = arch_pair
     api = build(cfg)
-    toks = np.random.default_rng(2).integers(0, cfg.vocab, (B, N_DECODE))
+    n = 8 if cfg.n_experts else N_DECODE
+    toks = np.random.default_rng(2).integers(0, cfg.vocab, (B, n))
     tok = torch.as_tensor(toks)
-    full, _, _ = api.forward(tp, {"tokens": tok})
-    cache = api.init_cache(B, N_DECODE, torch.float32, device="cpu")
-    for t in range(N_DECODE):
+    if cfg.n_experts:
+        full = torch.cat([api.forward(tp, {"tokens": tok[i:i + 1]})[0]
+                          for i in range(B)])
+    else:
+        full, _, _ = api.forward(tp, {"tokens": tok})
+    cache = api.init_cache(B, n, torch.float32, device="cpu")
+    for t in range(n):
         logits, cache = api.decode_step(tp, cache, tok[:, t], t)
         torch.testing.assert_close(logits, full[:, t], rtol=1e-4, atol=1e-5)
 
@@ -265,6 +275,32 @@ def test_full_size_plan_matches_jax(arch):
         assert len(tp["rem"]) == 2
 
 
+@pytest.mark.parametrize("arch, n_layers, n_floats, n_packets", [
+    ("mixtral_8x22b", 1, 2_906_720_256, 8_074_223),
+    ("mixtral_8x22b", 2, 5_410_781_184, 15_029_948),
+    ("deepseek_v2_236b", 2, 5_358_679_040, 14_885_220),
+])
+def test_moe_plans_at_the_card_depths_match_jax(arch, n_layers, n_floats,
+                                                n_packets):
+    """The MoE configs at their published widths and the depths
+    ``chip_smoke.py`` drives (mixtral trains at 1 layer and serves at 2;
+    deepseek-v2 serves its dense lead layer and first MoE layer) in
+    bfloat16, the configs' dtype: the plan and each leaf's dtype, the
+    router and norms float32."""
+    jcfg = jget_config(arch).replace(n_layers=n_layers)
+    cfg = get_config(arch).replace(n_layers=n_layers)
+    jp = jax.eval_shape(jbuild(jcfg).init, jax.random.PRNGKey(0))
+    with FakeTensorMode():
+        tp = build(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+        plan = pk.make_plan(tp, 360)
+    assert [str(x.dtype).replace("torch.", "") for x in tree_leaves(tp)] \
+        == [str(x.dtype) for x in jax.tree.leaves(jp)]
+    jplan = jpk.make_plan(jp, 360)
+    assert (plan.n_floats, plan.n_packets) == (n_floats, n_packets) == (
+        jplan.n_floats, jplan.n_packets)
+    np.testing.assert_array_equal(plan.critical, jplan.critical)
+
+
 @pytest.mark.parametrize("shape", list(SHAPES))
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_input_specs_and_support_match_jax(arch, shape):
@@ -331,13 +367,13 @@ def test_unported_archs_raise(arch):
         build(ModelConfig(**dataclasses.asdict(jget_reduced(arch))))
 
 
+# the ids the cases had beside the MoE (12b) and MLA (12c) ones, which
+# left with their port
 @pytest.mark.parametrize("kw, item", [
-    (dict(block_pattern=("L",)), "12c"),
     (dict(block_pattern=("M",)), "12d"),
     (dict(block_pattern=("A", "M2")), "12d"),
-    (dict(n_experts=4, top_k=2), "12b"),
     (dict(shared_attn_every=2), "12d"),
-])
+], ids=["kw1-12d", "kw2-12d", "kw4-12d"])
 def test_unported_features_raise(kw, item):
     cfg = get_reduced("smollm_360m").replace(**kw)
     with pytest.raises(NotImplementedError, match=f"item {item}"):
