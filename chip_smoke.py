@@ -136,12 +136,34 @@ From the root of a checkout it:
     ``deepseek_v2_236b`` (MLA, 160 routed + 2 shared experts) at 2
     layers each, with decode against the forward of sequences of 8
     tokens, where no assignment is dropped (the ``moe_serve`` line);
-14. prints a ``kernels`` JSON line (dropfill's entry with its EF form's
+14. drives the SSM family, trained (``run_ssm_phase``), on the LM
+    phase's setup (W = 8, batch 32 x seq 128, AdamW lr 3e-4, paper
+    compensation) in bfloat16 at the published widths, cut in depth:
+    ``falcon_mamba_7b`` (Mamba-1) at 2 of 64 layers (743,305,216
+    parameters, 2,064,737 packets; the ``ssm`` line) and ``zamba2_7b``
+    (Mamba-2 and the shared attention block) at 7 of 81 layers, one
+    period and a trailing layer (980,754,096 parameters, 2,724,317
+    packets; the ``hybrid`` line), 3 steps each through the kernels: one
+    packet_reduce launch a step, step 1 near ln V plus the random head's
+    logit variance over 2, the first reduced stream against the plain
+    route; peak memory, host ms a step, tokens/s, one profiled step with
+    the device and host time inside the scan's span (``mamba1_scan``,
+    ``ssd_chunk``); then each stream's packet_reduce checked and timed
+    with the model freed;
+15. serves the SSM family (``run_ssm_serve_phase``, float32, batch 4,
+    16 + 24 tokens): falcon-mamba at 2 layers, zamba2 at 13 (two
+    periods: the shared block decodes against two KV slots), decode
+    against one forward over the prompt within 1e-5 of the largest
+    logit (the ``ssm_serve`` line);
+16. prints a ``kernels`` JSON line (dropfill's entry with its EF form's
     numbers beside the plain gate's, packet_reduce's with its des16
     shape's, whose launches are counted there alone, and both with
-    their LM shape's under ``lm``, packet_reduce also with its MoE
-    shape's under ``moe``, whose launches are counted there alone) and,
-    last, the device JSON line.
+    their LM shape's under ``lm``, packet_reduce also with its MoE and
+    SSM shapes' under ``moe``, ``ssm`` and ``hybrid``, whose launches
+    are counted there alone) and, last, the device JSON line.
+
+Every LM path trains with remat (``loss_fn``'s default): each stacked
+period is recomputed in the backward.
 
 TF32 is switched off for cuDNN convolutions and matmuls for the whole
 run, so that float32 comparisons compare float32 arithmetic. Any
@@ -600,7 +622,7 @@ class Window:
 
 
 def profile_step(torch, run, step=None, select=None, which=None,
-                 between=False):
+                 between=False, span_names=()):
     """``run()`` under ``torch.profiler``: its host time, the device's busy
     time (union of kernel intervals), its idle share, device time by kernel
     name, and the port's kernels' own device time. With ``step``, the name
@@ -617,6 +639,10 @@ def profile_step(torch, run, step=None, select=None, which=None,
     of everything launched in it by op: each PyTorch op (``aten::`` dropped
     from the name) and each port kernel by its own name
     (``select_device_ms``, their sum).
+    With ``span_names``, names of spans that ``run`` may open many times,
+    ``spans`` holds for each its count, host ms (the spans' summed
+    durations) and the device ms and count of the kernels launched inside
+    any of them.
     Without device kernels (a CPU callable) the idle share is None.
     Profiling slows the host, so the wall time here is not the step time
     reported elsewhere."""
@@ -702,6 +728,18 @@ def profile_step(torch, run, step=None, select=None, which=None,
                 by_op[e.name[:80]] = (by_op.get(e.name[:80], 0.0)
                                       + e.time_range.elapsed_us() / 1e3)
         out = {"select_ms": by_op, "select_device_ms": sum(by_op.values())}
+    if span_names:
+        out["spans"] = {}
+        for name in span_names:
+            wins = [e.time_range for e in cpu if e.name == name]
+            inside = [k for k in kernels if any(
+                w.start <= launch_of(k) <= w.end for w in wins)]
+            out["spans"][name] = {
+                "count": len(wins),
+                "host_ms": sum(w.elapsed_us() for w in wins) / 1e3,
+                "device_ms": sum(k.time_range.elapsed_us()
+                                 for k in inside) / 1e3,
+                "n_kernels": len(inside)}
     return {"wall_ms": wall_us / 1e3, "n_kernels": len(kernels),
             "device_busy_ms": busy_us / 1e3,
             "idle_share": (1.0 - busy_us / wall_us) if kernels else None,
@@ -1749,47 +1787,34 @@ MOE_W, MOE_BATCH, MOE_SEQ, MOE_STEPS = 2, 8, 128, 3
 MOE_LR = 3e-4                # examples/train_lm.py's
 
 
-def run_moe_phase(torch, zero_counts, read_counts, launches_of, *,
-                  device="cuda"):
-    """The MoE path, trained: ``mixtral_8x22b``'s CONFIG at its published
-    widths in bfloat16, the config's own dtype (d_model 6144, 48 query
-    and 8 KV heads of 128, 8 experts of d_ff 16384, top-2, a 4096
-    window, vocab 32,768 untied), cut to 1 layer of 56: 2,906,720,256
-    parameters, 8,074,223 packets. Weights from a generator on the card
-    seeded with 0 (its init times here). On ``train.lm.lm_trainer``, the
-    setup of ``examples/train_lm.py`` (batch 8 x seq 128,
-    ``LTPConfig()``, ``NetConfig(10, 1, 0.001, 4096)``, the runtime
-    engine over the analytic transport, data from
-    ``SyntheticLM(vocab=8192)``, whose dense tables at 32,768 would take
-    8.6 GB each) with two cuts forced by memory: W = 2 workers, not 8
-    (the float32 stream is 11.6 GB a worker), and SGD-momentum (0.9, lr
-    3e-4), not AdamW, whose float32 moments would take 23.3 GB.
-    ``MOE_STEPS`` steps through the kernels.
+def train_and_check(torch, zero_counts, read_counts, launches_of, label,
+                    cfg, line, tc, workers, loss_step1, *, span=None,
+                    device="cuda"):
+    """``cfg`` at its published widths in its own dtype, weights from a
+    generator on the card seeded with 0 (their init times here), trained
+    ``tc.steps`` steps through the kernels on ``train.lm.lm_trainer``,
+    the setup of ``examples/train_lm.py`` (``LTPConfig(sync_backend=
+    "cuda")``, ``NetConfig(10, 1, 0.001, 4096)``, the runtime engine over
+    the analytic transport) with ``workers`` workers and the ``tc``
+    batch, optimizer and lr, data from ``SyntheticLM(vocab=8192)``.
 
     Checks: one packet_reduce launch a step and no other; finite losses;
-    step 1 within 1.0 of ln V + s^2 / 2 + 0.01, the loss of random
-    logits of variance s^2 = 0.02^2 d_model (the final norm's unit RMS
-    under the head's normal x 0.02 init) plus the aux term at balanced
-    routing; the first step's reduced stream through the kernel against
-    the plain route on the same stream (``capture_first_reduction``)
-    within 1e-6 of its largest element. Host ms a step
-    (``StampedBatch``), tokens/s and peak device memory; then one more
-    step profiled. Returns (the ``moe`` line, the launches of the
-    counted run, the plan's (W, n_packets, payload))."""
-    from repro_torch.config import LTPConfig, TrainConfig
-    from repro_torch.configs import get_config
+    step 1 within 1.0 of ``loss_step1``; the first step's reduced stream
+    through the kernel against the plain route on the same stream
+    (``capture_first_reduction``) within 1e-6 of its largest element.
+    Fills ``line`` with host ms a step (``StampedBatch``), tokens/s and
+    peak device memory, then one more step profiled (with ``span``, the
+    host and device time inside that span, under ``scan_span``). Returns
+    (``line``, the launches of the counted run, the plan's (W,
+    n_packets, payload))."""
+    from repro_torch.config import LTPConfig
     from repro_torch.core import packets as pk
     from repro_torch.data import SyntheticLM
     from repro_torch.models import build
+    from repro_torch.runtime import step as stp
     from repro_torch.train.lm import lm_trainer
     from repro_torch.tree import tree_leaves
 
-    cfg = get_config("mixtral_8x22b").replace(n_layers=1)
-    line = {"config": {k: getattr(cfg, k) for k in (
-        "name", "n_layers", "d_model", "n_heads", "n_kv", "head_dim",
-        "d_ff", "n_experts", "top_k", "window", "vocab", "dtype")},
-        "workers": MOE_W, "batch": MOE_BATCH, "seq": MOE_SEQ,
-        "optimizer": "sgdm", "lr": MOE_LR, "data_vocab": LM_DATA_VOCAB}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     init = build(cfg).init(torch.Generator(device=device).manual_seed(0),
@@ -1799,11 +1824,10 @@ def run_moe_phase(torch, zero_counts, read_counts, launches_of, *,
     plan = pk.make_plan(init, 360)
     line.update(n_params=plan.n_floats, n_packets=plan.n_packets,
                 n_critical=plan.n_critical,
+                worker_chunk=stp.worker_chunk(plan, workers),
                 leaf_dtypes=sorted({str(x.dtype) for x in
                                     tree_leaves(init)}))
-    tc = TrainConfig(batch=MOE_BATCH, seq=MOE_SEQ, lr=MOE_LR,
-                     optimizer="sgdm", steps=MOE_STEPS)
-    tr, data = lm_trainer(cfg, workers=MOE_W, train=tc,
+    tr, data = lm_trainer(cfg, workers=workers, train=tc,
                           corpus=SyntheticLM(vocab=LM_DATA_VOCAB, seed=0),
                           ltp=LTPConfig(sync_backend="cuda"), device=device,
                           params=init)
@@ -1824,43 +1848,84 @@ def run_moe_phase(torch, zero_counts, read_counts, launches_of, *,
     launches = read_counts()
     hist = tr.history
     step_s = [b - a for a, b in zip(stamps, stamps[1:])]
-    if launches != launches_of(packet_reduce=MOE_STEPS):
-        raise AssertionError(f"moe: launches {launches}")
-    if len(hist) != MOE_STEPS or len(step_s) != MOE_STEPS or not all(
+    if launches != launches_of(packet_reduce=tc.steps):
+        raise AssertionError(f"{label}: launches {launches}")
+    if len(hist) != tc.steps or len(step_s) != tc.steps or not all(
             math.isfinite(h["loss"]) and 0.0 < h["delivered"] <= 1.0
             and h["bst"] > 0.0 for h in hist):
-        raise AssertionError(f"moe: bad run {hist} {step_s}")
-    expect = math.log(cfg.vocab) + 0.5 * 0.02 ** 2 * cfg.d_model + 0.01
-    if not abs(hist[0]["loss"] - expect) < 1.0:
-        raise AssertionError(f"moe: step 1 loss {hist[0]['loss']}, "
-                             f"expected {expect} +- 1.0")
+        raise AssertionError(f"{label}: bad run {hist} {step_s}")
+    if not abs(hist[0]["loss"] - loss_step1) < 1.0:
+        raise AssertionError(f"{label}: step 1 loss {hist[0]['loss']}, "
+                             f"expected {loss_step1} +- 1.0")
     if not first["max_abs_diff"] <= 1e-6 * first["max_abs"]:
-        raise AssertionError(f"moe: first reduced stream {first}")
+        raise AssertionError(f"{label}: first reduced stream {first}")
     steady = statistics.median(step_s[1:])
     line.update(
         launches=launches, loss=[h["loss"] for h in hist],
-        loss_step1_expected=expect, ln_vocab=math.log(cfg.vocab),
+        loss_step1_expected=loss_step1, ln_vocab=math.log(cfg.vocab),
         first_step_reduced_stream=first,
         step_ms=[t * 1e3 for t in step_s], median_step_ms=steady * 1e3,
-        tokens_per_s=MOE_BATCH * MOE_SEQ / steady,
+        tokens_per_s=tc.batch * tc.seq / steady,
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
         card_memory_gb=torch.cuda.get_device_properties(0).total_memory
         / 1e9, history=hist)
     # one more step, profiled (not counted), after the cached blocks of
     # the counted run are released
     batch = SyntheticLM(vocab=LM_DATA_VOCAB, seed=0).train_batch(
-        MOE_BATCH, MOE_SEQ, MOE_STEPS)
+        tc.batch, tc.seq, tc.steps)
     del data
     gc.collect()
     torch.cuda.empty_cache()
-    prof = profile_step(torch, lambda: tr.run([batch], epoch_steps=100))
+    prof = profile_step(torch, lambda: tr.run([batch], epoch_steps=100),
+                        span_names=(span,) if span else ())
     line["profile_step"] = prof
     line["idle_share"] = prof["idle_share"]
-    shape = (MOE_W, plan.n_packets, plan.packet_floats)
+    if span:
+        sp = prof["spans"][span]
+        if not sp["count"] or not sp["n_kernels"]:
+            raise AssertionError(f"{label}: no {span!r} work in the "
+                                 f"profiled step: {sp}")
+        line["scan_span"] = {**sp, "share_of_device_busy": sp["device_ms"]
+                             / prof["device_busy_ms"]}
+    shape = (workers, plan.n_packets, plan.packet_floats)
     del tr, batch
     gc.collect()
     torch.cuda.empty_cache()
     return line, launches, shape
+
+
+def run_moe_phase(torch, zero_counts, read_counts, launches_of, *,
+                  device="cuda"):
+    """The MoE path, trained: ``mixtral_8x22b``'s CONFIG at its published
+    widths in bfloat16, the config's own dtype (d_model 6144, 48 query
+    and 8 KV heads of 128, 8 experts of d_ff 16384, top-2, a 4096
+    window, vocab 32,768 untied), cut to 1 layer of 56: 2,906,720,256
+    parameters, 8,074,223 packets. ``train_and_check`` with batch 8 x
+    seq 128 (``SyntheticLM(vocab=8192)``: the dense tables at 32,768
+    would take 8.6 GB each) and two cuts forced by memory: W = 2
+    workers, not 8 (the float32 stream is 11.6 GB a worker), and
+    SGD-momentum (0.9, lr 3e-4), not AdamW, whose float32 moments would
+    take 23.3 GB; ``MOE_STEPS`` steps. Step 1 is expected at ln V + s^2
+    / 2 + 0.01, the loss of random logits of variance s^2 = 0.02^2
+    d_model (the final norm's unit RMS under the head's normal x 0.02
+    init) plus the aux term at balanced routing. Returns (the ``moe``
+    line, the launches of the counted run, the plan's (W, n_packets,
+    payload))."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config
+
+    cfg = get_config("mixtral_8x22b").replace(n_layers=1)
+    line = {"config": {k: getattr(cfg, k) for k in (
+        "name", "n_layers", "d_model", "n_heads", "n_kv", "head_dim",
+        "d_ff", "n_experts", "top_k", "window", "vocab", "dtype")},
+        "workers": MOE_W, "batch": MOE_BATCH, "seq": MOE_SEQ,
+        "optimizer": "sgdm", "lr": MOE_LR, "data_vocab": LM_DATA_VOCAB}
+    tc = TrainConfig(batch=MOE_BATCH, seq=MOE_SEQ, lr=MOE_LR,
+                     optimizer="sgdm", steps=MOE_STEPS)
+    expect = math.log(cfg.vocab) + 0.5 * 0.02 ** 2 * cfg.d_model + 0.01
+    return train_and_check(torch, zero_counts, read_counts, launches_of,
+                           "moe", cfg, line, tc, MOE_W, expect,
+                           device=device)
 
 
 def moe_drop_counter():
@@ -1958,6 +2023,120 @@ def run_moe_serve_phase(torch, batch=4, prompt_len=16, new=24, n_check=8,
                    tokens_first_2=out["tokens"][:2].tolist())
         line["archs"][arch] = row
         del params, out, pl, full, dec
+        gc.collect()
+        torch.cuda.empty_cache()
+    return line
+
+
+# the SSM family: falcon-mamba-7b (Mamba-1) and the zamba2-7b hybrid
+# (Mamba-2 with a shared attention block) trained over the LTP PS at
+# their published widths in bfloat16, then served
+SSM_STEPS = 3
+SSM_PATHS = {
+    # line: (arch, layers, the span around its scan, the cut)
+    "ssm": ("falcon_mamba_7b", 2, "mamba1_scan", "2 of 64 layers"),
+    "hybrid": ("zamba2_7b", 7, "ssd_chunk",
+               "7 of 81 layers: one period of 6 Mamba-2 layers and the "
+               "shared attention + MLP block, then 1 trailing layer"),
+}
+
+
+def run_ssm_phase(torch, zero_counts, read_counts, launches_of, line_name,
+                  *, device="cuda"):
+    """An SSM path, trained: ``SSM_PATHS[line_name]``'s CONFIG at its
+    published widths in bfloat16, its own dtype, cut in depth alone
+    (falcon-mamba-7b: d_model 4096, d_inner 8192, state 16, conv 4,
+    vocab 65,024 untied, 2 of 64 layers; zamba2-7b: d_model 3584,
+    d_inner 7168 in 112 Mamba-2 heads of 64, state 64, the shared block's
+    32 heads of 112 and d_ff 14336, vocab 32,000, 7 of 81 layers).
+    ``train_and_check`` on the LM phase's setup, that of
+    ``examples/train_lm.py``: W = 8, batch 32 x seq 128, AdamW lr 3e-4,
+    paper compensation, data from ``SyntheticLM(vocab=8192)`` (the dense
+    tables at 65,024 would take 33.8 GB each); remat on, as ``loss_fn``
+    defaults; ``SSM_STEPS`` steps. Step 1 is expected at ln V + s^2 / 2
+    (no aux term). The profiled step reports the host and device time
+    inside the scan's span (the forward and the backward's recompute of
+    the time loop or the SSD chunks; the backward of the loop's ops runs
+    outside it). Returns (the line, the launches of the counted run, the
+    plan's (W, n_packets, payload))."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config
+
+    arch, n_layers, span, cut = SSM_PATHS[line_name]
+    cfg = get_config(arch).replace(n_layers=n_layers)
+    line = {"config": {k: getattr(cfg, k) for k in (
+        "name", "family", "n_layers", "d_model", "d_inner", "ssm_state",
+        "ssm_conv", "ssm_heads", "n_heads", "n_kv", "head_dim", "d_ff",
+        "shared_attn_every", "vocab", "tie_embeddings", "dtype")},
+        "reduced": [f"depth: {cut}",
+                    f"data: SyntheticLM(vocab={LM_DATA_VOCAB})"],
+        "workers": LM_W, "batch": LM_BATCH, "seq": LM_SEQ,
+        "optimizer": "adamw", "lr": 3e-4, "remat": True, "span": span}
+    tc = TrainConfig(batch=LM_BATCH, seq=LM_SEQ, lr=3e-4,
+                     optimizer="adamw", steps=SSM_STEPS)
+    expect = math.log(cfg.vocab) + 0.5 * 0.02 ** 2 * cfg.d_model
+    return train_and_check(torch, zero_counts, read_counts, launches_of,
+                           line_name, cfg, line, tc, LM_W, expect,
+                           span=span, device=device)
+
+
+def run_ssm_serve_phase(torch, batch=4, prompt_len=16, new=24,
+                        device="cuda"):
+    """The SSM family, served: ``train.serve.serve`` at float32 with
+    ``examples/serve.py``'s defaults (batch 4, a 16-token prompt decoded
+    token by token, 24 new tokens greedily), twice each (the first pays
+    the card's warm-up), for ``falcon_mamba_7b``'s CONFIG at 2 layers and
+    ``zamba2_7b``'s at 13 (two periods of 6 Mamba-2 layers, so the shared
+    block decodes against two KV slots, then 1 trailing layer), one at a
+    time, weights from a generator on the card seeded with 0.
+
+    Checks finite logits of the expected shape, and the logits the
+    prompt's decode steps gave against one ``forward`` over the prompt
+    (the scan over the whole sequence; a Mamba-2 prompt of 16 is one SSD
+    chunk), within 1e-5 of the largest logit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.train.serve import serve
+    from repro_torch.tree import tree_leaves
+
+    line = {"batch": batch, "prompt_len": prompt_len, "new": new,
+            "archs": {}}
+    for arch, n_layers in (("falcon_mamba_7b", 2), ("zamba2_7b", 13)):
+        cfg = get_config(arch).replace(n_layers=n_layers, dtype="float32")
+        t0 = time.perf_counter()
+        params = build(cfg).init(
+            torch.Generator(device=device).manual_seed(0), device=device)
+        torch.cuda.synchronize()
+        row = {"n_layers": cfg.n_layers, "init_s": time.perf_counter() - t0,
+               "n_params": sum(x.numel() for x in tree_leaves(params)),
+               "runs": []}
+        for _ in range(2):
+            out = serve(cfg, batch=batch, prompt_len=prompt_len, new=new,
+                        device=device, params=params)
+            row["runs"].append({k: out[k] for k in (
+                "prefill_s", "decode_s", "tokens_per_s")})
+        pl = out["prompt_logits"]
+        if tuple(pl.shape) != (batch, prompt_len, cfg.vocab_padded) or \
+                not bool(torch.isfinite(pl).all()) or \
+                out["tokens"].shape != (batch, new):
+            raise AssertionError(f"ssm_serve {arch}: bad output {pl.shape} "
+                                 f"{out['tokens'].shape}")
+        with torch.no_grad():
+            full, _, _ = build(cfg).forward(
+                params, {"tokens": torch.as_tensor(out["prompts"]).to(
+                    device)})
+        diff = (pl - full).abs().max().item()
+        top = full.abs().max().item()
+        tol = "1e-5 of the largest logit"
+        if not diff <= 1e-5 * top:
+            raise AssertionError(f"ssm_serve {arch}: decode vs forward "
+                                 f"{diff} of {top} ({tol})")
+        row.update(decode_vs_forward_max_abs_diff=diff, logits_max_abs=top,
+                   decode_vs_forward_tol=tol,
+                   checked=f"{batch} x {prompt_len} tokens",
+                   tokens_first_2=out["tokens"][:2].tolist())
+        line["archs"][arch] = row
+        del params, out, pl, full
         gc.collect()
         torch.cuda.empty_cache()
     return line
@@ -2159,12 +2338,29 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("moe_serve " + json.dumps(run_moe_serve_phase(torch)))
 
+    # the SSM family: falcon-mamba-7b and the zamba2-7b hybrid at their
+    # published widths trained over the LTP PS in bfloat16, each stream
+    # then checked and timed with the model freed; both served
+    ssm_launches, ssm_kernels = {}, {}
+    for name in SSM_PATHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        ssm_line, ssm_launches[name], ssm_shape = run_ssm_phase(
+            torch, zero_counts, read_counts, launches_of, name)
+        print(f"{name} " + json.dumps(ssm_line))
+        ssm_kernels[name] = check_lm_kernels(torch, timer, *ssm_shape,
+                                             ef=False)["packet_reduce"]
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("ssm_serve " + json.dumps(run_ssm_serve_phase(torch)))
+
     # tree_reduce is on no training path: its count is the check calls'
     by_path = {
         "lockstep": [r[2] for r in runs.values()],
         "Fig 5": [r["launches"] for r in fig5.values()],
         "runtime": rt_launches, "des": des_launches, "Fig 13": tta_launches,
-        "des16": nf_launches, "lm": lm_launches, "moe": [moe_launches]}
+        "des16": nf_launches, "lm": lm_launches, "moe": [moe_launches],
+        **{name: [n] for name, n in ssm_launches.items()}}
     path_launches = {name: {path: sum(r[name] for r in rs)
                             for path, rs in by_path.items()}
                      for name in counters}
@@ -2180,6 +2376,14 @@ def main() -> int:
     moe_path = {name: path_launches[name].pop("moe") for name in counters}
     if moe_path != launches_of(packet_reduce=MOE_STEPS):
         raise AssertionError(f"the MoE path launched {moe_path}")
+    # and each SSM path at its stream
+    ssm_path = {}
+    for path in SSM_PATHS:
+        ssm_path[path] = {name: path_launches[name].pop(path)
+                          for name in counters}
+        if ssm_path[path] != launches_of(packet_reduce=SSM_STEPS):
+            raise AssertionError(f"the {path} path launched "
+                                 f"{ssm_path[path]}")
     main_launches = {name: sum(path_launches[name].values())
                      for name in counters}
     if main_launches["tree_reduce"] != 0:
@@ -2243,6 +2447,14 @@ def main() -> int:
                     **{k: moe_kernel[k] for k in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms")}}
+                for path, row in ssm_kernels.items():
+                    e[path] = {
+                        "shape": row["shape"], "form": "paper",
+                        "launches": ssm_path[path]["packet_reduce"],
+                        "launches_from": f"main paths: {path}",
+                        **{k: row[k] for k in (
+                            "max_abs_err", "ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms")}}
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,13 +5,15 @@ The twin of ``examples/train_lm.py`` on ``repro_torch``
 2-layer one with ``--tiny``) trained by 8 simulated workers and one PS
 on the synthetic bigram corpus, AdamW, the Early Close controller and
 packet masks; a checkpoint is written at the end. ``--arch`` trains a
-ported architecture's REDUCED config instead (``mixtral_8x22b`` and
-``deepseek_v2_236b`` among them) at its own dtype, bfloat16. Runs on
+ported architecture's REDUCED config instead (``mixtral_8x22b``,
+``deepseek_v2_236b``, ``falcon_mamba_7b`` and ``zamba2_7b`` among them)
+at its own dtype, bfloat16. Runs on
 the CUDA card (the PS reduction goes through the hand-written kernels)
 unless ``--device cpu`` is given.
 
   PYTHONPATH=src python examples/train_lm_torch.py --steps 300 [--tiny] [--device cpu]
   PYTHONPATH=src python examples/train_lm_torch.py --arch mixtral_8x22b [--device cpu]
+  PYTHONPATH=src python examples/train_lm_torch.py --arch falcon_mamba_7b|zamba2_7b [--device cpu]
 """
 import argparse
 import time

@@ -1,15 +1,15 @@
 """Registry of model configurations ported so far.
 
-The paper's own model, ``papernet``, and the transformer families whose
-mixers are attention layers: dense (smollm, yi, qwen3, gemma3's 5 local
-: 1 global pattern), the VLM backbone (qwen2-vl, M-RoPE and a
-patch-embedding stub) and the MoE family (mixtral's 8 experts under
-sliding-window attention, deepseek-v2's MLA with 160 routed and 2
-shared experts after a dense lead layer). The other architectures of
-the JAX package's ``configs`` wait for the port of their models, each
-named with its ROADMAP.md item (queue 1, items 12d-12e). Each submodule
-exposes ``CONFIG`` (the full-size config) and ``REDUCED`` (a smoke
-variant).
+The paper's own model, ``papernet``, and the decoder-only families:
+dense (smollm, yi, qwen3, gemma3's 5 local : 1 global pattern), the VLM
+backbone (qwen2-vl, M-RoPE and a patch-embedding stub), the MoE family
+(mixtral's 8 experts under sliding-window attention, deepseek-v2's MLA
+with 160 routed and 2 shared experts after a dense lead layer) and the
+SSM family (falcon-mamba's Mamba-1 layers; zamba2's Mamba-2 layers with
+one shared attention block). The JAX package's enc-dec architecture,
+whisper_small, waits for the port of its model, named with its
+ROADMAP.md item (queue 1, item 12e). Each submodule exposes ``CONFIG``
+(the full-size config) and ``REDUCED`` (a smoke variant).
 """
 from __future__ import annotations
 
@@ -26,14 +26,14 @@ ARCH_IDS: List[str] = [
     "gemma3_1b",
     "qwen3_14b",
     "deepseek_v2_236b",
+    "falcon_mamba_7b",
+    "zamba2_7b",
     "papernet",
 ]
 
 # the JAX package's other architectures, by the ROADMAP.md item that
 # ports the model they need
 NOT_PORTED: Dict[str, str] = {
-    "falcon_mamba_7b": "12d (ssm.py)",
-    "zamba2_7b": "12d (ssm.py, then the shared-attention hybrid)",
     "whisper_small": "12e (encdec.py)",
 }
 

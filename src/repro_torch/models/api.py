@@ -1,10 +1,11 @@
 """Model API: the same callable surface per architecture, and input specs.
 
 ``build(cfg)`` returns a ModelApi with the same callable surface for
-every ported family: ``cnn`` (papernet) and the transformers, ``dense``,
-``vlm`` and ``moe`` (MoE layers, and MLA for deepseek-v2). The other
-families (``ssm``, ``hybrid``, ``audio``) wait for ROADMAP.md queue 1
-items 12d-12e. ``input_specs(cfg, shape)`` returns meta tensors (shapes
+every ported family: ``cnn`` (papernet) and the decoder-only
+transformers, ``dense``, ``vlm``, ``moe`` (MoE layers, and MLA for
+deepseek-v2), ``ssm`` (falcon-mamba) and ``hybrid`` (zamba2). The
+enc-dec family (``audio``) waits for ROADMAP.md queue 1 item 12e.
+``input_specs(cfg, shape)`` returns meta tensors (shapes
 and dtypes, nothing allocated) for each step kind:
 
   train   -> loss_fn(params, batch)
@@ -42,13 +43,10 @@ class ModelApi:
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family == "cnn":
         return
-    # mamba and the hybrid raise here, naming their items
+    # the enc-dec family raises here, naming its item
     transformer.check_supported(cfg)
-    if cfg.family not in ("dense", "vlm", "moe"):
-        item = "12e (encdec.py)" if cfg.family == "audio" else "12d-12e"
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported to repro_torch "
-            f"yet; see ROADMAP.md, queue 1 item {item}")
+    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
+        raise ValueError(f"unknown model family {cfg.family!r}")
 
 
 def _tf_prefill(cfg):

@@ -1,14 +1,15 @@
-"""Decoder-only transformer for the attention-mixer families (dense,
-VLM and MoE): per-layer mixer codes 'A' (full attention), 'W' (sliding
-window) and 'L' (MLA, DeepSeek's latent attention), with a dense MLP or
-a mixture of experts after each.
+"""Decoder-only transformer covering the dense, VLM, MoE, SSM and hybrid
+families: per-layer mixer codes 'A' (full attention), 'W' (sliding
+window), 'L' (MLA, DeepSeek's latent attention), 'M' (Mamba-1) and 'M2'
+(Mamba-2), with a dense MLP or a mixture of experts after each attention
+mixer (a mamba block is the whole layer).
 
 The PyTorch counterpart of the JAX package's ``models/transformer.py``,
 over the same parameter tree:
 
   params = {
     embed, lead: (layer...), stack: {p0..p{P-1}: stacked over periods},
-    rem: (layer...), final_norm
+    rem: (layer...), shared_attn?, final_norm
   }
 
 Layers are grouped by *pattern period*: each position within the period
@@ -19,9 +20,15 @@ gradient stream's leaves, and so ``core.packets.make_plan``'s critical
 packets and the packet masks, are the reference's. Where the reference
 scans over the stack, ``forward`` loops in Python over its leading
 axis, unbinding each stacked leaf once (its backward is one stack of
-the per-period grads). ``remat`` is accepted and has no effect: the
-port keeps every activation for the backward, which fits an 80 GB card
-at the sizes ``chip_smoke.py`` trains.
+the per-period grads). With ``remat`` (``loss_fn``'s default) each
+period's body is rematerialised, as the reference's ``jax.checkpoint``
+does: ``_Remat`` keeps only the body's inputs and recomputes it in the
+backward (``_remat_body``).
+
+The hybrid (zamba2, ``cfg.shared_attn_every > 0``) applies ONE shared
+attention + MLP block (``shared_attn``) at the end of every period; its
+grad is the sum over those applications. In decode each application
+keeps its own KV slot (``cache["shared"]``, one a period).
 
 MoE layers (``cfg.n_experts > 0``) carry ``p["moe"]`` in place of
 ``p["mlp"]``, except the ``first_dense_layers`` leading ones, which stay
@@ -30,11 +37,13 @@ load-balance losses sum into ``forward``'s aux loss, and ``loss_fn``
 adds ``0.01 * aux``.
 
 Decode (``decode_step``) loops over layers so every layer can carry its
-own cache shape (ring buffers for 'W' layers, latent caches for 'L').
+own cache shape (ring buffers for 'W' layers, latent caches for 'L',
+SSM states for 'M' / 'M2'). A prefill of an SSM layer returns the
+``None`` cache, as the reference's does.
 
-The other mixer codes and features raise ``NotImplementedError`` naming
-the ROADMAP.md item (queue 1) that ports them: mamba 'M' / 'M2' and the
-shared-attention hybrid (12d).
+The enc-dec family (``family="audio"``, whisper) raises
+``NotImplementedError`` naming the ROADMAP.md item (queue 1) that ports
+it: 12e.
 """
 from __future__ import annotations
 
@@ -48,6 +57,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm
 from repro_torch.models.layers import (
     Params,
     apply_mlp,
@@ -62,24 +72,18 @@ from repro_torch.models.layers import (
 )
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
-_ROADMAP = "see ROADMAP.md, queue 1 item"
-_NOT_PORTED = {"M": "12d (ssm.py)", "M2": "12d (ssm.py)"}
-
-
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this port does not cover
-    yet, naming the ROADMAP.md item that ports it."""
-    for code in dict.fromkeys(cfg.pattern_layers):
-        if code in _NOT_PORTED:
-            raise NotImplementedError(
-                f"mixer code {code!r} ({cfg.name}) is not ported to "
-                f"repro_torch yet; {_ROADMAP} {_NOT_PORTED[code]}")
-        if code not in ("A", "W", "L"):
-            raise ValueError(f"unknown mixer code {code!r}")
-    if cfg.shared_attn_every > 0:
+    """Raise ``NotImplementedError`` for the enc-dec family, which this
+    port does not cover yet, naming the ROADMAP.md item that ports it,
+    and ``ValueError`` for an unknown mixer code."""
+    if cfg.family == "audio":
         raise NotImplementedError(
-            f"the shared-attention hybrid ({cfg.name}) is not ported to "
-            f"repro_torch yet; {_ROADMAP} 12d")
+            f"model family 'audio' ({cfg.name}) is not ported to "
+            f"repro_torch yet; see ROADMAP.md, queue 1 item 12e "
+            f"(encdec.py)")
+    for code in dict.fromkeys(cfg.pattern_layers):
+        if code not in ("A", "W", "L", "M", "M2"):
+            raise ValueError(f"unknown mixer code {code!r}")
 
 
 # ----------------------------------------------------------------------------
@@ -148,6 +152,10 @@ def _mixer_params(gen: torch.Generator, cfg: ModelConfig, code: str,
                   dtype) -> Params:
     if code == "L":
         return mla_mod.mla_params(gen, cfg, dtype)
+    if code == "M":
+        return ssm.mamba1_params(gen, cfg, dtype)
+    if code == "M2":
+        return ssm.mamba2_params(gen, cfg, dtype)
     return attn.attn_params(gen, cfg, dtype)
 
 
@@ -164,6 +172,16 @@ def _layer_params(gen: torch.Generator, cfg: ModelConfig, code: str, *,
         else:
             p["mlp"] = mlp_params(gen, cfg, cfg.d_model, cfg.d_ff, dtype)
     return p
+
+
+def _shared_block_params(gen: torch.Generator, cfg: ModelConfig,
+                         dtype) -> Params:
+    return {
+        "norm1": norm_params(cfg, cfg.d_model),
+        "attn": attn.attn_params(gen, cfg, dtype),
+        "norm2": norm_params(cfg, cfg.d_model),
+        "mlp": mlp_params(gen, cfg, cfg.d_model, cfg.d_ff, dtype),
+    }
 
 
 def init(generator: torch.Generator, cfg: ModelConfig, *,
@@ -190,6 +208,8 @@ def init(generator: torch.Generator, cfg: ModelConfig, *,
     params["rem"] = tuple(_layer_params(gen, cfg, c, is_lead=False,
                                         dtype=dtype)
                           for c in plan.rem_codes)
+    if plan.shared_attn:
+        params["shared_attn"] = _shared_block_params(gen, cfg, dtype)
     params["final_norm"] = norm_params(cfg, cfg.d_model)
     return tree_map(lambda x: x.to(dev), params)
 
@@ -201,6 +221,10 @@ def init(generator: torch.Generator, cfg: ModelConfig, *,
 
 def _apply_mixer(cfg, code, p, x, positions, *, collect_cache=False):
     """Returns (out, cache_or_None)."""
+    if code == "M":
+        return ssm.mamba1_forward(cfg, p, x), None
+    if code == "M2":
+        return ssm.mamba2_forward(cfg, p, x), None
     if code == "L":
         out = mla_mod.mla_attention(cfg, p, x, positions)
         cache = None
@@ -245,6 +269,17 @@ def _apply_layer(cfg, code, p, x, positions, *, collect_cache=False):
     return x, aux, cache
 
 
+def _apply_shared_block(cfg, p, x, positions, *, collect_cache=False):
+    """The hybrid's shared attention + MLP block: a full-attention ('A')
+    mixer, then the MLP. Returns (x, cache or None)."""
+    h = apply_norm(cfg, p["norm1"], x)
+    out, cache = _apply_mixer(cfg, "A", p["attn"], h, positions,
+                              collect_cache=collect_cache)
+    x = x + out
+    x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+    return x, cache
+
+
 def _positions_for(cfg: ModelConfig, inputs: Dict[str, Any], s: int, b: int,
                    device):
     pos = torch.arange(s, device=device).expand(b, s)
@@ -273,6 +308,70 @@ def _unstack(stack: Params, n: int) -> List[Params]:
     return [tree_unflatten(stack, [c[i] for c in cols]) for i in range(n)]
 
 
+class _Remat(torch.autograd.Function):
+    """``body(positions, x, aux, *leaves) -> (x, aux)`` rematerialised: the
+    forward keeps only its inputs, and the backward recomputes the body
+    under ``torch.func.vjp``. ``torch.utils.checkpoint`` runs under
+    neither ``torch.func.grad`` (saved-tensor hooks) nor ``vmap``; this
+    Function runs under both, ``vmap`` through its generated rule.
+    ``positions`` is an input for ``vmap`` (a VLM's M-RoPE ids carry the
+    worker axis) and takes no grad."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(body, positions, x, aux, *leaves):
+        # views: an input returned as it is cannot be saved here
+        return tuple(t.view_as(t) for t in body(positions, x, aux, *leaves))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        body, *tensors = inputs
+        ctx.body = body
+        ctx.save_for_backward(*tensors)
+
+    @staticmethod
+    def backward(ctx, g_x, g_aux):
+        positions, *primals = ctx.saved_tensors
+        with torch.enable_grad():
+            _, vjp_fn = torch.func.vjp(
+                lambda *a: ctx.body(positions, *a), *primals)
+        return (None, None) + tuple(vjp_fn((g_x, g_aux)))
+
+
+def _remat_body(cfg: ModelConfig, plan: LayerPlan, slice_tree: Params,
+                shared: Any):
+    """One period's body, for ``_Remat``: the period slice's layers and,
+    in the hybrid, the shared block, over the carry (x, aux) and the
+    flattened leaves of (slice, shared). Returns (body, leaves)."""
+    tree = {"slice": slice_tree}
+    if plan.shared_attn:
+        tree["shared"] = shared
+    leaves = tree_leaves(tree)
+
+    def body(positions, x, aux, *flat):
+        t = tree_unflatten(tree, list(flat))
+        for j, code in enumerate(plan.period_codes):
+            x, a, _ = _apply_layer(cfg, code, t["slice"][f"p{j}"], x,
+                                   positions)
+            if a is not None:
+                aux = aux + a
+        if plan.shared_attn:
+            x, _ = _apply_shared_block(cfg, t["shared"], x, positions)
+        return x, aux
+
+    return body, leaves
+
+
+def _stack_caches(period_caches: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Each period position's prefill cache stacked over the periods (an
+    SSM layer's ``None`` stays ``None``)."""
+    return {k: None if period_caches[0][k] is None else
+            tree_map(lambda *xs: torch.stack(xs),
+                     *[pc[k] for pc in period_caches])
+            for k in period_caches[0]}
+
+
 def forward(
     cfg: ModelConfig,
     params: Params,
@@ -282,13 +381,16 @@ def forward(
     remat: bool = True,
     last_only: bool = False,
 ):
-    """Full-sequence forward. ``remat`` has no effect (module docstring).
+    """Full-sequence forward. With ``remat``, each stacked period is
+    rematerialised in the backward (``_Remat``); the ``lead`` and
+    ``rem`` layers are not, as in the reference. Remat is skipped when
+    ``collect_cache`` is set (prefill) and where grad mode is off.
 
     Returns (logits, aux_loss, caches) — caches is a dict with 'lead'/'stack'/
     'rem'/'shared' entries when collect_cache else None; ``stack`` holds
-    each period position's cache stacked over the periods.
+    each period position's cache (and the hybrid's shared block's, under
+    ``shared``) stacked over the periods.
     """
-    del remat
     plan = make_plan(cfg)
     x, positions = embed_inputs(cfg, params, inputs)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -308,15 +410,23 @@ def forward(
         caches["lead"].append(c)
 
     if plan.n_periods > 0:
+        shared_p = params.get("shared_attn")
+        use_remat = remat and not collect_cache and torch.is_grad_enabled()
         period_caches = []
         for sl in _unstack(params["stack"], plan.n_periods):
+            if use_remat:
+                body, leaves = _remat_body(cfg, plan, sl, shared_p)
+                x, aux = _Remat.apply(body, positions, x, aux, *leaves)
+                continue
             pc = {}
             for j, code in enumerate(plan.period_codes):
                 x, pc[f"p{j}"] = layer(sl[f"p{j}"], code, x)
+            if plan.shared_attn:
+                x, pc["shared"] = _apply_shared_block(
+                    cfg, shared_p, x, positions, collect_cache=collect_cache)
             period_caches.append(pc)
         if collect_cache:
-            caches["stack"] = tree_map(lambda *xs: torch.stack(xs),
-                                       *period_caches)
+            caches["stack"] = _stack_caches(period_caches)
     for p, code in zip(params["rem"], plan.rem_codes):
         x, c = layer(p, code, x)
         caches["rem"].append(c)
@@ -344,6 +454,10 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
 
 def _mixer_cache_spec(cfg: ModelConfig, code: str, batch: int, max_seq: int,
                       dtype, device):
+    if code == "M":
+        return ssm.mamba1_state_init(cfg, batch, dtype, device)
+    if code == "M2":
+        return ssm.mamba2_state_init(cfg, batch, dtype, device)
     if code == "L":
         return {
             "ckv": torch.zeros((batch, max_seq, cfg.kv_lora), dtype=dtype,
@@ -360,8 +474,9 @@ def _mixer_cache_spec(cfg: ModelConfig, code: str, batch: int, max_seq: int,
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, *, device: DeviceLike = None):
-    """Cache tree for decode: one entry per layer. ``device`` ``None``
-    means ``cuda``; ``"meta"`` gives shapes and dtypes alone."""
+    """Cache tree for decode: one entry per layer (+ the hybrid's shared
+    block's KV slots, one a period). ``device`` ``None`` means ``cuda``;
+    ``"meta"`` gives shapes and dtypes alone."""
     check_supported(cfg)
     dev = resolve_device(device)
     if isinstance(dtype, str):
@@ -369,28 +484,40 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     plan = make_plan(cfg)
     codes = (plan.lead_codes + plan.period_codes * plan.n_periods
              + plan.rem_codes)
-    return {"layers": tuple(
+    cache: Dict[str, Any] = {"layers": tuple(
         _mixer_cache_spec(cfg, code, batch, max_seq, dtype, dev)
         for code in codes)}
+    if plan.shared_attn:
+        shp = (batch, max_seq, cfg.n_kv, cfg.hd)
+        cache["shared"] = tuple(
+            {"k": torch.zeros(shp, dtype=dtype, device=dev),
+             "v": torch.zeros(shp, dtype=dtype, device=dev)}
+            for _ in range(plan.n_periods))
+    return cache
 
 
 def _layer_param_at(params: Params, plan: LayerPlan,
-                    idx: int) -> Tuple[Params, str]:
-    """Layer params + code for flat layer index (decode path)."""
+                    idx: int) -> Tuple[Params, str, bool]:
+    """Layer params + code for flat layer index (decode path), and
+    whether the layer ends a period."""
     nl = len(plan.lead_codes)
     if idx < nl:
-        return params["lead"][idx], plan.lead_codes[idx]
+        return params["lead"][idx], plan.lead_codes[idx], False
     idx -= nl
     per = len(plan.period_codes)
     if idx < plan.n_periods * per:
         i, j = divmod(idx, per)
         return (tree_map(lambda x: x[i], params["stack"][f"p{j}"]),
-                plan.period_codes[j])
+                plan.period_codes[j], j == per - 1)
     idx -= plan.n_periods * per
-    return params["rem"][idx], plan.rem_codes[idx]
+    return params["rem"][idx], plan.rem_codes[idx], False
 
 
 def _decode_mixer(cfg, code, p, x1, cache, pos):
+    if code == "M":
+        return ssm.mamba1_decode(cfg, p, x1, cache)
+    if code == "M2":
+        return ssm.mamba2_decode(cfg, p, x1, cache)
     if code == "L":
         out, nckv, nkrope = mla_mod.mla_decode(
             cfg, p, x1, cache["ckv"], cache["krope"], pos)
@@ -400,6 +527,16 @@ def _decode_mixer(cfg, code, p, x1, cache, pos):
         cfg, p, x1, cache["k"], cache["v"], pos,
         window=w if (w > 0 and cache["k"].shape[1] == w) else 0)
     return out, {"k": nk, "v": nv}
+
+
+def _decode_shared_block(cfg, p, x, slot, pos):
+    """The hybrid's shared block on one token against its KV slot.
+    Returns (x, new slot)."""
+    h = apply_norm(cfg, p["norm1"], x)
+    out, slot = _decode_mixer(cfg, "A", p["attn"], h, slot, pos)
+    x = x + out
+    x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+    return x, slot
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, Any],
@@ -413,13 +550,23 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, Any],
     x = embed_tokens(params["embed"], token[:, None]).to(dtype_of(cfg.dtype))
     pos = attn.pos_tensor(pos, x.device)
     new_layers = []
+    new_shared = list(cache.get("shared", ()))
+    per = len(plan.period_codes)
+    n_lead = len(plan.lead_codes)
     for idx in range(plan.n_layers):
-        p, code = _layer_param_at(params, plan, idx)
+        p, code, period_end = _layer_param_at(params, plan, idx)
         h = apply_norm(cfg, p["norm1"], x)
         mix, nc = _decode_mixer(cfg, code, p["mixer"], h,
                                 cache["layers"][idx], pos)
         new_layers.append(nc)
         x, _ = _apply_ffn(cfg, p, x + mix)
+        if plan.shared_attn and period_end:
+            app = (idx - n_lead) // per
+            x, new_shared[app] = _decode_shared_block(
+                cfg, params["shared_attn"], x, new_shared[app], pos)
     x = apply_norm(cfg, params["final_norm"], x)
     logits = unembed(params["embed"], x)[:, 0]
-    return logits, {"layers": tuple(new_layers)}
+    new_cache: Dict[str, Any] = {"layers": tuple(new_layers)}
+    if plan.shared_attn:
+        new_cache["shared"] = tuple(new_shared)
+    return logits, new_cache

@@ -10,11 +10,12 @@ gradient stream of every step goes through the ``packet_reduce``
 kernel on the card, and through ``dropfill``'s error-feedback form when
 ``error_feedback`` is on.
 
-``lm_trainer`` takes any ported transformer config: dense, VLM or MoE
-(mixtral-8x22b, deepseek-v2), in float32 or in bfloat16, the configs'
-own dtype. The gradient stream is float32 whatever the model's dtype,
-and the reduced stream goes back to each leaf's dtype before the
-update (a bfloat16 model's norm scales and MoE router stay float32).
+``lm_trainer`` takes any ported decoder config: dense, VLM, MoE
+(mixtral-8x22b, deepseek-v2) or SSM (falcon-mamba-7b; the zamba2-7b
+hybrid), in float32 or in bfloat16, the configs' own dtype. The
+gradient stream is float32 whatever the model's dtype, and the reduced
+stream goes back to each leaf's dtype before the update (a bfloat16
+model's norm scales, MoE router and SSM constants stay float32).
 
 ``data_vocab`` draws the tokens from a smaller corpus than the model's
 vocab: ``SyntheticLM`` builds dense vocab x vocab float64 tables, 19.3

@@ -1,13 +1,15 @@
 """bfloat16, the configs' own dtype: the port against the JAX package on
-the CPU at REDUCED smollm-360m (dense) and REDUCED mixtral-8x22b (MoE),
-from the same bfloat16 params (``params_from_numpy`` carries JAX's
+the CPU at REDUCED smollm-360m (dense), mixtral-8x22b (MoE),
+falcon-mamba-7b (Mamba-1) and zamba2-7b (Mamba-2 and the shared
+attention block), from the same bfloat16 params (``params_from_numpy`` carries JAX's
 bfloat16 leaves bit for bit, and its float32 leaves, the norm scales and
 the MoE router, as float32).
 
 Tolerances, set from the readings at these seeds with room on both
 sides. The losses agree within 4e-5 relative and every leaf's grad
 within a relative L2 distance of 0.017 (the router's; bfloat16 rounds
-each op by up to 2^-9, in another order in each package). So the loss
+each op by up to 2^-9, in another order in each package); the SSM archs
+read 2.6e-5 / 0.012 (falcon-mamba) and 7.3e-5 / 0.019 (zamba2). So the loss
 is held to rtol 1e-3 and the grads to 3e-2. Dropping the ``0.01 * aux``
 term moves the loss by 3.5e-3 and the router's grad by 0.30, and a
 control test shows that both bounds catch it. The router itself, given
@@ -43,7 +45,7 @@ from repro_torch.models import build, moe
 from repro_torch.train.lm import lm_trainer
 from repro_torch.tree import tree_leaves
 
-ARCHS = ["smollm_360m", "mixtral_8x22b"]
+ARCHS = ["smollm_360m", "mixtral_8x22b", "falcon_mamba_7b", "zamba2_7b"]
 W, BATCH, SEQ, STEPS = 4, 8, 16, 2
 LOSS_RTOL, GRAD_REL_L2 = 1e-3, 3e-2
 

@@ -5,16 +5,17 @@ written like ``examples/train_lm.py``, and its serve loop
 
 Training runs at the example's ``--tiny`` model (2 layers, d_model 128,
 vocab 512), and with SGD-momentum also at the REDUCED mixtral-8x22b and
-deepseek-v2 (MoE, MLA), on 4 workers, batch 8, seq 16, 3 steps, both
-from the JAX init of seed 0. ``step``, ``bst`` and ``sim_time`` come
+deepseek-v2 (MoE, MLA), falcon-mamba-7b and zamba2-7b (Mamba-1; Mamba-2
+with the shared attention block), on 4 workers, batch 8, seq 16, 3
+steps, both from the JAX init of seed 0. ``step``, ``bst`` and ``sim_time`` come
 from the numpy transport model and agree exactly, ``delivered`` within rtol 1e-6 (a
 float32 mean of the same {0, 1} masks summed in another order); losses
 agree within rtol 1e-4. Params are compared (rtol 2e-4 / atol 2e-5) on
 SGD-momentum runs only: AdamW's first update is about lr * sign(g), so
 an element whose 4-worker sum lies within rounding of zero moves by
 2 * lr between the two packages, a difference that says nothing about
-the port. Greedy decode of REDUCED smollm, mixtral-8x22b and deepseek-v2
-gives the same tokens."""
+the port. Greedy decode of REDUCED smollm, mixtral-8x22b, deepseek-v2,
+falcon-mamba-7b and zamba2-7b gives the same tokens."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -114,11 +115,17 @@ def test_train_lm_adamw_matches_jax_loop():
     pytest.param("deepseek_v2_236b", {}, False, id="deepseek-paper"),
     pytest.param("deepseek_v2_236b", EF, True,
                  id="deepseek-count_ef_chunk1"),
+    pytest.param("falcon_mamba_7b", {}, False, id="falcon-mamba-paper"),
+    pytest.param("falcon_mamba_7b", EF, True,
+                 id="falcon-mamba-count_ef_chunk1"),
+    pytest.param("zamba2_7b", {}, False, id="zamba2-paper"),
+    pytest.param("zamba2_7b", EF, True, id="zamba2-count_ef_chunk1"),
 ])
 def test_lm_trainer_sgdm_params_match_jax_loop(arch, ltp_kw, chunked,
                                                 monkeypatch):
     """``arch``: the REDUCED config of an MoE arch (its loss carries 0.01
-    aux) in place of the example's tiny model. ``chunked``: the fused
+    aux) or of an SSM arch (Mamba-1; Mamba-2 with the shared block) in
+    place of the example's tiny model. ``chunked``: the fused
     step takes its workers one vmap at a time, as it does for models of
     more than 3 x 2^29 / W floats."""
     if chunked:
@@ -139,8 +146,12 @@ def test_lm_trainer_sgdm_params_match_jax_loop(arch, ltp_kw, chunked,
     _same_transport(tr.history, jtr.history)
     got, want = tree_leaves(tr.params), jax.tree.leaves(jtr.params)
     assert len(got) == len(want)
-    assert len(got) == 11 if arch is None else \
-        "moe" in tr.params["stack"]["p0"]
+    if arch is None:
+        assert len(got) == 11
+    elif cfg.n_experts:
+        assert "moe" in tr.params["stack"]["p0"]
+    else:
+        assert {"A_log", "A_log_m2"} & set(tr.params["stack"]["p0"]["mixer"])
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-4,
                                    atol=2e-5)
@@ -202,4 +213,11 @@ def test_serve_greedy_tokens_match_jax():
 def test_serve_greedy_tokens_match_jax_moe(arch):
     """MoE decode: each step routes the batch's 4 tokens (no token is
     dropped at a capacity of 8); deepseek-v2 decodes by absorbed MLA."""
+    _serve_both(arch)
+
+
+@pytest.mark.parametrize("arch", ["falcon_mamba_7b", "zamba2_7b"])
+def test_serve_greedy_tokens_match_jax_ssm(arch):
+    """SSM decode: each step updates the Mamba states; zamba2's shared
+    block attends over its own KV slot."""
     _serve_both(arch)
