@@ -155,15 +155,34 @@ From the root of a checkout it:
     periods: the shared block decodes against two KV slots), decode
     against one forward over the prompt within 1e-5 of the largest
     logit (the ``ssm_serve`` line);
-16. prints a ``kernels`` JSON line (dropfill's entry with its EF form's
+16. drives the enc-dec path, trained (``run_encdec_phase``):
+    ``whisper_small``'s CONFIG at full depth and width in bfloat16 (12
+    encoder + 12 decoder layers, d_model 768, 1,500 frames, vocab
+    51,865: 278,098,944 parameters, 772,498 packets) on the LM phase's
+    setup, 3 steps through the kernels: one packet_reduce launch a
+    step, step 1 near ln V plus the random head's logit variance over
+    2, the first reduced stream against the plain route; peak memory,
+    host ms a step, tokens/s, one profiled step with the host and device
+    time inside the ``encoder`` span; then the stream's packet_reduce
+    checked and timed with the model freed (the ``encdec`` line);
+17. serves it from its encoder (``run_encdec_serve_phase``, float32,
+    batch 4, frames (4, 1500, 768), a 16-token prompt, 24 new tokens,
+    twice): ``prefill`` fills each decoder layer's cross K/V, placed in
+    an ``init_cache``; the prompt decoded token by token, then greedily;
+    decode against ``decode_train`` over the prompt and ``prefill``'s
+    logits against the last prompt step's, within 1e-5 of the largest
+    logit (the ``encdec_serve`` line);
+18. prints a ``kernels`` JSON line (dropfill's entry with its EF form's
     numbers beside the plain gate's, packet_reduce's with its des16
     shape's, whose launches are counted there alone, and both with
-    their LM shape's under ``lm``, packet_reduce also with its MoE and
-    SSM shapes' under ``moe``, ``ssm`` and ``hybrid``, whose launches
-    are counted there alone) and, last, the device JSON line.
+    their LM shape's under ``lm``, packet_reduce also with its MoE,
+    SSM and enc-dec shapes' under ``moe``, ``ssm``, ``hybrid`` and
+    ``whisper``, whose launches are counted there alone) and, last, the
+    device JSON line.
 
 Every LM path trains with remat (``loss_fn``'s default): each stacked
-period is recomputed in the backward.
+period, and each layer of whisper's two stacks, is recomputed in the
+backward.
 
 TF32 is switched off for cuDNN convolutions and matmuls for the whole
 run, so that float32 comparisons compare float32 arithmetic. Any
@@ -1804,7 +1823,9 @@ def train_and_check(torch, zero_counts, read_counts, launches_of, label,
     (``capture_first_reduction``) within 1e-6 of its largest element.
     Fills ``line`` with host ms a step (``StampedBatch``), tokens/s and
     peak device memory, then one more step profiled (with ``span``, the
-    host and device time inside that span, under ``scan_span``). Returns
+    host and device time inside that span, under ``span_profile``). An
+    enc-dec config's batches carry ``train.lm.audio_frames``, the profiled
+    step's too. Returns
     (``line``, the launches of the counted run, the plan's (W,
     n_packets, payload))."""
     from repro_torch.config import LTPConfig
@@ -1812,7 +1833,7 @@ def train_and_check(torch, zero_counts, read_counts, launches_of, label,
     from repro_torch.data import SyntheticLM
     from repro_torch.models import build
     from repro_torch.runtime import step as stp
-    from repro_torch.train.lm import lm_trainer
+    from repro_torch.train.lm import audio_frames, lm_trainer
     from repro_torch.tree import tree_leaves
 
     torch.cuda.reset_peak_memory_stats()
@@ -1873,6 +1894,8 @@ def train_and_check(torch, zero_counts, read_counts, launches_of, label,
     # the counted run are released
     batch = SyntheticLM(vocab=LM_DATA_VOCAB, seed=0).train_batch(
         tc.batch, tc.seq, tc.steps)
+    if cfg.family == "audio":
+        batch["frames"] = audio_frames(cfg, tc.batch, 0, tc.steps)
     del data
     gc.collect()
     torch.cuda.empty_cache()
@@ -1885,7 +1908,7 @@ def train_and_check(torch, zero_counts, read_counts, launches_of, label,
         if not sp["count"] or not sp["n_kernels"]:
             raise AssertionError(f"{label}: no {span!r} work in the "
                                  f"profiled step: {sp}")
-        line["scan_span"] = {**sp, "share_of_device_busy": sp["device_ms"]
+        line["span_profile"] = {**sp, "share_of_device_busy": sp["device_ms"]
                              / prof["device_busy_ms"]}
     shape = (workers, plan.n_packets, plan.packet_floats)
     del tr, batch
@@ -2142,6 +2165,163 @@ def run_ssm_serve_phase(torch, batch=4, prompt_len=16, new=24,
     return line
 
 
+# the enc-dec family: whisper-small at its full published config trained
+# over the LTP PS, then served from its encoder's cross-attention cache
+ENCDEC_STEPS = 3
+
+
+def run_encdec_phase(torch, zero_counts, read_counts, launches_of, *,
+                     device="cuda"):
+    """The enc-dec path, trained: ``whisper_small``'s CONFIG at full depth
+    and width in bfloat16, its own dtype (12 encoder and 12 decoder layers
+    of d_model 768, 12 heads of 64, d_ff 3072, vocab 51,865 padded to
+    51,968 untied, 1,500 frames): 278,098,944 parameters.
+    ``train_and_check`` on the LM phase's setup, that of
+    ``examples/train_lm.py``: W = 8, batch 32 x seq 128 (under whisper's
+    448-token decoder window), AdamW lr 3e-4, paper compensation, data
+    from ``SyntheticLM(vocab=8192)`` (the dense tables at 51,865 would
+    take 21.5 GB each) and frames from ``train.lm.audio_frames`` (the
+    mel + conv frontend is a stub, as in the reference); remat on, as
+    ``loss_fn`` defaults; ``ENCDEC_STEPS`` steps. Step 1 is expected at
+    ln V + s^2 / 2 (no aux term): the untied head after a unit-variance
+    LayerNorm. The profiled step reports the host and device time inside
+    the ``encoder`` span (the encoder's forward and, under remat, each
+    encoder layer's backward). Returns (the line, the launches of the
+    counted run, the plan's (W, n_packets, payload))."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.models.encdec import ENCODER_SPAN
+
+    cfg = get_config("whisper_small")
+    line = {"config": {k: getattr(cfg, k) for k in (
+        "name", "family", "encoder_layers", "n_layers", "d_model",
+        "n_heads", "n_kv", "head_dim", "d_ff", "vocab", "encoder_frames",
+        "norm_type", "mlp_type", "tie_embeddings", "dtype")},
+        "reduced": [f"data: SyntheticLM(vocab={LM_DATA_VOCAB})",
+                    "frames: synthetic, 0.02 x N(0, 1) (the mel + conv "
+                    "frontend is a stub, as in the reference)"],
+        "workers": LM_W, "batch": LM_BATCH, "seq": LM_SEQ,
+        "optimizer": "adamw", "lr": 3e-4, "remat": True,
+        "span": ENCODER_SPAN}
+    tc = TrainConfig(batch=LM_BATCH, seq=LM_SEQ, lr=3e-4,
+                     optimizer="adamw", steps=ENCDEC_STEPS)
+    expect = math.log(cfg.vocab) + 0.5 * 0.02 ** 2 * cfg.d_model
+    line, launches, shape = train_and_check(
+        torch, zero_counts, read_counts, launches_of, "encdec", cfg, line,
+        tc, LM_W, expect, span=ENCODER_SPAN, device=device)
+    if line["n_params"] != 278_098_944:
+        raise AssertionError(f"encdec: {line['n_params']} parameters")
+    return line, launches, shape
+
+
+def run_encdec_serve_phase(torch, batch=4, prompt_len=16, new=24,
+                           device="cuda"):
+    """The enc-dec path, served from its encoder: ``whisper_small``'s
+    CONFIG at float32, full depth, weights from a generator on the card
+    seeded with 0; frames (4, 1500, 768) at 0.02 x N(0, 1) and a 16-token
+    prompt from one seeded with 1. Twice (the first run pays the card's
+    warm-up): ``encode`` alone, timed; ``prefill`` over the frames and the
+    prompt, which runs the encoder and gives each decoder layer's cross
+    K/V, (12, 4, 1500, 12, 64) each; those cross K/V placed in an
+    ``init_cache(4, 40, float32)`` (the reference's prefill cache is only
+    as long as the prompt and holds no self K/V); the prompt decoded token
+    by token, then 24 new tokens greedily. The composition is this
+    phase's, out of the API's own calls.
+
+    Checks: finite logits of shape (4, 51,968); the prompt's decode
+    logits against one ``decode_train(prompt, encode(frames))``, and
+    ``prefill``'s logits against the last prompt position's decode
+    logits, each within 1e-5 of the largest logit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build, encdec
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("whisper_small").replace(dtype="float32")
+    api = build(cfg)
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator(device=device).manual_seed(0),
+                      device=device)
+    torch.cuda.synchronize()
+    line = {"n_layers": [cfg.encoder_layers, cfg.n_layers],
+            "init_s": time.perf_counter() - t0, "batch": batch,
+            "prompt_len": prompt_len, "new": new, "runs": []}
+    gen = torch.Generator(device=device).manual_seed(1)
+    frames = torch.randn((batch, cfg.encoder_frames, cfg.d_model),
+                         generator=gen, device=device) * 0.02
+    prompt = torch.randint(0, cfg.vocab, (batch, prompt_len),
+                           generator=gen, device=device)
+    max_seq = prompt_len + new
+    with torch.no_grad():
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            enc_out = encdec.encode(cfg, params, frames)
+            torch.cuda.synchronize()
+            encoder_s = time.perf_counter() - t0
+            first, pc = api.prefill(params, {"frames": frames,
+                                             "tokens": prompt})
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0 - encoder_s
+            cache = api.init_cache(batch, max_seq, torch.float32,
+                                   device=device)
+            cache["cross_k"], cache["cross_v"] = pc["cross_k"], pc["cross_v"]
+            t0 = time.perf_counter()
+            prompt_logits = []
+            for t in range(prompt_len):
+                logits, cache = api.decode_step(params, cache, prompt[:, t],
+                                                t)
+                prompt_logits.append(logits)
+            torch.cuda.synchronize()
+            prompt_s = time.perf_counter() - t0
+            tok = torch.argmax(logits[:, : cfg.vocab], dim=-1)
+            out = [tok]
+            t0 = time.perf_counter()
+            for i in range(new - 1):
+                logits, cache = api.decode_step(params, cache, tok,
+                                                prompt_len + i)
+                tok = torch.argmax(logits[:, : cfg.vocab], dim=-1)
+                out.append(tok)
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t0
+            line["runs"].append({
+                "encoder_s": encoder_s, "prefill_s": prefill_s,
+                "prompt_decode_s": prompt_s, "decode_s": decode_s,
+                "tokens_per_s": batch * (new - 1) / decode_s})
+        pl = torch.stack(prompt_logits, dim=1)
+        full = encdec.decode_train(cfg, params, prompt, enc_out)
+    kv_shape = (cfg.n_layers, batch, cfg.encoder_frames, cfg.n_kv, cfg.hd)
+    if tuple(pc["cross_k"].shape) != kv_shape or \
+            tuple(pc["cross_v"].shape) != kv_shape:
+        raise AssertionError(f"encdec_serve: cross K/V {pc['cross_k'].shape}")
+    if tuple(pl.shape) != (batch, prompt_len, cfg.vocab_padded) or \
+            tuple(first.shape) != (batch, cfg.vocab_padded) or \
+            not bool(torch.isfinite(pl).all()) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"encdec_serve: bad output {pl.shape} "
+                             f"{first.shape}")
+    top = full.abs().max().item()
+    diff = (pl - full).abs().max().item()
+    diff_prefill = (first - pl[:, -1]).abs().max().item()
+    tol = "1e-5 of the largest logit"
+    if not diff <= 1e-5 * top:
+        raise AssertionError(f"encdec_serve: decode vs decode_train {diff} "
+                             f"of {top} ({tol})")
+    if not diff_prefill <= 1e-5 * top:
+        raise AssertionError(f"encdec_serve: prefill vs decode "
+                             f"{diff_prefill} of {top} ({tol})")
+    line.update(
+        n_params=sum(x.numel() for x in tree_leaves(params)),
+        cross_kv_shape=list(kv_shape),
+        decode_vs_decode_train_max_abs_diff=diff,
+        prefill_vs_decode_max_abs_diff=diff_prefill, logits_max_abs=top,
+        tol=tol, checked=f"{batch} x {prompt_len} tokens",
+        tokens_first_2=torch.stack(out, 1)[:2].tolist())
+    del params, pc, cache, enc_out, full, pl
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
 def main() -> int:
     import torch
 
@@ -2354,13 +2534,28 @@ def main() -> int:
         torch.cuda.empty_cache()
     print("ssm_serve " + json.dumps(run_ssm_serve_phase(torch)))
 
+    # the enc-dec family: whisper-small at its full published config
+    # trained over the LTP PS in bfloat16, its stream then checked and
+    # timed with the model freed; served from its encoder's cross K/V
+    gc.collect()
+    torch.cuda.empty_cache()
+    encdec_line, encdec_launches, encdec_shape = run_encdec_phase(
+        torch, zero_counts, read_counts, launches_of)
+    print("encdec " + json.dumps(encdec_line))
+    encdec_kernel = check_lm_kernels(torch, timer, *encdec_shape,
+                                     ef=False)["packet_reduce"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("encdec_serve " + json.dumps(run_encdec_serve_phase(torch)))
+
     # tree_reduce is on no training path: its count is the check calls'
     by_path = {
         "lockstep": [r[2] for r in runs.values()],
         "Fig 5": [r["launches"] for r in fig5.values()],
         "runtime": rt_launches, "des": des_launches, "Fig 13": tta_launches,
         "des16": nf_launches, "lm": lm_launches, "moe": [moe_launches],
-        **{name: [n] for name, n in ssm_launches.items()}}
+        **{name: [n] for name, n in ssm_launches.items()},
+        "encdec": [encdec_launches]}
     path_launches = {name: {path: sum(r[name] for r in rs)
                             for path, rs in by_path.items()}
                      for name in counters}
@@ -2384,6 +2579,11 @@ def main() -> int:
         if ssm_path[path] != launches_of(packet_reduce=SSM_STEPS):
             raise AssertionError(f"the {path} path launched "
                                  f"{ssm_path[path]}")
+    # and the enc-dec path at its stream
+    encdec_path = {name: path_launches[name].pop("encdec")
+                   for name in counters}
+    if encdec_path != launches_of(packet_reduce=ENCDEC_STEPS):
+        raise AssertionError(f"the encdec path launched {encdec_path}")
     main_launches = {name: sum(path_launches[name].values())
                      for name in counters}
     if main_launches["tree_reduce"] != 0:
@@ -2455,6 +2655,13 @@ def main() -> int:
                         **{k: row[k] for k in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
                             "bound_by", "library_ms")}}
+                e["whisper"] = {
+                    "shape": encdec_kernel["shape"], "form": "paper",
+                    "launches": encdec_path["packet_reduce"],
+                    "launches_from": "main paths: encdec",
+                    **{k: encdec_kernel[k] for k in (
+                        "max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms", "library_call")}}
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

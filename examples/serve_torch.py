@@ -2,10 +2,12 @@
 decode with the KV-cache serve path.
 
 The twin of ``examples/serve.py`` on ``repro_torch``
-(``train.serve.serve``), for any ported decoder's REDUCED config at
-float32 (``--arch``: smollm_360m, mixtral_8x22b, deepseek_v2_236b,
-falcon_mamba_7b, zamba2_7b, ...). Runs on the CUDA card unless
-``--device cpu`` is given.
+(``train.serve.serve``), for any ported LM's REDUCED config at float32
+(``--arch``: smollm_360m, mixtral_8x22b, deepseek_v2_236b,
+falcon_mamba_7b, zamba2_7b, whisper_small, ...). Like the reference
+example, it decodes whisper against ``init_cache``'s cross K/V, which
+no encoder has filled. Runs on the CUDA card unless ``--device cpu`` is
+given.
 
   PYTHONPATH=src python examples/serve_torch.py [--arch smollm_360m] [--new 24] [--device cpu]
 """

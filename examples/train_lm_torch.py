@@ -6,14 +6,16 @@ The twin of ``examples/train_lm.py`` on ``repro_torch``
 on the synthetic bigram corpus, AdamW, the Early Close controller and
 packet masks; a checkpoint is written at the end. ``--arch`` trains a
 ported architecture's REDUCED config instead (``mixtral_8x22b``,
-``deepseek_v2_236b``, ``falcon_mamba_7b`` and ``zamba2_7b`` among them)
-at its own dtype, bfloat16. Runs on
+``deepseek_v2_236b``, ``falcon_mamba_7b``, ``zamba2_7b`` and the enc-dec
+``whisper_small``, fed synthetic frames, among them) at its own dtype,
+bfloat16. Runs on
 the CUDA card (the PS reduction goes through the hand-written kernels)
 unless ``--device cpu`` is given.
 
   PYTHONPATH=src python examples/train_lm_torch.py --steps 300 [--tiny] [--device cpu]
   PYTHONPATH=src python examples/train_lm_torch.py --arch mixtral_8x22b [--device cpu]
   PYTHONPATH=src python examples/train_lm_torch.py --arch falcon_mamba_7b|zamba2_7b [--device cpu]
+  PYTHONPATH=src python examples/train_lm_torch.py --arch whisper_small [--device cpu]
 """
 import argparse
 import time

@@ -6,15 +6,15 @@ backbone (qwen2-vl, M-RoPE and a patch-embedding stub), the MoE family
 (mixtral's 8 experts under sliding-window attention, deepseek-v2's MLA
 with 160 routed and 2 shared experts after a dense lead layer) and the
 SSM family (falcon-mamba's Mamba-1 layers; zamba2's Mamba-2 layers with
-one shared attention block). The JAX package's enc-dec architecture,
-whisper_small, waits for the port of its model, named with its
-ROADMAP.md item (queue 1, item 12e). Each submodule exposes ``CONFIG``
-(the full-size config) and ``REDUCED`` (a smoke variant).
+one shared attention block) and the enc-dec family (whisper-small's
+encoder over stubbed audio frames and its decoder with cross-attention).
+Each submodule exposes ``CONFIG`` (the full-size config) and ``REDUCED``
+(a smoke variant).
 """
 from __future__ import annotations
 
 import importlib
-from typing import Dict, List
+from typing import List
 
 from repro_torch.config import ModelConfig
 
@@ -28,14 +28,9 @@ ARCH_IDS: List[str] = [
     "deepseek_v2_236b",
     "falcon_mamba_7b",
     "zamba2_7b",
+    "whisper_small",
     "papernet",
 ]
-
-# the JAX package's other architectures, by the ROADMAP.md item that
-# ports the model they need
-NOT_PORTED: Dict[str, str] = {
-    "whisper_small": "12e (encdec.py)",
-}
 
 _ALIASES = {
     "yi-34b": "yi_34b",
@@ -58,12 +53,8 @@ def _norm(name: str) -> str:
 def _module(name: str):
     arch = _norm(name)
     if arch not in ARCH_IDS:
-        item = NOT_PORTED.get(arch)
-        where = (f"see ROADMAP.md, queue 1 item {item}" if item else
-                 "no such architecture")
-        raise KeyError(
-            f"{name!r} is not ported to repro_torch (ported: "
-            f"{', '.join(ARCH_IDS)}); {where}")
+        raise KeyError(f"{name!r}: no such architecture (known: "
+                       f"{', '.join(ARCH_IDS)})")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 

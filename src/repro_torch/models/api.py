@@ -1,10 +1,10 @@
 """Model API: the same callable surface per architecture, and input specs.
 
 ``build(cfg)`` returns a ModelApi with the same callable surface for
-every ported family: ``cnn`` (papernet) and the decoder-only
-transformers, ``dense``, ``vlm``, ``moe`` (MoE layers, and MLA for
-deepseek-v2), ``ssm`` (falcon-mamba) and ``hybrid`` (zamba2). The
-enc-dec family (``audio``) waits for ROADMAP.md queue 1 item 12e.
+every family: ``cnn`` (papernet), the decoder-only transformers,
+``dense``, ``vlm``, ``moe`` (MoE layers, and MLA for deepseek-v2),
+``ssm`` (falcon-mamba) and ``hybrid`` (zamba2), and the enc-dec
+``audio`` (whisper, whose ``forward`` is ``None``, as in the reference).
 ``input_specs(cfg, shape)`` returns meta tensors (shapes
 and dtypes, nothing allocated) for each step kind:
 
@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import cnn, transformer
+from repro_torch.models import cnn, encdec, transformer
 from repro_torch.models.layers import dtype_of
 from repro_torch.shapes import InputShape
 from repro_torch.tree import tree_map_with_path
@@ -41,9 +41,8 @@ class ModelApi:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family == "cnn":
+    if cfg.family in ("cnn", "audio"):
         return
-    # the enc-dec family raises here, naming its item
     transformer.check_supported(cfg)
     if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
         raise ValueError(f"unknown model family {cfg.family!r}")
@@ -70,6 +69,16 @@ def build(cfg: ModelConfig) -> ModelApi:
             prefill=None,
             decode_step=None,
             init_cache=None,
+        )
+    if cfg.family == "audio":
+        return ModelApi(
+            cfg=cfg,
+            init=functools.partial(encdec.init, cfg=cfg),
+            loss_fn=functools.partial(encdec.loss_fn, cfg),
+            forward=None,
+            prefill=functools.partial(encdec.prefill, cfg),
+            decode_step=functools.partial(encdec.decode_step, cfg),
+            init_cache=functools.partial(encdec.init_cache, cfg),
         )
     return ModelApi(
         cfg=cfg,
@@ -136,10 +145,19 @@ def input_specs(cfg: ModelConfig, shape: InputShape) -> Dict[str, Any]:
 
     if shape.kind == "decode":
         return {
-            "cache": transformer.init_cache(cfg, b, s, dt, device="meta"),
+            "cache": build(cfg).init_cache(b, s, dt, device="meta"),
             "token": _meta((b,), torch.int32),
             "pos": _meta((), torch.int32),
         }
+
+    if cfg.family == "audio":
+        specs = {
+            "frames": _meta((b, cfg.encoder_frames, cfg.d_model), dt),
+            "tokens": _meta((b, s), torch.int32),
+        }
+        if shape.kind == "train":
+            specs["labels"] = _meta((b, s), torch.int32)
+        return specs
 
     n_patch, n_text = _token_split(cfg, s)
     specs: Dict[str, Any] = {"tokens": _meta((b, n_text), torch.int32)}

@@ -41,16 +41,17 @@ own cache shape (ring buffers for 'W' layers, latent caches for 'L',
 SSM states for 'M' / 'M2'). A prefill of an SSM layer returns the
 ``None`` cache, as the reference's does.
 
-The enc-dec family (``family="audio"``, whisper) raises
-``NotImplementedError`` naming the ROADMAP.md item (queue 1) that ports
-it: 12e.
+The enc-dec family (``family="audio"``, whisper) is ``models/encdec.py``;
+its stacked layers are rematerialised by this module's ``_Remat`` too.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -73,14 +74,7 @@ from repro_torch.models.layers import (
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for the enc-dec family, which this
-    port does not cover yet, naming the ROADMAP.md item that ports it,
-    and ``ValueError`` for an unknown mixer code."""
-    if cfg.family == "audio":
-        raise NotImplementedError(
-            f"model family 'audio' ({cfg.name}) is not ported to "
-            f"repro_torch yet; see ROADMAP.md, queue 1 item 12e "
-            f"(encdec.py)")
+    """Raise ``ValueError`` for an unknown mixer code."""
     for code in dict.fromkeys(cfg.pattern_layers):
         if code not in ("A", "W", "L", "M", "M2"):
             raise ValueError(f"unknown mixer code {code!r}")
@@ -309,20 +303,25 @@ def _unstack(stack: Params, n: int) -> List[Params]:
 
 
 class _Remat(torch.autograd.Function):
-    """``body(positions, x, aux, *leaves) -> (x, aux)`` rematerialised: the
-    forward keeps only its inputs, and the backward recomputes the body
-    under ``torch.func.vjp``. ``torch.utils.checkpoint`` runs under
-    neither ``torch.func.grad`` (saved-tensor hooks) nor ``vmap``; this
-    Function runs under both, ``vmap`` through its generated rule.
-    ``positions`` is an input for ``vmap`` (a VLM's M-RoPE ids carry the
-    worker axis) and takes no grad."""
+    """``body(positions, *primals) -> tuple of tensors`` rematerialised:
+    the forward keeps only its inputs, and the backward recomputes the
+    body under ``torch.func.vjp``, giving a grad to every one of
+    ``primals`` (here the carry (x, aux) and the period's leaves; an
+    enc-dec decoder layer's also the encoder output it reads).
+    ``torch.utils.checkpoint`` runs under neither ``torch.func.grad``
+    (saved-tensor hooks) nor ``vmap``; this Function runs under both,
+    ``vmap`` through its generated rule. A tensor the body reads that is
+    not among its inputs would get no grad. ``positions`` is an input for
+    ``vmap`` (a VLM's M-RoPE ids carry the worker axis) and takes no
+    grad. A body with a ``span`` attribute runs its backward inside that
+    profiler span."""
 
     generate_vmap_rule = True
 
     @staticmethod
-    def forward(body, positions, x, aux, *leaves):
+    def forward(body, positions, *primals):
         # views: an input returned as it is cannot be saved here
-        return tuple(t.view_as(t) for t in body(positions, x, aux, *leaves))
+        return tuple(t.view_as(t) for t in body(positions, *primals))
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -331,12 +330,20 @@ class _Remat(torch.autograd.Function):
         ctx.save_for_backward(*tensors)
 
     @staticmethod
-    def backward(ctx, g_x, g_aux):
-        positions, *primals = ctx.saved_tensors
-        with torch.enable_grad():
+    def backward(ctx, *grads):
+        # detached: the grad transforms run this backward with
+        # create_graph, so a recompute on the saved tensors themselves
+        # would record into the outer graph and every layer's recomputed
+        # activations would live to the end of the backward, as if
+        # nothing were rematerialised
+        positions, *primals = (t.detach() for t in ctx.saved_tensors)
+        grads = tuple(g.detach() for g in grads)
+        span = getattr(ctx.body, "span", None)
+        with torch.enable_grad(), (record_function(span) if span else
+                                   contextlib.nullcontext()):
             _, vjp_fn = torch.func.vjp(
                 lambda *a: ctx.body(positions, *a), *primals)
-        return (None, None) + tuple(vjp_fn((g_x, g_aux)))
+        return (None, None) + tuple(vjp_fn(grads))
 
 
 def _remat_body(cfg: ModelConfig, plan: LayerPlan, slice_tree: Params,

@@ -10,9 +10,11 @@ gradient stream of every step goes through the ``packet_reduce``
 kernel on the card, and through ``dropfill``'s error-feedback form when
 ``error_feedback`` is on.
 
-``lm_trainer`` takes any ported decoder config: dense, VLM, MoE
-(mixtral-8x22b, deepseek-v2) or SSM (falcon-mamba-7b; the zamba2-7b
-hybrid), in float32 or in bfloat16, the configs' own dtype. The
+``lm_trainer`` takes any ported LM config: dense, VLM, MoE
+(mixtral-8x22b, deepseek-v2), SSM (falcon-mamba-7b; the zamba2-7b
+hybrid) or enc-dec (whisper-small, whose host batches also carry the
+stubbed frontend's frames, ``audio_frames``), in float32 or in
+bfloat16, the configs' own dtype. The
 gradient stream is float32 whatever the model's dtype, and the reduced
 stream goes back to each leaf's dtype before the update (a bfloat16
 model's norm scales, MoE router and SSM constants stay float32).
@@ -26,6 +28,8 @@ column.
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
 
 from repro_torch.checkpoint import save_checkpoint
 from repro_torch.config import LTPConfig, ModelConfig, NetConfig, TrainConfig
@@ -51,6 +55,17 @@ def lm_config(tiny: bool = False) -> ModelConfig:
     return cfg.replace(dtype="float32")
 
 
+def audio_frames(cfg: ModelConfig, batch: int, seed: int,
+                 step: int) -> np.ndarray:
+    """An enc-dec config's frames for one host batch, in place of the
+    stubbed mel + conv frontend: (batch, encoder_frames, d_model)
+    float32, 0.02 x N(0, 1), from a numpy generator seeded with
+    (``seed``, ``step``)."""
+    rng = np.random.default_rng((seed, step))
+    return rng.standard_normal((batch, cfg.encoder_frames, cfg.d_model),
+                               dtype=np.float32) * np.float32(0.02)
+
+
 def lm_trainer(cfg: ModelConfig, *, steps: int = 300, workers: int = 8,
                seq: int = 128, batch: int = 32,
                train: Optional[TrainConfig] = None,
@@ -65,7 +80,8 @@ def lm_trainer(cfg: ModelConfig, *, steps: int = 300, workers: int = 8,
     cfg.vocab, seed=0)``. ``train`` replaces
     the example's ``TrainConfig(batch, seq, lr=3e-4, optimizer="adamw",
     steps)``; ``params`` starts from a given tree (else the init from
-    ``seed``); ``device`` ``None`` means ``cuda``."""
+    ``seed``); ``device`` ``None`` means ``cuda``. An enc-dec config's
+    batches also carry ``audio_frames(cfg, batch, seed, step)``."""
     lm = corpus or SyntheticLM(vocab=data_vocab or cfg.vocab, seed=0)
     tc = train or TrainConfig(batch=batch, seq=seq, lr=3e-4,
                               optimizer="adamw", steps=steps)
@@ -76,6 +92,9 @@ def lm_trainer(cfg: ModelConfig, *, steps: int = 300, workers: int = 8,
                    params=params)
     data = [lm.train_batch(tc.batch, tc.seq, step)
             for step in range(tc.steps)]
+    if cfg.family == "audio":
+        for step, b in enumerate(data):
+            b["frames"] = audio_frames(cfg, tc.batch, seed, step)
     return tr, data
 
 

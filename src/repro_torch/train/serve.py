@@ -4,7 +4,10 @@ library function.
 The port's copy of the JAX package's ``examples/serve.py`` (``main``):
 the prompt is processed token by token through ``decode_step`` (the
 path every decoder family has), then ``new`` tokens are decoded
-greedily, one ``decode_step`` a token for the whole batch. Params come
+greedily, one ``decode_step`` a token for the whole batch. For the
+enc-dec family (whisper) that is decode against ``init_cache``'s cross
+K/V, which nothing fills, as in the reference example: an encoder-fed
+serve composes ``prefill``'s cross K/V into the cache itself. Params come
 from a CPU generator seeded with ``seed`` unless ``params`` is given,
 and prompts are drawn from it unless ``prompts`` is given.
 """

@@ -1,7 +1,8 @@
 """bfloat16, the configs' own dtype: the port against the JAX package on
 the CPU at REDUCED smollm-360m (dense), mixtral-8x22b (MoE),
-falcon-mamba-7b (Mamba-1) and zamba2-7b (Mamba-2 and the shared
-attention block), from the same bfloat16 params (``params_from_numpy`` carries JAX's
+falcon-mamba-7b (Mamba-1), zamba2-7b (Mamba-2 and the shared
+attention block) and whisper-small (enc-dec, its frames drawn as
+``lm_trainer`` draws them), from the same bfloat16 params (``params_from_numpy`` carries JAX's
 bfloat16 leaves bit for bit, and its float32 leaves, the norm scales and
 the MoE router, as float32).
 
@@ -9,7 +10,8 @@ Tolerances, set from the readings at these seeds with room on both
 sides. The losses agree within 4e-5 relative and every leaf's grad
 within a relative L2 distance of 0.017 (the router's; bfloat16 rounds
 each op by up to 2^-9, in another order in each package); the SSM archs
-read 2.6e-5 / 0.012 (falcon-mamba) and 7.3e-5 / 0.019 (zamba2). So the loss
+read 2.6e-5 / 0.012 (falcon-mamba) and 7.3e-5 / 0.019 (zamba2), whisper
+1.2e-6 / 0.0083. So the loss
 is held to rtol 1e-3 and the grads to 3e-2. Dropping the ``0.01 * aux``
 term moves the loss by 3.5e-3 and the router's grad by 0.30, and a
 control test shows that both bounds catch it. The router itself, given
@@ -42,10 +44,11 @@ from repro.train import PSTrainer as JPSTrainer
 from repro_torch.configs import get_reduced
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.models import build, moe
-from repro_torch.train.lm import lm_trainer
+from repro_torch.train.lm import audio_frames, lm_trainer
 from repro_torch.tree import tree_leaves
 
-ARCHS = ["smollm_360m", "mixtral_8x22b", "falcon_mamba_7b", "zamba2_7b"]
+ARCHS = ["smollm_360m", "mixtral_8x22b", "falcon_mamba_7b", "zamba2_7b",
+         "whisper_small"]
 W, BATCH, SEQ, STEPS = 4, 8, 16, 2
 LOSS_RTOL, GRAD_REL_L2 = 1e-3, 3e-2
 
@@ -90,6 +93,8 @@ def _loss_and_grad_gaps(arch):
     rng = np.random.default_rng(0)
     batch = {"tokens": rng.integers(0, cfg.vocab, (2, 32)).astype(np.int32),
              "labels": rng.integers(-1, cfg.vocab, (2, 32)).astype(np.int32)}
+    if cfg.family == "audio":
+        batch["frames"] = audio_frames(cfg, 2, 0, 0)
     jl, jg = jax.value_and_grad(lambda p: jbuild(jcfg).loss_fn(
         p, {k: jnp.asarray(v) for k, v in batch.items()}))(jp)
     tb = {k: torch.as_tensor(v) for k, v in batch.items()}
@@ -172,8 +177,14 @@ def test_lm_trainer_bf16_matches_jax_loop(arch):
                      protocol="ltp", compute_time=0.05, seed=0)
     init = jax.tree.map(np.asarray, api.init(jax.random.PRNGKey(0)))
     lm = JSyntheticLM(vocab=jcfg.vocab, seed=0)
-    jtr.run((lm.train_batch(BATCH, SEQ, s) for s in range(STEPS)),
-            epoch_steps=100)
+
+    def host_batch(step):
+        batch = lm.train_batch(BATCH, SEQ, step)
+        if cfg.family == "audio":
+            batch["frames"] = audio_frames(cfg, BATCH, 0, step)
+        return batch
+
+    jtr.run((host_batch(s) for s in range(STEPS)), epoch_steps=100)
 
     tr, data = lm_trainer(cfg, steps=STEPS, workers=W, seq=SEQ,
                           batch=BATCH, device="cpu",

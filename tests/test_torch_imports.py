@@ -353,8 +353,8 @@ def test_resolve_backend_rules():
 def test_runtime_engine_and_other_families_wait_for_their_port():
     """The runtime engine runs over the analytic and the packet-level
     transports, with network faults and the loss-budget controller on the
-    packet-level one only; the other model families wait for their
-    port."""
+    packet-level one only. Every model family is ported now: an unknown
+    architecture raises ``KeyError``."""
     cfg = get_config("papernet").replace(d_model=8, n_layers=3)
     tc = TrainConfig(batch=8, steps=1)
 
@@ -375,10 +375,8 @@ def test_runtime_engine_and_other_families_wait_for_their_port():
                    NetConfig(), n_workers=2, engine="runtime",
                    transport="des", device="cpu")
     assert tr._rt.net_des is not None
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("whisper_small")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(get_config("smollm_360m").replace(family="audio"))
+    with pytest.raises(KeyError, match="no such architecture"):
+        get_config("whisper_medium")
 
 
 def test_configs_stay_hashable():

@@ -15,7 +15,9 @@ SGD-momentum runs only: AdamW's first update is about lr * sign(g), so
 an element whose 4-worker sum lies within rounding of zero moves by
 2 * lr between the two packages, a difference that says nothing about
 the port. Greedy decode of REDUCED smollm, mixtral-8x22b, deepseek-v2,
-falcon-mamba-7b and zamba2-7b gives the same tokens."""
+falcon-mamba-7b, zamba2-7b and whisper-small gives the same tokens.
+REDUCED whisper-small, the enc-dec family, trains 2 steps with
+SGD-momentum against the JAX loop fed the same frames."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -36,7 +38,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.configs import get_reduced
 from repro_torch.runtime import step as stp
 from repro_torch.train import serve, train_lm
-from repro_torch.train.lm import lm_config, lm_trainer
+from repro_torch.train.lm import audio_frames, lm_config, lm_trainer
 from repro_torch.tree import tree_leaves
 
 W, BATCH, SEQ, STEPS = 4, 8, 16, 3
@@ -57,29 +59,35 @@ def _jax_cfg():
         vocab=512, dtype="float32")
 
 
-def _jax_loop(optimizer="adamw", lr=3e-4, cfg=None, **ltp_kw):
+def _jax_loop(optimizer="adamw", lr=3e-4, cfg=None, steps=STEPS,
+              **ltp_kw):
     """``examples/train_lm.py --tiny`` (or ``cfg``) at the test's sizes;
-    returns the trainer and the init it started from."""
+    returns the trainer and the init it started from. An enc-dec
+    ``cfg``'s batches also carry the frames ``lm_trainer`` draws
+    (``audio_frames``, seed 0)."""
     cfg = cfg or _jax_cfg()
     api = jbuild(cfg)
     lm = JSyntheticLM(vocab=cfg.vocab, seed=0)
     tc = JTrainConfig(batch=BATCH, seq=SEQ, lr=lr, optimizer=optimizer,
-                      steps=STEPS)
+                      steps=steps)
     tr = JPSTrainer(api, jmake_optimizer(tc), tc, JLTPConfig(**ltp_kw),
                     JNetConfig(10, 1, 0.001, 4096), n_workers=W,
                     protocol="ltp", compute_time=0.05, seed=0)
     init = jax.tree.map(np.asarray, api.init(jax.random.PRNGKey(0)))
 
     def gen():
-        for step in range(STEPS):
-            yield lm.train_batch(BATCH, SEQ, step)
+        for step in range(steps):
+            batch = lm.train_batch(BATCH, SEQ, step)
+            if cfg.family == "audio":
+                batch["frames"] = audio_frames(cfg, BATCH, 0, step)
+            yield batch
 
     tr.run(gen(), epoch_steps=100)
     return tr, init
 
 
-def _same_transport(hist, jhist):
-    assert len(hist) == len(jhist) == STEPS
+def _same_transport(hist, jhist, steps=STEPS):
+    assert len(hist) == len(jhist) == steps
     for a, b in zip(hist, jhist):
         assert (a["step"], a["bst"], a["sim_time"]) == \
             (b["step"], b["bst"], b["sim_time"])
@@ -161,6 +169,43 @@ def test_lm_trainer_sgdm_params_match_jax_loop(arch, ltp_kw, chunked,
                                    atol=2e-5)
 
 
+@pytest.mark.parametrize("ltp_kw, chunked", [
+    pytest.param({}, False, id="paper"),
+    pytest.param(EF, True, id="count_ef_chunk1"),
+])
+def test_lm_trainer_whisper_matches_jax_loop(ltp_kw, chunked, monkeypatch):
+    """The enc-dec family: REDUCED whisper-small at float32, 2 steps of
+    SGD-momentum, against the JAX loop fed the same frames; transport
+    fields, losses and params as above. Each host batch carries the
+    (batch, 64, 192) float32 frames of ``audio_frames``."""
+    if chunked:
+        monkeypatch.setattr(stp, "WORKER_CHUNK_FLOATS", 1)
+    jcfg = jget_reduced("whisper_small").replace(dtype="float32")
+    cfg = get_reduced("whisper_small").replace(dtype="float32")
+    jtr, init = _jax_loop(optimizer="sgdm", lr=0.1, cfg=jcfg, steps=2,
+                          **ltp_kw)
+    tc = TrainConfig(batch=BATCH, seq=SEQ, lr=0.1, optimizer="sgdm",
+                     steps=2)
+    tr, data = lm_trainer(cfg, workers=W, train=tc,
+                          ltp=LTPConfig(**ltp_kw), device="cpu",
+                          params=params_from_numpy(init, "cpu"))
+    assert [sorted(b) for b in data] == [["frames", "labels", "tokens"]] * 2
+    assert data[1]["frames"].shape == (BATCH, 64, 192)
+    assert data[1]["frames"].dtype == np.float32
+    assert not np.array_equal(data[0]["frames"], data[1]["frames"])
+    tr.run(data, epoch_steps=100)
+    _same_transport(tr.history, jtr.history, steps=2)
+    got, want = tree_leaves(tr.params), jax.tree.leaves(jtr.params)
+    assert len(got) == len(want) == 32
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-4,
+                                   atol=2e-5)
+    if ltp_kw:
+        np.testing.assert_allclose(tr.residual.numpy(),
+                                   np.asarray(jtr.residual), rtol=2e-4,
+                                   atol=2e-5)
+
+
 def test_lm_trainer_feeds_a_smaller_corpus():
     """``data_vocab`` draws tokens from a smaller corpus; the model keeps
     its vocab."""
@@ -221,3 +266,10 @@ def test_serve_greedy_tokens_match_jax_ssm(arch):
     """SSM decode: each step updates the Mamba states; zamba2's shared
     block attends over its own KV slot."""
     _serve_both(arch)
+
+
+def test_serve_greedy_tokens_match_jax_encdec():
+    """Enc-dec decode, as ``examples/serve.py`` serves whisper: against
+    ``init_cache``'s cross K/V, which nothing fills (zero keys and
+    values: each cross-attention adds ``0 @ wo``)."""
+    _serve_both("whisper_small")

@@ -12,7 +12,9 @@ lead layer outside it), Mamba-1 (falcon-mamba) and the hybrid (zamba2:
 the shared block inside each period, its grad summed over the periods).
 Against JAX's ``loss_fn(remat=True)`` (``jax.checkpoint``) at the
 transformer harness's bounds: loss rtol 1e-5, grads rtol 1e-4 / atol
-1e-6."""
+1e-6. The grads each ``_Remat.backward`` returns carry no graph (the
+enc-dec family, whisper, included), so no recomputed activation outlives
+its layer's backward."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -201,3 +203,37 @@ def test_remat_sums_the_shared_blocks_grad_over_periods(monkeypatch):
     for a, b in zip(grads[True], jax.tree.leaves(jg["shared_attn"])):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4,
                                    atol=1e-6)
+
+
+@pytest.mark.parametrize("arch", ["smollm_360m", "zamba2_7b",
+                                  "whisper_small"])
+def test_remat_backward_keeps_no_graph(arch, monkeypatch):
+    """Under ``vmap(grad_and_value)`` the grad transforms run the
+    backward with ``create_graph``; the grads each ``_Remat.backward``
+    returns must carry no graph of their own, else every period's
+    recomputed activations stay alive to the end of the backward and
+    remat saves no memory. Every Function of the step is checked."""
+    jcfg = jget_reduced(arch).replace(dtype="float32")
+    cfg = get_reduced(arch).replace(dtype="float32")
+    tp = params_from_numpy(jax.tree.map(
+        np.asarray, jbuild(jcfg).init(jax.random.PRNGKey(0))), "cpu")
+    seen = []
+    backward = transformer._Remat.backward
+
+    def checked(ctx, *grads):
+        out = backward(ctx, *grads)
+        seen.append([g.requires_grad for g in out if g is not None])
+        return out
+
+    monkeypatch.setattr(transformer._Remat, "backward",
+                        staticmethod(checked))
+    batch = _batch(cfg)
+    if cfg.family == "audio":
+        batch["frames"] = (np.random.default_rng(5).normal(size=(
+            W, B, cfg.encoder_frames, cfg.d_model)) * 0.02).astype(
+                np.float32)
+    _per_worker(cfg, tp, batch, True)
+    n_layers = (cfg.encoder_layers + cfg.n_layers if cfg.family == "audio"
+                else transformer.make_plan(cfg).n_periods)
+    assert len(seen) == n_layers > 0
+    assert not any(any(r) for r in seen)

@@ -12,8 +12,6 @@ same math, one position at a time against the chunked softmax). The
 packet plan (leaf paths, shapes, critical mask) is equal exactly, at
 the REDUCED sizes and at every full CONFIG (shapes only: JAX's
 ``eval_shape``, the port's init under ``FakeTensorMode``)."""
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,8 +28,7 @@ from repro.models import build as jbuild
 from repro.models.api import input_specs as jinput_specs
 from repro.models.api import shape_supported as jshape_supported
 from repro.models.sharding import NULL_CTX
-from repro_torch.config import ModelConfig
-from repro_torch.configs import ARCH_IDS, NOT_PORTED, get_config, get_reduced
+from repro_torch.configs import ARCH_IDS, get_config, get_reduced
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.core import packets as pk
 from repro_torch.models import attention as attn
@@ -41,6 +38,11 @@ from repro_torch.shapes import SHAPES, InputShape
 from repro_torch.tree import tree_leaves, tree_leaves_with_path
 
 LM_ARCHS = [a for a in ARCH_IDS if a != "papernet"]
+# the decoder-only families, which ``transformer.forward`` serves; the
+# enc-dec one (whisper) has its own tests, tests/test_torch_encdec.py
+DECODER_ARCHS = [a for a in LM_ARCHS
+                 if get_config(a).family in ("dense", "vlm", "moe", "ssm",
+                                             "hybrid")]
 B, S, N_DECODE = 2, 32, 12
 
 
@@ -79,7 +81,7 @@ def _batch(cfg, b, s, seed=0):
     return out
 
 
-@pytest.fixture(scope="module", params=LM_ARCHS)
+@pytest.fixture(scope="module", params=DECODER_ARCHS)
 def arch_pair(request):
     """(jax cfg, port cfg, jax params, port params) of one REDUCED arch."""
     jcfg, cfg = _cfgs(request.param)
@@ -360,28 +362,3 @@ def test_params_from_numpy_keeps_the_transformer_tree():
         np.asarray, jbuild(jcfg).init(jax.random.PRNGKey(0))), "cpu")
     assert isinstance(tp["rem"], tuple) and len(tp["rem"]) == 2
     assert tp["stack"]["p5"]["mixer"]["wq"].shape[0] == 1
-
-
-@pytest.mark.parametrize("arch", sorted(NOT_PORTED))
-def test_unported_archs_raise(arch):
-    item = NOT_PORTED[arch].split()[0]
-    with pytest.raises(KeyError, match=f"ROADMAP.md, queue 1 item {item}"):
-        get_config(arch)
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_reduced(arch.replace("_", "-"))
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        build(ModelConfig(**dataclasses.asdict(jget_reduced(arch))))
-
-
-# the MoE (12b), MLA (12c), mamba and shared-attention hybrid (12d)
-# cases left with their port
-@pytest.mark.parametrize("kw, item", [
-    (dict(family="audio"), "12e"),
-], ids=["audio-12e"])
-def test_unported_features_raise(kw, item):
-    cfg = get_reduced("smollm_360m").replace(**kw)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        build(cfg)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        build(get_reduced("smollm_360m")).init(
-            torch.Generator(), cfg=cfg, device="cpu")
