@@ -119,7 +119,27 @@ From the root of a checkout it:
     ``train.serve.serve``: batch 4, a 16-token prompt, 24 new tokens),
     checks that the logits of the prompt's decode steps match one
     ``forward`` over the prompt, and prints the ``serve`` line;
-12. drives the MoE path, trained (``run_moe_phase``):
+12. drives the sharded LTP path (``run_sharded_phase``), the path of
+    ``launch/train.py --mode sharded``: the same model and init through
+    ``train.trainer.make_ltp_train_step`` over ``torch.distributed``, one
+    rank over ``nccl`` at world size 1 on a (data 1, model 1)
+    ``DeviceMesh``, AdamW at lr 3e-4, batch 32 x seq 128; 5 steps each of
+    the psum variant under paper and under count compensation and of the
+    ZeRO variant, through the kernels, on the plain route and on the
+    plain route from a one-ulp-nudged init: the plain gate's kernel
+    (``ltp_dropfill``) launched once a leaf a step (11) under paper and
+    under count, never by the ZeRO variant or the plain runs; equal
+    delivered fractions, losses within rtol 1e-4, params within twice
+    the rounding control; host ms a step, tokens/s, peak memory;
+    ``LTPSync`` (``make_ltp_sync``) on one gradient of the model, paper
+    and count, with and without error feedback, kernels against the
+    plain route; one profiled step (idle share, the gate's device time); the gate at
+    its largest leaf (218454, 360) and over a step's 11 leaves, against
+    its plain version and timed; then two gloo ranks on the card (CUDA
+    tensors, REDUCED config, 3 steps) against the same two ranks on the
+    CPU, within twice the CPU pair's rounding control (the ``sharded``
+    line);
+13. drives the MoE path, trained (``run_moe_phase``):
     ``mixtral_8x22b``'s CONFIG at its published widths in bfloat16, its
     own dtype, cut to 1 layer (2,906,720,256 parameters, 8,074,223
     packets), on ``train.lm.lm_trainer`` with W = 2 and SGD-momentum
@@ -131,12 +151,12 @@ From the root of a checkout it:
     model freed, packet_reduce at (2, 8074223, 360) against its plain
     version and timed (the ``moe`` line; the kernel's row goes to the
     ``kernels`` line);
-13. serves the MoE family (``run_moe_serve_phase``, ``train.serve.
+14. serves the MoE family (``run_moe_serve_phase``, ``train.serve.
     serve`` at float32, batch 4, 16 + 24 tokens): ``mixtral_8x22b`` and
     ``deepseek_v2_236b`` (MLA, 160 routed + 2 shared experts) at 2
     layers each, with decode against the forward of sequences of 8
     tokens, where no assignment is dropped (the ``moe_serve`` line);
-14. drives the SSM family, trained (``run_ssm_phase``), on the LM
+15. drives the SSM family, trained (``run_ssm_phase``), on the LM
     phase's setup (W = 8, batch 32 x seq 128, AdamW lr 3e-4, paper
     compensation) in bfloat16 at the published widths, cut in depth:
     ``falcon_mamba_7b`` (Mamba-1) at 2 of 64 layers (743,305,216
@@ -150,12 +170,12 @@ From the root of a checkout it:
     the device and host time inside the scan's span (``mamba1_scan``,
     ``ssd_chunk``); then each stream's packet_reduce checked and timed
     with the model freed;
-15. serves the SSM family (``run_ssm_serve_phase``, float32, batch 4,
+16. serves the SSM family (``run_ssm_serve_phase``, float32, batch 4,
     16 + 24 tokens): falcon-mamba at 2 layers, zamba2 at 13 (two
     periods: the shared block decodes against two KV slots), decode
     against one forward over the prompt within 1e-5 of the largest
     logit (the ``ssm_serve`` line);
-16. drives the enc-dec path, trained (``run_encdec_phase``):
+17. drives the enc-dec path, trained (``run_encdec_phase``):
     ``whisper_small``'s CONFIG at full depth and width in bfloat16 (12
     encoder + 12 decoder layers, d_model 768, 1,500 frames, vocab
     51,865: 278,098,944 parameters, 772,498 packets) on the LM phase's
@@ -165,15 +185,17 @@ From the root of a checkout it:
     host ms a step, tokens/s, one profiled step with the host and device
     time inside the ``encoder`` span; then the stream's packet_reduce
     checked and timed with the model freed (the ``encdec`` line);
-17. serves it from its encoder (``run_encdec_serve_phase``, float32,
+18. serves it from its encoder (``run_encdec_serve_phase``, float32,
     batch 4, frames (4, 1500, 768), a 16-token prompt, 24 new tokens,
     twice): ``prefill`` fills each decoder layer's cross K/V, placed in
     an ``init_cache``; the prompt decoded token by token, then greedily;
     decode against ``decode_train`` over the prompt and ``prefill``'s
     logits against the last prompt step's, within 1e-5 of the largest
     logit (the ``encdec_serve`` line);
-18. prints a ``kernels`` JSON line (dropfill's entry with its EF form's
-    numbers beside the plain gate's, packet_reduce's with its des16
+19. prints a ``kernels`` JSON line (dropfill's entry with its EF form's
+    numbers beside the plain gate's and its sharded-path rows under
+    ``sharded``, whose launches are counted there alone, packet_reduce's
+    with its des16
     shape's, whose launches are counted there alone, and both with
     their LM shape's under ``lm``, packet_reduce also with its MoE,
     SSM and enc-dec shapes' under ``moe``, ``ssm``, ``hybrid`` and
@@ -2322,6 +2344,483 @@ def run_encdec_serve_phase(torch, batch=4, prompt_len=16, new=24,
     return line
 
 
+SHARDED_STEPS = 5
+SHARDED_LR = 3e-4              # launch/train.py's AdamW, the LM phase's
+SHARDED_GLOO_STEPS = 3
+SHARDED_GLOO_BATCH, SHARDED_GLOO_SEQ = 8, 32
+SHARDED_GLOO_FRAC = (0.7, 0.9)
+SHARDED_CHILD_TIMEOUT_S = 300
+
+
+def sharded_gate_rows(torch, timer, shapes) -> dict:
+    """The plain gate (``ops.ltp_dropfill``, the TPU kernel's function) at
+    the sharded step's leaves, on random packets and a mask that keeps
+    70 %: the largest leaf's (n, 360) alone, held against the plain
+    version exactly and timed like the LM-stream rows (5 calls a run);
+    then every leaf of a step back to back, one launch a leaf, timed as
+    one call beside the plain version and ``torch.mul`` over the same
+    leaves. Bound: each leaf's packets and mask read once and its gated
+    packets written once, over the memory rate."""
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    leaves = [(torch.randn(s, device="cuda", generator=gen),
+               (torch.rand(s[0], device="cuda", generator=gen) < 0.7).float())
+              for s in shapes]
+
+    def plain(a, b):
+        return ref.dropfill_ref(a, b, torch.ones_like(b))
+
+    def library(a, b):
+        return torch.mul(a, b[:, None])
+
+    x, m = max(leaves, key=lambda xm: xm[0].shape[0])
+    n, p = x.shape
+    err = (ops.ltp_dropfill(x, m) - plain(x, m)).abs().max().item()
+    rows = {"leaf": lm_kernel_row(
+        timer, (n, p), err, 0.0, [(x, m)], ops.ltp_dropfill, plain,
+        library, 4 * (2 * n * p + n), n * p)}
+    rows["leaf"]["library_call"] = "torch.mul(packets, mask[:, None])"
+    err = max((ops.ltp_dropfill(a, b) - plain(a, b)).abs().max().item()
+              for a, b in leaves)
+    if err != 0.0:
+        raise AssertionError(f"sharded gate over the step's leaves: max "
+                             f"abs err {err}")
+    n_bytes = sum(4 * (2 * a.numel() + b.numel()) for a, b in leaves)
+    bound_ms, bound_by = bound(n_bytes, sum(a.numel() for a, _ in leaves))
+
+    def over_leaves(fn):
+        return lambda: [fn(a, b) for a, b in leaves]
+
+    rows["step"] = {
+        "shapes": [list(s) for s in shapes], "launches": len(shapes),
+        "max_abs_err": err, "ms": timer.ms(over_leaves(ops.ltp_dropfill),
+                                           [()], 5),
+        "plain_ms": timer.ms(over_leaves(plain), [()], 5),
+        "library_ms": timer.ms(over_leaves(library), [()], 5),
+        "library_call": "torch.mul(packets, mask[:, None]) a leaf",
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes}
+    del leaves, x, m
+    return rows
+
+
+def sharded_gloo_child(argv) -> int:
+    """One of two gloo ranks of the sharded step on a small model, in a
+    process of its own: ``chip_smoke.py --sharded-gloo-rank RANK INIT
+    DEVICE NUDGE OUT``. REDUCED smollm-360m at float32, SGD-momentum at lr
+    0.1, the psum variant with paper compensation and the ``auto``
+    backend (the plain gate's kernel for CUDA tensors), fractions (0.7,
+    0.9), ``SHARDED_GLOO_STEPS`` steps of a (8, 32) global batch, each
+    rank on its half; the draws are the CPU generator's (``uniforms=``),
+    so the CUDA and CPU runs mask alike. NUDGE 1 starts from the init
+    moved by one ulp (the rounding control). Writes the params, losses,
+    delivered fractions and the gate's launches to OUT (npz)."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    rank, init, device, nudge, out = (int(argv[0]), argv[1], argv[2],
+                                      int(argv[3]), argv[4])
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
+                            world_size=2,
+                            timeout=datetime.timedelta(seconds=240))
+    try:
+        from repro_torch.config import LTPConfig
+        from repro_torch.configs import get_reduced
+        from repro_torch.core import ltp_sync as ls
+        from repro_torch.data import SyntheticLM
+        from repro_torch.kernels import dropfill as df_mod
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.models import build
+        from repro_torch.optim import sgd_momentum
+        from repro_torch.tree import tree_leaves
+        from repro_torch.train.trainer import init_state, make_ltp_train_step
+
+        cfg = get_reduced("smollm_360m").replace(dtype="float32")
+        api, opt = build(cfg), sgd_momentum()
+        params = api.init(torch.Generator().manual_seed(0), device=device)
+        if nudge:
+            params = nudged(torch, params, 7)
+        mesh = make_host_mesh(2, 1)
+        w = mesh.get_local_rank("data")
+        step = make_ltp_train_step(api, opt, mesh, LTPConfig(), ("data",),
+                                   {"tokens": ("data",),
+                                    "labels": ("data",)})
+        state = init_state(api, opt, params=params)
+        corpus = SyntheticLM(vocab=cfg.vocab, seed=0)
+        frac = torch.tensor(SHARDED_GLOO_FRAC)
+        df_mod.LAUNCHES = 0
+        losses, delivered = [], []
+        for s in range(SHARDED_GLOO_STEPS):
+            u = [ls.device_uniforms(max(1, -(-x.numel() // 360)), "cpu",
+                                    1 + s, w, 0, i)
+                 for i, x in enumerate(tree_leaves(state.params))]
+            state, m = step(state, corpus.train_batch(
+                SHARDED_GLOO_BATCH, SHARDED_GLOO_SEQ, s), frac, 1 + s, 0.1,
+                uniforms=u)
+            losses.append(float(m["loss"]))
+            delivered.append(float(m["delivered_frac"]))
+        rec = {f"params/{i}": x.cpu().numpy()
+               for i, x in enumerate(tree_leaves(state.params))}
+        np.savez(out, loss=np.asarray(losses), delivered=np.asarray(delivered),
+                 launches=np.asarray(df_mod.LAUNCHES), **rec)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_sharded_gloo(torch) -> dict:
+    """Two gloo ranks of the sharded step on the one card (CUDA tensors)
+    against the same two ranks on the CPU, and the CPU pair from a
+    one-ulp-nudged init, the three pairs at once, each rank a process
+    (``sharded_gloo_child``). Checks: the gate's kernel launched once a
+    leaf a step on each CUDA rank and never on the CPU; the two ranks of
+    a pair hold equal params; the CUDA pair's params within twice the
+    rounding control's distance of the CPU pair's; losses within rtol
+    1e-4 and delivered fractions equal."""
+    import tempfile
+
+    import numpy as np
+
+    line = {"config": "smollm_360m REDUCED, float32", "world_size": 2,
+            "backend": "gloo", "steps": SHARDED_GLOO_STEPS,
+            "global_batch": [SHARDED_GLOO_BATCH, SHARDED_GLOO_SEQ],
+            "frac": list(SHARDED_GLOO_FRAC), "variant": "psum, paper",
+            "optimizer": "sgd_momentum lr 0.1"}
+    runs = {"cuda": ("cuda", 0), "cpu": ("cpu", 0), "cpu_nudged": ("cpu", 1)}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = {}
+        for name, (device, nudge) in runs.items():
+            procs[name] = [subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--sharded-gloo-rank", str(r), f"{tmp}/{name}.init", device,
+                 str(nudge), f"{tmp}/{name}{r}.npz"],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for r in range(2)]
+        errs = {}
+        try:
+            for name, ps in procs.items():
+                for r, p in enumerate(ps):
+                    _, errs[name, r] = p.communicate(
+                        timeout=SHARDED_CHILD_TIMEOUT_S)
+        finally:
+            for ps in procs.values():
+                for p in ps:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+        for name, ps in procs.items():
+            for r, p in enumerate(ps):
+                if p.returncode != 0:
+                    raise AssertionError(f"sharded gloo {name} rank {r}: "
+                                         f"{errs[name, r][-3000:]}")
+        line["seconds"] = time.perf_counter() - t0
+        got = {name: [dict(np.load(f"{tmp}/{name}{r}.npz")) for r in range(2)]
+               for name in runs}
+    n = sum(1 for k in got["cuda"][0] if k.startswith("params/"))
+    for name, (a, b) in got.items():
+        for i in range(n):
+            if not np.array_equal(a[f"params/{i}"], b[f"params/{i}"]):
+                raise AssertionError(f"sharded gloo {name}: the ranks' "
+                                     f"params differ at leaf {i}")
+    want = n * SHARDED_GLOO_STEPS
+    launches = {name: [int(r["launches"]) for r in rs]
+                for name, rs in got.items()}
+    if launches != {"cuda": [want, want], "cpu": [0, 0],
+                    "cpu_nudged": [0, 0]}:
+        raise AssertionError(f"sharded gloo: gate launches {launches}, "
+                             f"expected {want} on each CUDA rank")
+    cuda, cpu, ctl = (got[k][0] for k in ("cuda", "cpu", "cpu_nudged"))
+
+    def tensors(d):
+        return [torch.as_tensor(d[f"params/{i}"]) for i in range(n)]
+
+    held = within_rounding("sharded gloo cuda vs cpu", tensors(cuda),
+                           tensors(cpu), tensors(ctl))
+    if not (np.allclose(cuda["loss"], cpu["loss"], rtol=1e-4)
+            and np.array_equal(cuda["delivered"], cpu["delivered"])):
+        raise AssertionError(f"sharded gloo: cuda {cuda['loss']} "
+                             f"{cuda['delivered']}, cpu {cpu['loss']} "
+                             f"{cpu['delivered']}")
+    line.update(launches_per_rank=launches, loss_cuda=cuda["loss"].tolist(),
+                loss_cpu=cpu["loss"].tolist(),
+                delivered=cuda["delivered"].tolist(), **held)
+    return line
+
+
+def run_sharded_phase(torch, timer, zero_counts, read_counts, launches_of,
+                      cfg, init) -> tuple:
+    """The sharded LTP path (``launch/train.py --mode sharded``'s): the
+    LM phase's smollm-360m CONFIG at float32 and its init (361,821,120
+    parameters, 32 layers), one rank over ``nccl`` at world size 1
+    (``launch.train.init_distributed`` without ``torchrun``: a ``file://``
+    rendezvous in a temporary directory), a (data 1, model 1)
+    ``DeviceMesh`` (``launch.mesh.make_host_mesh``), the
+    ``train.trainer.make_ltp_train_step`` step (first the launcher,
+    ``launch/train.py --mode sharded``, for 2 steps from its own init,
+    its step-0 loss near ln V), AdamW at lr 3e-4 (the
+    ZeRO variant's own SGD-momentum at the same lr), batch 32 x seq 128
+    from ``SyntheticLM(8192)``, the launcher's delivered fraction at loss
+    rate 0.001 (0.99), the draws from seed 1 + step on the card.
+
+    Runs of ``SHARDED_STEPS`` steps: the psum variant with paper and with
+    count compensation and the ZeRO variant (paper), each through the
+    kernels (``sync_backend="cuda"``), on the plain route (``"python"``)
+    and on the plain route from the init nudged by one ulp (the rounding
+    control). Checks: the plain gate's kernel launched once a leaf a step
+    under paper and under count (whose division is no gate, as in the
+    reference), never by the ZeRO variant (its mask is the reference's
+    plain multiply) nor by the plain runs, and no other kernel; equal
+    delivered fractions and losses within rtol 1e-4 between kernels and
+    plain; finite losses starting near ln V; params within twice the
+    rounding control's distance (``within_rounding``). Host ms a step
+    (median of steps 2-5), tokens/s and peak memory a run. Then
+    ``LTPSync`` (``core.ltp_sync.make_ltp_sync`` over the params' specs,
+    ``models.sharding.param_specs``) on the gradient of the first batch,
+    under paper and count, with and without error feedback (a seeded
+    residual of scale 1e-3): through the kernels, one dropfill launch a
+    call and a second under count (the count compensation through the
+    gate, as the reference's ``LTPSync`` does it), the EF form in place
+    of the gate's first launch; on the plain route none; synced blocks
+    and residuals within rtol 1e-6 / atol 0 and equal delivered
+    fractions. Then one profiled psum step (paper; its idle share and
+    the gate's device time, summed and a launch). Then
+    ``sharded_gate_rows`` and
+    ``run_sharded_gloo``. Returns (the ``sharded`` line, the launches of
+    the counted runs, the gate rows)."""
+    import torch.distributed as dist
+
+    from repro_torch.config import LTPConfig
+    from repro_torch.core.ltp_sync import make_ltp_sync
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import frac_schedule, init_distributed
+    from repro_torch.models import build
+    from repro_torch.models.sharding import param_specs
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_leaves
+    from repro_torch.train.trainer import init_state, make_ltp_train_step, \
+        zero_opt_state
+
+    api, opt = build(cfg), adamw()
+    n_pkts = [max(1, -(-x.numel() // 360)) for x in tree_leaves(init)]
+    shapes = [(n, 360) for n in n_pkts]
+    line = {"config": cfg.name, "dtype": cfg.dtype,
+            "n_params": sum(x.numel() for x in tree_leaves(init)),
+            "leaf_packets": n_pkts, "n_leaf_packets": sum(n_pkts),
+            "world_size": 1, "backend": "nccl", "mesh": {"data": 1,
+                                                         "model": 1},
+            "batch": LM_BATCH, "seq": LM_SEQ, "data_vocab": LM_DATA_VOCAB,
+            "steps": SHARDED_STEPS, "lr": SHARDED_LR, "runs": {}}
+    corpus = SyntheticLM(vocab=LM_DATA_VOCAB, seed=0)
+    batches = [corpus.train_batch(LM_BATCH, LM_SEQ, s)
+               for s in range(SHARDED_STEPS)]
+    frac = frac_schedule(0.001, 1)
+    line["frac"] = frac.tolist()
+    specs = {"tokens": ("data",), "labels": ("data",)}
+
+    # the launcher itself, as a user starts it without torchrun: its own
+    # process group, init and corpus, 2 steps, its step-0 log line read
+    import contextlib
+    import io
+
+    from repro_torch.launch import train as launcher
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = launcher.main(["--mode", "sharded", "--steps", "2",
+                            "--data-vocab", str(LM_DATA_VOCAB)])
+    logged = out.getvalue().splitlines()
+    row = [r.split() for r in logged if r.startswith("step")]
+    if rc != 0 or len(row) != 1 or not (
+            abs(float(row[0][3]) - math.log(cfg.vocab)) < 1.0
+            and 0.9 < float(row[0][5]) <= 1.0):
+        raise AssertionError(f"sharded launcher: rc {rc}, log {logged}")
+    line["launcher"] = {"argv": "--mode sharded --steps 2 --data-vocab "
+                                f"{LM_DATA_VOCAB}", "log": logged,
+                        "seconds": time.perf_counter() - t0}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    dev, tmp = init_distributed("cuda:0")
+    launches = []
+    try:
+        mesh = make_host_mesh(1, 1)
+        line["backend"] = dist.get_backend()
+
+        def state_for(variant, ltp, params):
+            state = init_state(api, opt, params=params)
+            if variant == "zero":
+                state.opt_state = zero_opt_state(params, ltp, mesh,
+                                                 ("data",))
+            return state
+
+        def run(label, variant, comp, backend, params):
+            ltp = LTPConfig(compensation=comp, sync_backend=backend)
+            step = make_ltp_train_step(api, opt, mesh, ltp, ("data",), specs)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            state = state_for(variant, ltp, params)
+            zero_counts()
+            step_s, losses, delivered = [], [], []
+            for s, b in enumerate(batches):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, b, frac, 1 + s, SHARDED_LR)
+                losses.append(float(m["loss"]))
+                delivered.append(float(m["delivered_frac"]))
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+            got = read_counts()
+            launches.append(got)
+            if not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"sharded {label}: losses {losses}")
+            steady = statistics.median(step_s[1:])
+            line["runs"][label] = {
+                "launches": got, "step_ms": [t * 1e3 for t in step_s],
+                "median_step_ms": steady * 1e3,
+                "tokens_per_s": LM_BATCH * LM_SEQ / steady,
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "loss": losses, "delivered": delivered}
+            params_out = state.params
+            del state
+            return params_out
+
+        control = nudged(torch, init, 2)
+        n_leaves = len(n_pkts)
+        for variant, comp, per_step in (("psum", "paper", n_leaves),
+                                        ("psum", "count", n_leaves),
+                                        ("zero", "paper", 0)):
+            form = f"{variant}_{comp}"
+            ker = run(f"{form}_cuda", variant, comp, "cuda", init)
+            plain = run(f"{form}_python", variant, comp, "python", init)
+            ctl = run(f"{form}_python_nudged", variant, comp, "python",
+                      control)
+            runs = line["runs"]
+            want = launches_of(dropfill=per_step * SHARDED_STEPS)
+            if runs[f"{form}_cuda"]["launches"] != want or any(
+                    runs[f"{form}_{r}"]["launches"] != launches_of()
+                    for r in ("python", "python_nudged")):
+                raise AssertionError(
+                    f"sharded {form}: launches "
+                    f"{[runs[f'{form}_{r}']['launches'] for r in ('cuda', 'python', 'python_nudged')]}, "
+                    f"expected {want} through the kernels")
+            a, b = runs[f"{form}_cuda"], runs[f"{form}_python"]
+            if a["delivered"] != b["delivered"] or any(
+                    abs(x - y) > LM_LOSS_RTOL * abs(y)
+                    for x, y in zip(a["loss"], b["loss"])):
+                raise AssertionError(f"sharded {form} kernels vs plain: "
+                                     f"{a['loss']} {a['delivered']} vs "
+                                     f"{b['loss']} {b['delivered']}")
+            line[form] = within_rounding(f"sharded {form}", ker, plain, ctl)
+            del ker, plain, ctl
+        del control
+        loss = line["runs"]["psum_paper_cuda"]["loss"]
+        if not (abs(loss[0] - math.log(cfg.vocab)) < 1.0
+                and loss[-1] < loss[0]):
+            raise AssertionError(f"sharded: loss does not start near ln V "
+                                 f"or fall: {loss}")
+        line["ln_vocab"] = math.log(cfg.vocab)
+
+        # LTPSync on one gradient of the model, kernels against plain
+        dev = tree_leaves(init)[0].device
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in batches[0].items()}
+        grads = torch.func.grad(lambda p: api.loss_fn(p, batch))(init)
+        del batch
+        grad_specs = param_specs(init, mesh)
+        line["ltp_sync"] = {}
+        for comp in ("paper", "count"):
+            for ef in (False, True):
+                outs = {}
+                for backend in ("cuda", "python"):
+                    sync = make_ltp_sync(init, mesh, LTPConfig(
+                        compensation=comp, error_feedback=ef,
+                        sync_backend=backend), grad_specs)
+                    res = sync.init_residual(dev)
+                    if res is not None:
+                        gen = torch.Generator(device=dev).manual_seed(5)
+                        res = 1e-3 * torch.randn(res.shape, device=dev,
+                                                 generator=gen)
+                    zero_counts()
+                    synced, new_res, st = sync(grads, frac, 7, res)
+                    torch.cuda.synchronize()
+                    outs[backend] = (synced, new_res,
+                                     float(st["delivered_frac"]),
+                                     read_counts())
+                    del res
+                label = f"{comp}{'_ef' if ef else ''}"
+                (a, ra, da, na), (b, rb, db, nb) = outs["cuda"], \
+                    outs["python"]
+                want = launches_of(dropfill=2 if comp == "count" else 1)
+                if na != want or nb != launches_of() or da != db:
+                    raise AssertionError(
+                        f"sharded LTPSync {label}: launches {na} / {nb} "
+                        f"(expected {want} through the kernels), "
+                        f"delivered {da} / {db}")
+                pairs = list(zip(tree_leaves(a), tree_leaves(b),
+                                 strict=True))
+                if ra is not None:
+                    pairs.append((ra, rb))
+                for x, y in pairs:
+                    torch.testing.assert_close(x, y, rtol=1e-6, atol=0.0)
+                launches.append(na)
+                line["ltp_sync"][label] = {
+                    "launches": na, "delivered": da,
+                    "n_packets": sync.plan.n_packets,
+                    "max_abs_err": max((x - y).abs().max().item()
+                                       for x, y in pairs)}
+                del outs, a, b, ra, rb, pairs, sync
+        del grads
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the second step of a psum (paper) run profiled, not counted
+        ltp = LTPConfig(sync_backend="cuda")
+        step = make_ltp_train_step(api, opt, mesh, ltp, ("data",), specs)
+        state, _ = step(state_for("psum", ltp, init), batches[0], frac, 1,
+                        SHARDED_LR)
+        gc.collect()
+        torch.cuda.empty_cache()
+        prof = profile_step(torch, lambda: step(state, batches[1], frac, 2,
+                                                SHARDED_LR))
+        gate = {k: v for k, v in prof["port_kernels_ms"].items()
+                if "dropfill" in k}
+        n_gate = sum(n for k, n in prof["port_launches"].items()
+                     if "dropfill" in k)
+        if n_gate != n_leaves or len(prof["port_launches"]) != len(gate):
+            raise AssertionError(f"sharded profile: port launches "
+                                 f"{prof['port_launches']}, not {n_leaves} "
+                                 f"dropfill")
+        prof["gate_device_ms"] = sum(gate.values())
+        prof["gate_device_ms_per_launch"] = sum(gate.values()) / n_gate
+        line["profile_psum_paper_step"] = prof
+        line["idle_share"] = prof["idle_share"]
+        del state, step
+    finally:
+        dist.destroy_process_group()
+        if tmp is not None:
+            tmp.cleanup()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = sharded_gate_rows(torch, timer, shapes)
+    line["gate_rows"] = rows
+    line["profile_psum_paper_step"]["gate_bound_ms"] = rows["step"]["bound_ms"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    line["gloo_two_ranks"] = run_sharded_gloo(torch)
+    return line, launches, rows
+
+
 def main() -> int:
     import torch
 
@@ -2502,6 +3001,15 @@ def main() -> int:
         torch, timer, zero_counts, read_counts, launches_of)
     print("lm " + json.dumps(lm_line))
     print("serve " + json.dumps(run_serve_phase(torch, lm_cfg, lm_init)))
+
+    # the sharded LTP path: the same model and init through the port's
+    # make_ltp_train_step over torch.distributed, the plain gate on every
+    # leaf; then two gloo ranks on the card against their CPU twin
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded_line, sharded_launches, sharded_rows = run_sharded_phase(
+        torch, timer, zero_counts, read_counts, launches_of, lm_cfg, lm_init)
+    print("sharded " + json.dumps(sharded_line))
     del lm_init
 
     # the MoE family: mixtral-8x22b at its published widths trained over
@@ -2584,6 +3092,13 @@ def main() -> int:
                    for name in counters}
     if encdec_path != launches_of(packet_reduce=ENCDEC_STEPS):
         raise AssertionError(f"the encdec path launched {encdec_path}")
+    # the sharded path launches the plain gate alone, at its leaves: its
+    # count goes to dropfill's ``sharded`` entry
+    sharded_path = {name: sum(r[name] for r in sharded_launches)
+                    for name in counters}
+    if sharded_path != launches_of(dropfill=sharded_path["dropfill"]) or \
+            not sharded_path["dropfill"]:
+        raise AssertionError(f"the sharded path launched {sharded_path}")
     main_launches = {name: sum(path_launches[name].values())
                      for name in counters}
     if main_launches["tree_reduce"] != 0:
@@ -2618,6 +3133,17 @@ def main() -> int:
                                    "bound_ms", "bound_by", "library_ms",
                                    "library_calls")}
                 for r in entries["dropfill_ef"]]
+            # the plain gate on the sharded path, at its largest leaf and
+            # over a step's leaves
+            row = sharded_rows["leaf"]
+            line[-1]["sharded"] = {
+                "shape": row["shape"], "form": "plain",
+                "launches": sharded_path["dropfill"],
+                "launches_from": "main paths: sharded",
+                **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms",
+                                       "library_call")},
+                "step": sharded_rows["step"]}
         if name == "packet_reduce":
             # the des16 path's shape: every launch of that phase
             e = entries["packet_reduce_w16"]
@@ -2670,4 +3196,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-gloo-rank"]:
+        sys.exit(sharded_gloo_child(sys.argv[2:]))
     sys.exit(main())

@@ -10,8 +10,9 @@ whole packet.
 *Critical packets* (§III-E): the packets containing the first/last
 elements of each tensor are always delivered.
 
-``local_plan`` (per-device plans for the sharded path) waits for the
-port of the sharded LTP path.
+``local_shape`` / ``local_plan`` give each rank's block of a tree
+sharded by ``models.sharding`` specs, and the packet plan over those
+blocks (the sharded path's ``LTPSync``).
 """
 from __future__ import annotations
 
@@ -21,7 +22,8 @@ from typing import Any, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.tree import tree_leaves, tree_unflatten
+from repro_torch.models.sharding import mesh_shape, spec_at
+from repro_torch.tree import tree_leaves, tree_map_with_path, tree_unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,3 +142,35 @@ def delivery_mask(
         crit = crit | extra_critical
     keep = (u < torch.as_tensor(delivered_frac, device=dev)).to(torch.float32)
     return torch.where(crit, torch.ones_like(keep), keep)
+
+
+def local_shape(shape: Tuple[int, ...], spec, mesh) -> Tuple[int, ...]:
+    """Per-rank block shape of a global tensor under a spec (a tuple of
+    ``None`` / axis name / tuple of axis names, ``models.sharding``'s);
+    ``mesh`` is a ``DeviceMesh`` or a ``{name: size}`` dict."""
+    sizes = mesh_shape(mesh)
+    out = list(shape)
+    for dim, names in enumerate(spec):
+        if names is None:
+            continue
+        names = (names,) if isinstance(names, str) else tuple(names)
+        total = 1
+        for n in names:
+            total *= sizes[n]
+        assert out[dim] % total == 0, (shape, spec, dim)
+        out[dim] //= total
+    return tuple(out)
+
+
+def local_plan(
+    params_shape: Any, specs: Any, mesh, packet_floats: int = 360,
+    critical_per_tensor: int = 1,
+) -> PacketPlan:
+    """PacketPlan over LOCAL (per-rank) leaf shapes given param specs (a
+    tree of ``models.sharding`` specs matching ``params_shape``)."""
+    locals_ = tree_map_with_path(
+        lambda path, x: torch.empty(
+            local_shape(tuple(x.shape), spec_at(specs, path), mesh),
+            dtype=getattr(x, "dtype", torch.float32), device="meta"),
+        params_shape)
+    return make_plan(locals_, packet_floats, critical_per_tensor)

@@ -11,9 +11,11 @@ chunks (the reference's ``lax.scan``) bounds the live scores to (B, H,
 cq, Sk_band), and sliding-window layers slice a static-length KV band
 per chunk, so window attention is O(S*w). Chunk counts and band offsets
 are Python ints computed from shapes, so every function runs under
-``torch.func.vmap`` / ``grad``. The sharded path's head constraints
-(``_constrain_heads``, the ``ctx`` argument) wait for ROADMAP.md queue 1
-item 13.
+``torch.func.vmap`` / ``grad``. The reference's head constraints
+(``_constrain_heads``, the ``ctx`` argument) shard the heads over the
+``model`` axis; the port's sharded path (``train/trainer.py``) runs on
+worker axes alone, and tensor parallelism over ``model`` inside the
+models waits for ROADMAP.md queue 1 item 13b.
 """
 from __future__ import annotations
 

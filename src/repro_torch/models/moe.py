@@ -6,10 +6,14 @@ token dropping at capacity, not a one-hot einsum: an assignment whose
 slot in its expert's buffer lies at or past ``capacity`` is dropped, and
 that is part of the result. Expert FLOPs are ~6 * N_active * D.
 
-The reference routes one group per data-parallel shard; without a mesh
-it takes one group (``g_count = 1``), which is what this port computes,
-so the group axis and the sharding constraints are left out (the
-sharded path waits for ROADMAP.md queue 1 item 13).
+The reference routes one group per data-parallel shard; without a mesh,
+and inside the LTP step, whose ctx excludes the worker axes, it takes
+one group (``g_count = 1``), which is what this port computes. The
+port's sharded steps (``train/trainer.py``) give each rank its shard of
+the batch, which it routes as one group: the reference's grouping on a
+mesh (``tests/test_torch_trainer_sharded.py``). So the group axis is
+left out; the expert and d_ff sharding constraints over the ``model``
+axis wait for tensor parallelism, ROADMAP.md queue 1 item 13b.
 
 Where the torch ops differ from JAX's:
 

@@ -87,7 +87,16 @@ SIM_MODULES = (
 )
 
 
-@pytest.mark.parametrize("module", SIM_MODULES)
+# the sharded LTP path: specs, the train steps, the meshes, the launcher
+SHARDED_MODULES = (
+    "repro_torch.models.sharding",
+    "repro_torch.train.trainer",
+    "repro_torch.launch.mesh",
+    "repro_torch.launch.train",
+)
+
+
+@pytest.mark.parametrize("module", SIM_MODULES + SHARDED_MODULES)
 def test_simulator_modules_import_with_jax_blocked(module):
     """Each module imports on its own, in a fresh interpreter with
     ``jax`` and ``repro`` blocked, and pulls in neither."""
@@ -178,6 +187,27 @@ def test_lm_entry_points_without_device_and_gpu_raise(monkeypatch):
         train_lm(tiny=True, steps=1, workers=2, batch=2, seq=4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve(batch=1, prompt_len=2, new=2)
+
+
+def test_sharded_entry_points_without_device_and_gpu_raise(monkeypatch):
+    """The sharded path's state, its residual and its launcher run on the
+    card unless told otherwise."""
+    from repro_torch.core.packets import make_plan
+    from repro_torch.launch.train import init_distributed
+    from repro_torch.optim import sgd_momentum
+    from repro_torch.train.trainer import init_state
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    api = build(get_config("papernet").replace(d_model=8, n_layers=3))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_state(api, sgd_momentum())
+    sync = ls.LTPSync(mesh={"data": 1}, plan=make_plan({"w": torch.ones(4)}),
+                      ltp=LTPConfig(error_feedback=True), grad_specs={},
+                      n_workers=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sync.init_residual()
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        init_distributed()
 
 
 def test_cluster_runtime_without_device_and_gpu_raises(monkeypatch):
