@@ -139,6 +139,23 @@ From the root of a checkout it:
     tensors, REDUCED config, 3 steps) against the same two ranks on the
     CPU, within twice the CPU pair's rounding control (the ``sharded``
     line);
+12b. drives tensor parallelism over ``model`` (``run_tp_phase``):
+    ``mixtral_8x22b``'s CONFIG at its published widths in bfloat16, cut
+    to 1 layer, through ``make_ltp_train_step`` (psum, paper,
+    SGD-momentum, batch 32 x seq 128, 3 steps): at (data 1, model 1) in
+    this process through the kernels, with a profiled step, and from a
+    one-ulp-nudged init (the rounding control); at (data 1, model 2) as
+    two gloo ranks sharing the card, subprocesses of ``chip_smoke.py
+    --tp-rank``, each holding its block of the heads, experts
+    (expert-parallel) and vocab, through the kernels and on the plain
+    route: 13 gate launches a step a rank, none on the plain route,
+    params within twice the rounding control of the plain route's and
+    of the (1, 1) run's; host ms a step, peak memory a rank, the model
+    axis's collective calls and bytes a step; meanwhile REDUCED smollm
+    and mixtral on (data 2, model 2), four gloo ranks on the card
+    against four on the CPU (and four from a nudged init); then the gate
+    at the layer's largest leaf (2236963, 360) and over its 13 leaves
+    against its plain version and timed (the ``tp`` line);
 13. drives the MoE path, trained (``run_moe_phase``):
     ``mixtral_8x22b``'s CONFIG at its published widths in bfloat16, its
     own dtype, cut to 1 layer (2,906,720,256 parameters, 8,074,223
@@ -194,7 +211,8 @@ From the root of a checkout it:
     logit (the ``encdec_serve`` line);
 19. prints a ``kernels`` JSON line (dropfill's entry with its EF form's
     numbers beside the plain gate's and its sharded-path rows under
-    ``sharded``, whose launches are counted there alone, packet_reduce's
+    ``sharded`` and its tensor-parallel rows under ``tp``, whose
+    launches are counted there alone, packet_reduce's
     with its des16
     shape's, whose launches are counted there alone, and both with
     their LM shape's under ``lm``, packet_reduce also with its MoE,
@@ -921,7 +939,7 @@ def nudged(torch, params, seed):
     gen.manual_seed(seed)
     return tree_map(lambda x: torch.nextafter(x, torch.where(
         torch.rand(x.shape, device=x.device, generator=gen) < 0.5,
-        -math.inf, math.inf)), params)
+        -math.inf, math.inf).to(x.dtype)), params)
 
 
 def distance(a, b) -> float:
@@ -1983,13 +2001,13 @@ def moe_drop_counter():
     orig = moe.apply_moe
     dropped = []
 
-    def wrapped(cfg, p, x, *, capacity_factor=1.25):
+    def wrapped(cfg, p, x, *, capacity_factor=1.25, ctx=None):
         xf = x.reshape(-1, x.shape[-1])
         _, ids, _ = moe.router(cfg, p, xf)
         cap = moe.capacity(cfg, xf.shape[0], capacity_factor)
         counts = ids.reshape(-1).bincount(minlength=cfg.n_experts)
         dropped.append(int((counts - cap).clamp(min=0).sum()))
-        return orig(cfg, p, x, capacity_factor=capacity_factor)
+        return orig(cfg, p, x, capacity_factor=capacity_factor, ctx=ctx)
 
     moe.apply_moe = wrapped
     return dropped, lambda: setattr(moe, "apply_moe", orig)
@@ -2821,6 +2839,566 @@ def run_sharded_phase(torch, timer, zero_counts, read_counts, launches_of,
     return line, launches, rows
 
 
+# the tp phase's full-width run: mixtral_8x22b's CONFIG at its published
+# widths in bfloat16, cut to 1 layer as on the MoE path; SGD-momentum at
+# examples/train_lm.py's lr; the parent passes it to its ranks
+TP_MODEL = {"arch": "mixtral_8x22b", "reduced": False, "n_layers": 1,
+            "steps": 3, "batch": 32, "seq": 128, "lr": 3e-4,
+            "data_vocab": LM_DATA_VOCAB}
+TP_REDUCED = ("smollm_360m", "mixtral_8x22b")
+TP_CHILD_TIMEOUT_S = 600
+
+
+def tp_config(model: dict):
+    """The config of a ``TP_MODEL``-like dict."""
+    from repro_torch.configs import get_config, get_reduced
+
+    get = get_reduced if model["reduced"] else get_config
+    return get(model["arch"]).replace(n_layers=model["n_layers"])
+
+
+def tp_batches(model: dict) -> list:
+    from repro_torch.data import SyntheticLM
+
+    corpus = SyntheticLM(vocab=model["data_vocab"], seed=0)
+    return [corpus.train_batch(model["batch"], model["seq"], s)
+            for s in range(model["steps"])]
+
+
+class CollectiveCounter:
+    """Counts the calls and bytes of ``torch.distributed.all_reduce`` and
+    ``all_gather_into_tensor`` on the ``model`` group of a mesh (bytes:
+    the tensor each rank passes in), by wrapping the two functions of
+    the module the port calls them through."""
+
+    def __init__(self, dist, mesh):
+        self.dist, self.group = dist, mesh.get_group("model")
+        self.orig = {n: getattr(dist, n) for n in (
+            "all_reduce", "all_gather_into_tensor")}
+        self.zero()
+        for name, fn in self.orig.items():
+            setattr(dist, name, self._wrap(name, fn))
+
+    def _wrap(self, name, fn):
+        def counted(*args, **kw):
+            if kw.get("group") is self.group:
+                t = args[1] if name == "all_gather_into_tensor" else args[0]
+                self.calls[name] += 1
+                self.bytes[name] += t.numel() * t.element_size()
+            return fn(*args, **kw)
+        return counted
+
+    def zero(self):
+        self.calls = dict.fromkeys(self.orig, 0)
+        self.bytes = dict.fromkeys(self.orig, 0)
+
+    def read(self, steps: int) -> dict:
+        return {"calls_per_step": {k: v / steps for k, v in
+                                   self.calls.items()},
+                "bytes_per_step": {k: v / steps for k, v in
+                                   self.bytes.items()}}
+
+    def close(self):
+        for name, fn in self.orig.items():
+            setattr(self.dist, name, fn)
+
+
+def tp_train(torch, api, opt, mesh, params, backend, batches, frac, lr, *,
+             uniforms=None, counter=None, profile=False) -> dict:
+    """``make_ltp_train_step`` (psum, paper) from the GLOBAL ``params`` on
+    ``mesh`` through ``backend``, one step a batch, the draws from seed 1
+    + step (or ``uniforms(step, state)``). Every kernel's launch count is
+    set to 0 just before the run and read just after. Returns the
+    state's blocks, host ms a step, losses, delivered fractions, those
+    launches, the peak memory and, with ``counter``, the model
+    axis's collectives a step; with ``profile``, one more step profiled
+    after the counts are read (its params are not returned)."""
+    import statistics as st
+
+    from repro_torch.config import LTPConfig
+    from repro_torch.kernels import dropfill as df_mod
+    from repro_torch.kernels import packet_reduce as pr_mod
+    from repro_torch.kernels import randomk as rk_mod
+    from repro_torch.train.trainer import init_state, make_ltp_train_step
+    from repro_torch.tree import tree_leaves
+
+    cuda = tree_leaves(params)[0].device.type == "cuda"
+    state = init_state(api, opt, params=params, mesh=mesh)
+    del params
+    step = make_ltp_train_step(
+        api, opt, mesh, LTPConfig(sync_backend=backend), ("data",),
+        {k: ("data",) for k in batches[0]})
+    if cuda:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    for mod, attr in ((pr_mod, "LAUNCHES"), (pr_mod, "TREE_LAUNCHES"),
+                      (df_mod, "LAUNCHES"), (rk_mod, "LAUNCHES")):
+        setattr(mod, attr, 0)
+    if counter is not None:
+        counter.zero()
+    step_s, losses, delivered = [], [], []
+    for s, b in enumerate(batches):
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u = None if uniforms is None else uniforms(s, state)
+        state, m = step(state, b, frac, 1 + s, lr, uniforms=u)
+        losses.append(float(m["loss"]))
+        delivered.append(float(m["delivered_frac"]))
+        if cuda:
+            torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    out = {"params": state.params,
+           "launches": {"packet_reduce": pr_mod.LAUNCHES,
+                        "tree_reduce": pr_mod.TREE_LAUNCHES,
+                        "dropfill": df_mod.LAUNCHES,
+                        "randomk": rk_mod.LAUNCHES},
+           "step_ms": [t * 1e3 for t in step_s],
+           "median_step_ms": st.median(step_s[1:]) * 1e3,
+           "loss": losses, "delivered": delivered}
+    if cuda:
+        out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if counter is not None:
+        out["model_collectives"] = counter.read(len(batches))
+    if profile:
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["profile_step"] = profile_step(torch, lambda: step(
+            state, batches[0], frac, 1 + len(batches), lr))
+    return out
+
+
+def tp_full_rank(torch, dist, spec: dict) -> dict:
+    """One of the two ranks of the full-width run (``spec["model"]``),
+    once the (1, 1) run's params are in ``spec["one"]`` (a ``torch.save``
+    of its leaves, written when the card is free): the kernel route, then
+    the plain route, from the same init; then the distances of this
+    rank's blocks between the two routes and to those params. Returns
+    the numbers of both runs and the distances."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import frac_schedule
+    from repro_torch.models import build
+    from repro_torch.models.sharding import model_dim, spec_at
+    from repro_torch.optim import sgd_momentum
+    from repro_torch.tree import tree_leaves, tree_leaves_with_path
+    from repro_torch.train.trainer import model_layout
+
+    dev, model = spec["device"], spec["model"]
+    api, opt = build(tp_config(model)), sgd_momentum()
+    mesh = make_host_mesh(1, 2)
+    batches = tp_batches(model)
+    t0 = time.perf_counter()
+    # the CUDA context and cuBLAS, made while the (1, 1) run holds the card
+    x = torch.ones((256, 256), dtype=torch.bfloat16, device=dev)
+    float((x @ x).sum())
+    warm_s = time.perf_counter() - t0
+    while not os.path.exists(spec["one"]):
+        if time.perf_counter() - t0 > TP_CHILD_TIMEOUT_S:
+            raise TimeoutError(f"no (1, 1) params at {spec['one']}")
+        time.sleep(0.2)
+    counter = CollectiveCounter(dist, mesh)
+    rec = {"warm_s": warm_s, "waited_s": time.perf_counter() - t0 - warm_s}
+    kept = {}
+    try:
+        for backend in ("cuda", "python"):
+            t0 = time.perf_counter()
+            params = api.init(torch.Generator(device=dev).manual_seed(0),
+                              device=dev)
+            r = tp_train(torch, api, opt, mesh, params, backend, batches,
+                         frac_schedule(0.001, 1), model["lr"],
+                         counter=counter)
+            del params
+            kept[backend] = r.pop("params")
+            r["seconds"] = time.perf_counter() - t0
+            r["steps_seconds"] = sum(r["step_ms"]) / 1e3
+            rec[backend] = r
+    finally:
+        counter.close()
+    specs = model_layout(api, mesh)
+    one = torch.load(spec["one"], mmap=True, map_location="cpu",
+                     weights_only=True)
+    idx = mesh.get_local_rank("model")
+    d_routes = d_one = 0.0
+    for (path, a), b, c in zip(tree_leaves_with_path(kept["cuda"]),
+                               tree_leaves(kept["python"]), one,
+                               strict=True):
+        dim = model_dim(spec_at(specs, path))
+        if dim is not None:
+            size = c.shape[dim] // 2
+            c = c.narrow(dim, idx * size, size)
+        c = c.to(dev)
+        d_routes = max(d_routes, (a - b).abs().max().item())
+        d_one = max(d_one, (a.float() - c.float()).abs().max().item())
+    rec["d_kernel_plain"], rec["d_one_rank"] = d_routes, d_one
+    rec["n_params_rank"] = sum(x.numel() for x in tree_leaves(kept["cuda"]))
+    return rec
+
+
+def tp_reduced_rank(torch, spec: dict) -> dict:
+    """One of four ranks on (data 2, model 2): ``TP_REDUCED`` at their
+    REDUCED configs in float32 on ``spec["device"]`` (the init moved by
+    one ulp with ``spec["nudge"]``), the psum step (paper, the ``auto``
+    backend: the gate's kernel on CUDA tensors), SGD-momentum lr 0.1,
+    fractions (0.7, 0.9), ``SHARDED_GLOO_STEPS`` steps of a (8, 32)
+    global batch; the draws are the CPU generator's for the global
+    leaves (``uniforms=``), so the CUDA and CPU runs mask alike. Returns
+    the gathered params, losses, delivered fractions and launches of
+    each model."""
+    import numpy as np
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.core import ltp_sync as ls
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build
+    from repro_torch.models.sharding import gather_params
+    from repro_torch.optim import sgd_momentum
+    from repro_torch.tree import tree_leaves
+    from repro_torch.train.trainer import model_layout
+
+    device = spec["device"]
+    mesh = make_host_mesh(2, 2)
+    w = mesh.get_local_rank("data")
+    rec = {}
+    for arch in TP_REDUCED:
+        cfg = get_reduced(arch).replace(dtype="float32")
+        api = build(cfg)
+        params = api.init(torch.Generator().manual_seed(0), device=device)
+        if spec["nudge"]:
+            params = nudged(torch, params, 7)
+        sizes = [max(1, -(-x.numel() // 360)) for x in tree_leaves(params)]
+        corpus = SyntheticLM(vocab=cfg.vocab, seed=0)
+        batches = [corpus.train_batch(SHARDED_GLOO_BATCH, SHARDED_GLOO_SEQ,
+                                      s) for s in range(SHARDED_GLOO_STEPS)]
+
+        def draws(s, state, sizes=sizes):
+            return [ls.device_uniforms(n, "cpu", 1 + s, w, 0, i)
+                    for i, n in enumerate(sizes)]
+
+        r = tp_train(torch, api, sgd_momentum(), mesh, params, "auto",
+                     batches, torch.tensor(SHARDED_GLOO_FRAC), 0.1,
+                     uniforms=draws)
+        full = gather_params(r.pop("params"), model_layout(api, mesh), mesh)
+        for i, x in enumerate(tree_leaves(full)):
+            rec[f"{arch}/params/{i}"] = x.cpu().numpy()
+        for k in ("loss", "delivered"):
+            rec[f"{arch}/{k}"] = np.asarray(r[k])
+        rec[f"{arch}/launches"] = np.asarray(r["launches"]["dropfill"])
+        rec[f"{arch}/other_launches"] = np.asarray(
+            sum(r["launches"].values()) - r["launches"]["dropfill"])
+    return rec
+
+
+def tp_child(argv) -> int:
+    """One rank of the ``tp`` phase in a process of its own:
+    ``chip_smoke.py --tp-rank RANK WORLD INIT SPEC OUT``, SPEC a JSON
+    object (``kind`` ``full``: ``tp_full_rank``, its numbers to OUT as
+    JSON; ``reduced``: ``tp_reduced_rank``, to OUT as npz). Gloo, with
+    TF32 off, one CPU thread."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    rank, world, init, spec, out = (int(argv[0]), int(argv[1]), argv[2],
+                                    json.loads(argv[3]), argv[4])
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        if spec["kind"] == "full":
+            with open(out, "w") as f:
+                json.dump(tp_full_rank(torch, dist, spec), f)
+        else:
+            np.savez(out, **tp_reduced_rank(torch, spec))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def start_tp_ranks(world: int, spec: dict, tmp: str, name: str) -> list:
+    """``world`` ``tp_child`` ranks of one run; [(process, out path)]."""
+    ext = "json" if spec["kind"] == "full" else "npz"
+    outs = [f"{tmp}/{name}{r}.{ext}" for r in range(world)]
+    return [(subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
+         str(world), f"{tmp}/{name}.init", json.dumps(spec), outs[r]],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), outs[r])
+        for r in range(world)]
+
+
+def stop_tp_ranks(procs: dict) -> None:
+    """Kills every rank of ``procs`` still running."""
+    for ps in procs.values():
+        for p, _ in ps:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def finish_tp_ranks(procs: dict) -> dict:
+    """Waits for every rank of every run of ``procs`` ({name: [(process,
+    out path)]}), kills any left on a failure, and raises unless all
+    exited 0."""
+    errs = {}
+    try:
+        for name, ps in procs.items():
+            for r, (p, _) in enumerate(ps):
+                _, errs[name, r] = p.communicate(timeout=TP_CHILD_TIMEOUT_S)
+    finally:
+        stop_tp_ranks(procs)
+    for name, ps in procs.items():
+        for r, (p, _) in enumerate(ps):
+            if p.returncode != 0:
+                raise AssertionError(f"tp {name} rank {r}: "
+                                     f"{errs[name, r][-3000:]}")
+    return {name: [path for _, path in ps] for name, ps in procs.items()}
+
+
+def run_tp_phase(torch, timer, launches_of, *, device="cuda") -> tuple:
+    """Tensor parallelism over ``model`` (the ``tp`` line).
+
+    Full width: ``TP_MODEL`` (one Mixtral-8x22b layer, bfloat16,
+    2,906,720,256 parameters), SGD-momentum at lr 3e-4, batch 32 x seq
+    128 from ``SyntheticLM(8192)``, the launcher's delivered fraction at
+    loss rate 0.001 (0.99), psum paper, 3 steps, init from a generator
+    on the card seeded 0. First at (data 1, model 1) in this
+    process (world size 1, ``launch.train.init_distributed``) through
+    the kernels, then the same from the init nudged by one ulp (the
+    rounding control), and the first run's params saved. Then two gloo
+    ranks on (data 1, model 2) sharing the card (``tp_full_rank``:
+    kernels, then the plain route), while four gloo ranks on (data 2,
+    model 2) run REDUCED smollm-360m and mixtral-8x22b on the card, and
+    four more on the CPU twice, from the init and from it nudged
+    (``tp_reduced_rank``).
+
+    Checks: the gate's kernel launched once a leaf a step (13) on each
+    kernel rank and on the (1, 1) kernel runs, no other kernel, none on
+    the plain route; kernels against plain and (1, 2) against (1, 1)
+    within twice the rounding control's distance, the delivered
+    fractions equal and the losses within rtol 1e-3 (bfloat16); step 1
+    near ln V as on the MoE path; the (2, 2) CUDA ranks against the CPU
+    ranks within twice the CPU rounding control, every rank of a run
+    holding the same global params. Then the gate (``sharded_gate_rows``)
+    at the layer's largest leaf and over its 13 leaves, held against its
+    plain version and timed. Returns (the line, the launches of the
+    kernel runs, the gate rows)."""
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import frac_schedule, init_distributed
+    from repro_torch.models import build
+    from repro_torch.optim import sgd_momentum
+    from repro_torch.tree import tree_leaves
+
+    model = TP_MODEL
+    cfg = tp_config(model)
+    api = build(cfg)
+    shapes = api.init(None, device="meta")
+    n_pkts = [max(1, -(-x.numel() // 360)) for x in tree_leaves(shapes)]
+    n_leaves = len(n_pkts)
+    line = {"config": {k: getattr(cfg, k) for k in (
+        "name", "n_layers", "d_model", "n_heads", "n_kv", "head_dim",
+        "d_ff", "n_experts", "top_k", "window", "vocab", "dtype")},
+        "n_params": sum(x.numel() for x in tree_leaves(shapes)),
+        **{k: model[k] for k in ("steps", "batch", "seq", "lr",
+                                 "data_vocab")},
+        "optimizer": "sgdm", "variant": "psum, paper",
+        "collectives": "gloo, the tensors' own dtypes (bf16 activations "
+                       "and gradient blocks; f32 combined MoE output)"}
+    expect = math.log(cfg.vocab) + 0.5 * 0.02 ** 2 * cfg.d_model + 0.01
+    batches = tp_batches(model)
+    steps = model["steps"]
+    launches = []
+    procs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            # the (2, 2) ranks first: they take the CPU while this process
+            # takes the card
+            t0 = time.perf_counter()
+            for name, dev_r, nudge in (("reduced_cuda", device, 0),
+                                       ("reduced_cpu", "cpu", 0),
+                                       ("reduced_cpu_nudged", "cpu", 1)):
+                procs[name] = start_tp_ranks(4, {"kind": "reduced",
+                                                 "device": dev_r,
+                                                 "nudge": nudge}, tmp, name)
+            # and the (1, 2) ranks, which wait for the (1, 1) run's params
+            procs["full"] = start_tp_ranks(2, {
+                "kind": "full", "device": device, "model": model,
+                "one": f"{tmp}/one.pt"}, tmp, "full")
+            # (data 1, model 1) in this process: the reference of the (1, 2)
+            # run, and the rounding control
+            gc.collect()
+            torch.cuda.empty_cache()
+            dev, tmp_pg = init_distributed(
+                "cuda:0" if device == "cuda" else device)
+            try:
+                mesh = make_host_mesh(1, 1)
+                one = {}
+                for label, nudge in (("cuda", 0), ("cuda_nudged", 1)):
+                    params = api.init(torch.Generator(device=dev)
+                                      .manual_seed(0), device=dev)
+                    if nudge:
+                        params = nudged(torch, params, 2)
+                    r = tp_train(torch, api, sgd_momentum(), mesh, params,
+                                 "cuda", batches, frac_schedule(0.001, 1),
+                                 model["lr"], profile=not nudge)
+                    if r["launches"] != launches_of(
+                            dropfill=n_leaves * steps):
+                        raise AssertionError(f"tp (1, 1) {label}: launches "
+                                             f"{r['launches']}")
+                    launches.append(r["launches"])
+                    if not nudge:
+                        prof = r["profile_step"]
+                        gate = {k: v for k, v in
+                                prof["port_kernels_ms"].items()
+                                if "dropfill" in k}
+                        n_gate = sum(n for k, n in
+                                     prof["port_launches"].items()
+                                     if "dropfill" in k)
+                        if n_gate != launches_of(dropfill=n_leaves)[
+                                "dropfill"] or len(
+                                prof["port_launches"]) != len(gate):
+                            raise AssertionError(
+                                f"tp (1, 1) profile: port launches "
+                                f"{prof['port_launches']}")
+                        prof["gate_device_ms"] = sum(gate.values())
+                    one[label] = r.pop("params")
+                    del params
+                    line[f"model1_{label}"] = r
+                ctl = distance(one["cuda"], one["cuda_nudged"])
+                del one["cuda_nudged"]
+                t1 = time.perf_counter()
+                torch.save([x.cpu() for x in tree_leaves(one["cuda"])],
+                           f"{tmp}/one.part")
+                line["model1_save_seconds"] = time.perf_counter() - t1
+                del one
+            finally:
+                dist.destroy_process_group()
+                if tmp_pg is not None:
+                    tmp_pg.cleanup()
+            gc.collect()
+            torch.cuda.empty_cache()
+            # the card is free: the (1, 2) ranks start training
+            os.replace(f"{tmp}/one.part", f"{tmp}/one.pt")
+            t1 = time.perf_counter()
+            line["model1_seconds"] = t1 - t0
+            outs = finish_tp_ranks(procs)
+            line["model2_seconds"] = time.perf_counter() - t1
+            line["children_seconds"] = time.perf_counter() - t0
+        finally:
+            stop_tp_ranks(procs)
+        full = []
+        for path in outs["full"]:
+            with open(path) as f:
+                full.append(json.load(f))
+        reduced = {name: [dict(np.load(p)) for p in outs[name]]
+                   for name in outs if name != "full"}
+
+    # the full-width (1, 2) run
+    want = launches_of(dropfill=n_leaves * steps)
+    for r, rk in enumerate(full):
+        a, b = rk["cuda"], rk["python"]
+        if a["launches"] != want or b["launches"] != launches_of():
+            raise AssertionError(f"tp (1, 2) rank {r}: launches "
+                                 f"{a['launches']} / {b['launches']}, "
+                                 f"expected {want} through the kernels")
+        one_loss = line["model1_cuda"]["loss"]
+        if (a["delivered"] != b["delivered"]
+                or a["delivered"] != line["model1_cuda"]["delivered"]
+                or any(abs(x - y) > 1e-3 * abs(y) for x, y in
+                       zip(a["loss"] + b["loss"], one_loss + one_loss))):
+            raise AssertionError(f"tp (1, 2) rank {r}: losses {a['loss']} "
+                                 f"{b['loss']} vs (1, 1) {one_loss}, "
+                                 f"delivered {a['delivered']} "
+                                 f"{b['delivered']}")
+        if not all(a["model_collectives"]["calls_per_step"].values()):
+            raise AssertionError(f"tp (1, 2) rank {r}: model-axis "
+                                 f"collectives {a['model_collectives']}")
+        launches.append(a["launches"])
+    loss = line["model1_cuda"]["loss"]
+    if not (all(math.isfinite(x) for x in loss)
+            and abs(loss[0] - expect) < 1.0):
+        raise AssertionError(f"tp: losses {loss}, step 1 expected {expect}")
+    d_routes = max(rk["d_kernel_plain"] for rk in full)
+    d_one = max(rk["d_one_rank"] for rk in full)
+    if not (d_routes <= 2 * ctl and d_one <= 2 * ctl):
+        raise AssertionError(f"tp: kernels vs plain {d_routes:.4e}, (1, 2) "
+                             f"vs (1, 1) {d_one:.4e}, over twice the "
+                             f"rounding control's {ctl:.4e}")
+    line["model2"] = {"mesh": {"data": 1, "model": 2}, "world_size": 2,
+                      "backend": "gloo", "ranks": full}
+    line["rounding"] = {"kernel_vs_plain_max_abs_diff": d_routes,
+                        "model2_vs_model1_max_abs_diff": d_one,
+                        "rounding_control_max_abs_diff": ctl}
+    line["ln_vocab"], line["loss_step1_expected"] = math.log(cfg.vocab), \
+        expect
+
+    # the reduced (2, 2) runs: the card against the CPU
+    red = {"mesh": {"data": 2, "model": 2}, "world_size": 4,
+           "steps": SHARDED_GLOO_STEPS,
+           "global_batch": [SHARDED_GLOO_BATCH, SHARDED_GLOO_SEQ],
+           "frac": list(SHARDED_GLOO_FRAC), "optimizer": "sgdm lr 0.1",
+           "configs": {}}
+    for arch in TP_REDUCED:
+        n = sum(1 for k in reduced["reduced_cuda"][0]
+                if k.startswith(f"{arch}/params/"))
+        for name, ranks in reduced.items():
+            for rk in ranks[1:]:
+                for i in range(n):
+                    if not np.array_equal(rk[f"{arch}/params/{i}"],
+                                          ranks[0][f"{arch}/params/{i}"]):
+                        raise AssertionError(f"tp {name} {arch}: the "
+                                             f"ranks' params differ at "
+                                             f"leaf {i}")
+        per_rank = {name: [int(rk[f"{arch}/launches"]) for rk in ranks]
+                    for name, ranks in reduced.items()}
+        others = [int(rk[f"{arch}/other_launches"])
+                  for ranks in reduced.values() for rk in ranks]
+        want_n = launches_of(dropfill=n * SHARDED_GLOO_STEPS)["dropfill"]
+        if per_rank != {"reduced_cuda": [want_n] * 4,
+                        "reduced_cpu": [0] * 4,
+                        "reduced_cpu_nudged": [0] * 4} or any(others):
+            raise AssertionError(f"tp reduced {arch}: gate launches "
+                                 f"{per_rank}, others {others}")
+        launches.append(launches_of(dropfill=4 * want_n))
+        cuda, cpu, ctl_r = (reduced[k][0] for k in (
+            "reduced_cuda", "reduced_cpu", "reduced_cpu_nudged"))
+
+        def tensors(d, arch=arch, n=n):
+            return [torch.as_tensor(d[f"{arch}/params/{i}"])
+                    for i in range(n)]
+
+        held = within_rounding(f"tp reduced {arch} cuda vs cpu",
+                               tensors(cuda), tensors(cpu), tensors(ctl_r))
+        if not (np.allclose(cuda[f"{arch}/loss"], cpu[f"{arch}/loss"],
+                            rtol=1e-4) and np.array_equal(
+                    cuda[f"{arch}/delivered"], cpu[f"{arch}/delivered"])):
+            raise AssertionError(f"tp reduced {arch}: cuda "
+                                 f"{cuda[f'{arch}/loss']}, cpu "
+                                 f"{cpu[f'{arch}/loss']}")
+        red["configs"][arch] = {
+            "launches_per_rank": per_rank,
+            "loss_cuda": cuda[f"{arch}/loss"].tolist(),
+            "loss_cpu": cpu[f"{arch}/loss"].tolist(),
+            "delivered": cuda[f"{arch}/delivered"].tolist(), **held}
+    line["data2_model2_reduced"] = red
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = sharded_gate_rows(torch, timer, [(n, 360) for n in n_pkts])
+    line["gate_rows"] = rows
+    return line, launches, rows
+
+
 def main() -> int:
     import torch
 
@@ -3012,6 +3590,14 @@ def main() -> int:
     print("sharded " + json.dumps(sharded_line))
     del lm_init
 
+    # tensor parallelism over the model axis: one Mixtral-8x22b layer at
+    # its published widths on (data 1, model 2) as two gloo ranks on the
+    # card against (1, 1); REDUCED models on (data 2, model 2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_line, tp_launches, tp_rows = run_tp_phase(torch, timer, launches_of)
+    print("tp " + json.dumps(tp_line))
+
     # the MoE family: mixtral-8x22b at its published widths trained over
     # the LTP PS in bfloat16, then its packet_reduce stream checked and
     # timed with the model freed; mixtral and deepseek-v2 served
@@ -3099,6 +3685,12 @@ def main() -> int:
     if sharded_path != launches_of(dropfill=sharded_path["dropfill"]) or \
             not sharded_path["dropfill"]:
         raise AssertionError(f"the sharded path launched {sharded_path}")
+    # so does the tensor-parallel path, at Mixtral's leaves (every rank's
+    # launches, the child processes' counted there): its ``tp`` entry
+    tp_path = {name: sum(r[name] for r in tp_launches) for name in counters}
+    if tp_path != launches_of(dropfill=tp_path["dropfill"]) or \
+            not tp_path["dropfill"]:
+        raise AssertionError(f"the tp path launched {tp_path}")
     main_launches = {name: sum(path_launches[name].values())
                      for name in counters}
     if main_launches["tree_reduce"] != 0:
@@ -3144,6 +3736,17 @@ def main() -> int:
                                        "bound_ms", "bound_by", "library_ms",
                                        "library_call")},
                 "step": sharded_rows["step"]}
+            # and on the tensor-parallel path, at one Mixtral layer's
+            # largest leaf and over its 13 leaves
+            row = tp_rows["leaf"]
+            line[-1]["tp"] = {
+                "shape": row["shape"], "form": "plain",
+                "launches": tp_path["dropfill"],
+                "launches_from": "main paths: tp (every rank)",
+                **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms",
+                                       "library_call")},
+                "step": tp_rows["step"]}
         if name == "packet_reduce":
             # the des16 path's shape: every launch of that phase
             e = entries["packet_reduce_w16"]
@@ -3198,4 +3801,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--sharded-gloo-rank"]:
         sys.exit(sharded_gloo_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--tp-rank"]:
+        sys.exit(tp_child(sys.argv[2:]))
     sys.exit(main())

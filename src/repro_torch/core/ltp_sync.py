@@ -48,8 +48,17 @@ from repro_torch.config import LTPConfig
 from repro_torch.core import packets as pk
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops as kops
-from repro_torch.models.sharding import axis_size, dp_axes, mesh_shape
-from repro_torch.tree import tree_leaves, tree_unflatten
+from repro_torch.models.sharding import (
+    all_gather_dim,
+    axis_size,
+    block_of,
+    dp_axes,
+    mesh_shape,
+    model_dim,
+    spec_at,
+)
+from repro_torch.tree import tree_leaves, tree_leaves_with_path, \
+    tree_unflatten
 
 BACKENDS = ("python", "cuda", "auto")
 
@@ -194,9 +203,10 @@ def worker_count(mesh, axes: Sequence[str]) -> int:
 
 def psum(t: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
     """Sum ``t`` over the ranks that differ only in ``axes``, in place
-    (one ``all_reduce`` an axis) and return it."""
+    (one ``all_reduce`` an axis of size > 1) and return it."""
     for a in axes:
-        dist.all_reduce(t, group=mesh.get_group(a))
+        if axis_size(mesh, a) > 1:
+            dist.all_reduce(t, group=mesh.get_group(a))
     return t
 
 
@@ -332,7 +342,7 @@ def leafwise_packet_masks(grads, seed: int, frac, ltp: LTPConfig, *,
 
 def masked_psum_leafwise(grads, seed: int, frac, ltp: LTPConfig, mesh,
                          worker_axes: Sequence[str], n_workers: int, *,
-                         uniforms=None):
+                         uniforms=None, specs=None):
     """Sharded LTP sync (v2, per-leaf packets): this rank's gradient tree
     in, the synced tree (every rank the same) and the realized delivered
     fraction out.
@@ -352,21 +362,37 @@ def masked_psum_leafwise(grads, seed: int, frac, ltp: LTPConfig, mesh,
 
     ``realized`` is the all-worker mean of the FIRST leaf's mask alone,
     as in the reference. ``uniforms``: this rank's per-leaf draws (a list
-    of (n_pkts,) arrays), else drawn from (``seed``, worker, 0, leaf)."""
+    of (n_pkts,) arrays), else drawn from (``seed``, worker, 0, leaf).
+
+    ``specs`` (``sharding.model_specs``): with tensor parallelism, the
+    layout of this rank's blocks. The masks are defined on the GLOBAL
+    leaf's packets, which a block split on a column dim does not tile,
+    so each sharded leaf is all-gathered over ``model``, gated and summed
+    whole, and this rank keeps its block; one gathered leaf is alive at
+    a time. Every model rank of a worker draws the same masks (the draws
+    fold the worker index alone, as the reference's key does), and
+    ``uniforms`` then holds the global leaves' draws."""
     widx = worker_index(mesh, worker_axes)
     p = ltp.packet_floats
-    leaves = tree_leaves(grads)
-    dev = leaves[0].device
+    paths = tree_leaves_with_path(grads)
+    dev = paths[0][1].device
     fw = _frac_of(frac, widx, dev)
+    nm = axis_size(mesh, "model")
     out = []
     realized = None
-    for i, leaf in enumerate(leaves):
+    for i, (path, leaf) in enumerate(paths):
+        dim = None if specs is None else model_dim(spec_at(specs, path))
+        if dim is not None:
+            leaf = all_gather_dim(leaf, mesh.get_group("model"), nm, dim)
         u = _leaf_uniforms(uniforms, i, leaf.shape, ltp, dev, seed, widx)
         m = _leaf_packet_mask(leaf.shape, u, fw, ltp)
-        view = apply_delivery(_as_packets(leaf, p), m,
-                              backend=ltp.sync_backend)
+        shape, dtype = leaf.shape, leaf.dtype
+        view = _as_packets(leaf, p)
+        del leaf
+        view = apply_delivery(view, m, backend=ltp.sync_backend)
         # one f32 all-reduce a leaf, as the reference psums each leaf
         tot = psum(view, mesh, worker_axes)
+        del view
         if ltp.compensation == "count":
             cnt = psum(m.clone(), mesh, worker_axes)
             tot = tot / torch.clamp(cnt, min=1.0)[:, None]
@@ -375,7 +401,12 @@ def masked_psum_leafwise(grads, seed: int, frac, ltp: LTPConfig, mesh,
             tot = tot / (n_workers * torch.clamp(mean_frac, min=1e-6))
         else:  # paper
             tot = tot / n_workers
-        out.append(_from_packets(tot, leaf.shape, leaf.dtype))
+        synced = _from_packets(tot, shape, dtype)
+        del tot
+        if dim is not None:
+            synced = block_of(synced, dim, nm,
+                             mesh.get_local_rank("model")).contiguous()
+        out.append(synced)
         if realized is None:
             realized = psum(m.mean(), mesh, worker_axes) / n_workers
     return tree_unflatten(grads, out), realized

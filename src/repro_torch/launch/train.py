@@ -10,12 +10,15 @@ its flags. Two modes:
       PYTHONPATH=src python -m repro_torch.launch.train --arch smollm_360m \
           --reduced --steps 100 --protocol ltp --loss-rate 0.001
 
-* sharded: the LTP train step over ``torch.distributed``, one rank a
-  worker (``train.trainer.make_ltp_train_step``), on a (data, model)
-  ``DeviceMesh`` whose data axis is the worker axis. Started by
-  ``torchrun``, it reads ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``;
-  without them it runs as world size 1 over a ``file://`` rendezvous in a
-  temporary directory.
+* sharded: the LTP train step over ``torch.distributed``
+  (``train.trainer.make_ltp_train_step``) on the (n_data, world //
+  n_data) (data, model) ``DeviceMesh``, as the JAX launcher builds it:
+  the data axis is the worker axis, and over ``model`` the model runs
+  tensor-parallel, each rank holding its block of the params. Started
+  by ``torchrun``, it reads ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``;
+  without them it runs as world size 1 over a ``file://`` rendezvous in
+  a temporary directory. ``--ckpt`` saves the global params
+  (``models.sharding.gather_params``) from rank 0.
 
       PYTHONPATH=src torchrun --nproc-per-node 1 \
           -m repro_torch.launch.train --mode sharded --steps 10
@@ -112,7 +115,9 @@ def run_sharded(args, cfg, api, opt, lm, ltp) -> list:
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.train.trainer import init_state, make_ltp_train_step
+    from repro_torch.models.sharding import gather_params
+    from repro_torch.train.trainer import init_state, make_ltp_train_step, \
+        model_layout
 
     dev, tmp = init_distributed(args.device)
     rows = []
@@ -127,7 +132,7 @@ def run_sharded(args, cfg, api, opt, lm, ltp) -> list:
         batch_specs = {"tokens": ("data",), "labels": ("data",)}
         step = make_ltp_train_step(api, opt, mesh, ltp, ("data",),
                                    batch_specs)
-        state = init_state(api, opt, 0, device=dev)
+        state = init_state(api, opt, 0, device=dev, mesh=mesh)
         frac = frac_schedule(args.loss_rate, n_data)
         for s in range(args.steps):
             b = lm.train_batch(args.batch, args.seq, s)
@@ -137,8 +142,11 @@ def run_sharded(args, cfg, api, opt, lm, ltp) -> list:
                 rows.append(row)
                 print(f"step {s:4d} loss {row[1]:.4f} delivered "
                       f"{row[2]:.3f}", flush=True)
-        if args.ckpt and dist.get_rank() == 0:
-            save_checkpoint(args.ckpt, state.params, args.steps)
+        if args.ckpt:
+            params = gather_params(state.params, model_layout(api, mesh),
+                                   mesh)
+            if dist.get_rank() == 0:
+                save_checkpoint(args.ckpt, params, args.steps)
     finally:
         dist.destroy_process_group()
         if tmp is not None:

@@ -11,11 +11,16 @@ chunks (the reference's ``lax.scan``) bounds the live scores to (B, H,
 cq, Sk_band), and sliding-window layers slice a static-length KV band
 per chunk, so window attention is O(S*w). Chunk counts and band offsets
 are Python ints computed from shapes, so every function runs under
-``torch.func.vmap`` / ``grad``. The reference's head constraints
-(``_constrain_heads``, the ``ctx`` argument) shard the heads over the
-``model`` axis; the port's sharded path (``train/trainer.py``) runs on
-worker axes alone, and tensor parallelism over ``model`` inside the
-models waits for ROADMAP.md queue 1 item 13b.
+``torch.func.vmap`` / ``grad``. The reference's head constraint
+(``_constrain_heads``) shards the heads over the ``model`` axis; here,
+under a ``ShardCtx`` (``ctx=``) whose axis both ``n_heads`` and
+``n_kv`` divide, a rank projects with its column blocks of ``wq`` /
+``wk`` / ``wv`` (its query heads and their KV heads, so GQA groups
+stay whole), attends over them (sliding window, QK-norm, RoPE and
+M-RoPE act per head) and applies its row block of ``wo``, whose
+partial output is all-reduced. Where the heads do not divide, the
+attention runs replicated on every rank: the same numbers as the
+reference's fallback to sequence sharding.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ from repro_torch.models.layers import (
     dense_init,
     rms_norm,
 )
+from repro_torch.models.sharding import copy_in, reduce_out, split
 
 NEG_INF = -1e30
 
@@ -155,16 +161,33 @@ def decode_attention(q1, cache_k, cache_v, pos, *, window: int = 0):
     return out.reshape(b, 1, h, hd)
 
 
-def _project_qkv(cfg: ModelConfig, p: Params, x):
+def heads_ctx(cfg: ModelConfig, ctx):
+    """``ctx`` where the heads split over ``model`` (both ``n_heads`` and
+    ``n_kv`` divide it), else ``None``."""
+    return split(split(ctx, cfg.n_heads), cfg.n_kv)
+
+
+def _project_qkv(cfg: ModelConfig, p: Params, x, tp=None):
+    """q, k, v of the heads whose projection columns ``p`` holds (all of
+    them, or under ``tp`` this rank's); ``x`` enters the parallel block
+    here, and so do the replicated QK-norm scales."""
     b, s, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
-    q = (x @ p["wq"]).reshape(b, s, h, hd)
-    k = (x @ p["wk"]).reshape(b, s, kv, hd)
-    v = (x @ p["wv"]).reshape(b, s, kv, hd)
+    hd = cfg.hd
+    x = copy_in(x, tp)
+    q = (x @ p["wq"]).reshape(b, s, -1, hd)
+    k = (x @ p["wk"]).reshape(b, s, -1, hd)
+    v = (x @ p["wv"]).reshape(b, s, -1, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm_scale"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm_scale"], cfg.norm_eps)
+        q = rms_norm(q, copy_in(p["q_norm_scale"], tp), cfg.norm_eps)
+        k = rms_norm(k, copy_in(p["k_norm_scale"], tp), cfg.norm_eps)
     return q, k, v
+
+
+def _out_proj(out, p: Params, tp=None):
+    """(B, S, H, hd) heads through ``wo``; under ``tp`` this rank's heads
+    through its row block, the partial sums all-reduced."""
+    b, s = out.shape[:2]
+    return reduce_out(out.reshape(b, s, -1) @ p["wo"], tp)
 
 
 def _apply_pos(cfg: ModelConfig, q, k, positions):
@@ -178,21 +201,22 @@ def _apply_pos(cfg: ModelConfig, q, k, positions):
 
 
 def self_attention(cfg: ModelConfig, p: Params, x, positions, *,
-                   window=0, causal: bool = True):
+                   window=0, causal: bool = True, ctx=None):
     """Full-sequence self attention (train / prefill).
 
     ``window`` may be a tensor (a per-layer scalar); the static band
-    optimization is applied only when it is a Python int.
+    optimization is applied only when it is a Python int. ``ctx``: the
+    heads split over ``model`` where they divide it.
     """
-    q, k, v = _project_qkv(cfg, p, x)
+    tp = heads_ctx(cfg, ctx)
+    q, k, v = _project_qkv(cfg, p, x, tp)
     q, k = _apply_pos(cfg, q, k, positions)
     if isinstance(window, int):
         out = multi_head_attention(q, k, v, causal=causal, window=window)
     else:
         # tensor window: compute full attention, mask by the window
         out = _traced_window_attention(q, k, v, window)
-    b, s = x.shape[:2]
-    return out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"]
+    return _out_proj(out, p, tp)
 
 
 def _traced_window_attention(q, k, v, window):

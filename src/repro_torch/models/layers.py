@@ -5,9 +5,20 @@ the same parameter trees (nested dicts of tensors, weights stored
 ``(d_in, d_out)`` and applied as ``x @ w``). Inits draw from a
 ``torch.Generator`` on its own device (a CPU one gives the same values
 whatever device the model then lives on): the distribution of the
-reference (normal x 0.02, RMS scales zero), not its values. Every op is
-out of place, so the functions run under ``torch.func.vmap`` /
+reference (normal x 0.02, RMS scales zero), not its values; a
+generator of ``None`` draws nothing and gives meta tensors of the same
+shapes (the layout of a global tree, ``sharding.model_specs``). Every
+op is out of place, so the functions run under ``torch.func.vmap`` /
 ``grad``.
+
+Under a ``ShardCtx`` (``ctx=``, tensor parallelism over ``model``):
+``embed_tokens`` looks up this rank's ``d_model`` columns of the table
+and gathers them; ``apply_mlp`` is column-parallel in ``w_gate`` /
+``w_up`` and row-parallel in ``w_down``; ``unembed`` gives this rank's
+vocab block of the logits (the untied head split over vocab, the tied
+table resharded from columns to rows), and ``cross_entropy`` reduces
+over such a block with a vocab-parallel logsumexp (the max and the sum
+all-reduced), so no rank holds the whole logits.
 """
 from __future__ import annotations
 
@@ -17,6 +28,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.models.sharding import (
+    all_max,
+    cols_to_rows,
+    copy_in,
+    gather,
+    reduce_out,
+    rows_of,
+    split,
+)
 
 Params = Dict[str, torch.Tensor]
 
@@ -32,7 +52,10 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 def normal(gen: torch.Generator, shape) -> torch.Tensor:
-    """Standard normals of ``shape`` drawn from ``gen`` on its device."""
+    """Standard normals of ``shape`` drawn from ``gen`` on its device;
+    with ``gen`` ``None``, a meta tensor of that shape."""
+    if gen is None:
+        return torch.empty(shape, device="meta")
     return torch.randn(shape, generator=gen, device=gen.device)
 
 
@@ -96,12 +119,18 @@ def mlp_params(gen: torch.Generator, cfg: ModelConfig, d: int, ff: int,
     }
 
 
-def apply_mlp(cfg: ModelConfig, p: Params, x):
+def apply_mlp(cfg: ModelConfig, p: Params, x, ctx=None):
+    """The dense MLP; under ``ctx``, split over ``d_ff`` when it divides
+    the ``model`` axis (else replicated)."""
+    tp = split(ctx, cfg.d_ff)
+    x = copy_in(x, tp)
     if cfg.mlp_type == "swiglu":
         g = F.silu(x @ p["w_gate"])
-        return (g * (x @ p["w_up"])) @ p["w_down"]
-    # jax.nn.gelu defaults to the tanh approximation
-    return F.gelu(x @ p["w_up"], approximate="tanh") @ p["w_down"]
+        y = (g * (x @ p["w_up"])) @ p["w_down"]
+    else:
+        # jax.nn.gelu defaults to the tanh approximation
+        y = F.gelu(x @ p["w_up"], approximate="tanh") @ p["w_down"]
+    return reduce_out(y, tp)
 
 
 # ----------------------------------------------------------------------------
@@ -162,23 +191,42 @@ def embed_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
     return p
 
 
-def embed_tokens(p: Params, tokens):
-    return F.embedding(tokens, p["embed"])
+def embed_tokens(p: Params, tokens, ctx=None):
+    """The lookup; under ``ctx`` the table is this rank's block of
+    ``d_model`` columns (``spec_for``'s ``embed`` at ``fsdp=False``) and
+    the rows are gathered over ``model``."""
+    return gather(F.embedding(tokens, p["embed"]), ctx, -1)
 
 
-def unembed(p: Params, x):
+def unembed(p: Params, x, ctx=None):
+    """Logits of the full-width ``x``. Under ``ctx``, when the padded
+    vocab divides the ``model`` axis, this rank's block of vocab columns
+    (``cross_entropy(..., ctx=ctx)`` reduces over it); otherwise the
+    whole logits on every rank."""
+    e = p["embed"]
+    vctx = split(ctx, e.shape[0])
     if "lm_head" in p:
-        return x @ p["lm_head"]
-    return x @ p["embed"].T
+        return copy_in(x, vctx) @ p["lm_head"]
+    if ctx is None:
+        return x @ e.T
+    cols = e.shape[1] != x.shape[-1]   # the table split over d_model
+    if vctx is None:
+        return x @ (gather(e, ctx, 1) if cols else e).T
+    e = cols_to_rows(e, ctx) if cols else rows_of(e, ctx)
+    return copy_in(x, ctx) @ e.T
 
 
-def cross_entropy(logits, labels, vocab: int):
+def cross_entropy(logits, labels, vocab: int, ctx=None):
     """Mean next-token CE in float32; labels < 0 are masked out.
 
     ``vocab`` is the true (unpadded) vocab — padded logit columns are
-    masked with -1e30.
+    masked with -1e30. Under ``ctx``, ``logits`` is this rank's block of
+    vocab columns, and the logsumexp and the label's logit are reduced
+    over ``model``.
     """
     logits = logits.to(torch.float32)
+    if ctx is not None:
+        return _vocab_parallel_ce(logits, labels, vocab, ctx)
     if logits.shape[-1] > vocab:
         neg = torch.full(logits.shape[:-1] + (logits.shape[-1] - vocab,),
                          -1e30, dtype=logits.dtype, device=logits.device)
@@ -186,6 +234,26 @@ def cross_entropy(logits, labels, vocab: int):
     lse = torch.logsumexp(logits, dim=-1)
     lab = torch.clamp(labels, min=0).to(torch.int64)
     picked = torch.gather(logits, -1, lab[..., None])[..., 0]
+    nll = lse - picked
+    mask = (labels >= 0).to(torch.float32)
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def _vocab_parallel_ce(logits, labels, vocab: int, ctx):
+    """``cross_entropy`` over this rank's vocab block of float32
+    ``logits``: max and sum of the logsumexp all-reduced, the label's
+    logit from the rank whose block holds it."""
+    n = logits.shape[-1]
+    off = ctx.index * n
+    col = off + torch.arange(n, device=logits.device)
+    logits = torch.where(col < vocab, logits, -1e30)
+    m = all_max(torch.amax(logits, dim=-1), ctx)
+    s = reduce_out(torch.sum(torch.exp(logits - m[..., None]), dim=-1), ctx)
+    lse = torch.log(s) + m
+    loc = torch.clamp(labels, min=0).to(torch.int64) - off
+    mine = (loc >= 0) & (loc < n)
+    picked = torch.gather(logits, -1, torch.clamp(loc, 0, n - 1)[..., None])
+    picked = reduce_out(torch.where(mine, picked[..., 0], 0.0), ctx)
     nll = lse - picked
     mask = (labels >= 0).to(torch.float32)
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -12,8 +12,15 @@ one group (``g_count = 1``), which is what this port computes. The
 port's sharded steps (``train/trainer.py``) give each rank its shard of
 the batch, which it routes as one group: the reference's grouping on a
 mesh (``tests/test_torch_trainer_sharded.py``). So the group axis is
-left out; the expert and d_ff sharding constraints over the ``model``
-axis wait for tensor parallelism, ROADMAP.md queue 1 item 13b.
+left out. Under a ``ShardCtx`` (``ctx=``) the router and the dispatch
+stay replicated (the groups come from the data axes alone) and the
+expert einsums run on the ``model`` axis, as the reference's constraints
+place them: expert-parallel when ``n_experts`` divides the axis (a rank
+runs its experts on its slice of the routed buffer), otherwise
+d_ff-parallel inside every expert (column blocks of ``experts_gate`` /
+``experts_up``, row blocks of ``experts_down``), otherwise replicated.
+Each rank combines its partial expert outputs, zeros for the experts it
+does not hold, and the combined output is all-reduced.
 
 Where the torch ops differ from JAX's:
 
@@ -38,6 +45,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.models.layers import Params, dense_init, normal
+from repro_torch.models.sharding import copy_in, reduce_out, split
 
 
 def _round_up(x: int, m: int) -> int:
@@ -126,25 +134,43 @@ def _combine_group(out_buf, s_ids, pos_c, s_tok, s_w, tg: int):
         out_buf.dtype)).to(torch.float32))
 
 
+def _experts(p: Params, buf):
+    g = F.silu(torch.einsum("ecd,edf->ecf", buf, p["experts_gate"]))
+    h = g * torch.einsum("ecd,edf->ecf", buf, p["experts_up"])
+    return torch.einsum("ecf,efd->ecd", h, p["experts_down"])
+
+
 def apply_moe(cfg: ModelConfig, p: Params, x, *,
-              capacity_factor: float = 1.25
+              capacity_factor: float = 1.25, ctx=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out (B, S, d), aux_loss).
 
     All B * S tokens form one group, routed together (token dropping at
-    the group's capacity)."""
+    the group's capacity). ``ctx``: the experts split over ``model``
+    (module docstring)."""
     b, s, d = x.shape
+    e = cfg.n_experts
     t = b * s
     xf = x.reshape(t, d)
     cap = capacity(cfg, t, capacity_factor)
     buf, s_ids, pos_c, s_tok, s_w, aux = _route_group(cfg, p, xf, cap)
-    g = F.silu(torch.einsum("ecd,edf->ecf", buf, p["experts_gate"]))
-    h = g * torch.einsum("ecd,edf->ecf", buf, p["experts_up"])
-    out_buf = torch.einsum("ecf,efd->ecd", h, p["experts_down"])
-    y = _combine_group(out_buf, s_ids, pos_c, s_tok, s_w, t).to(x.dtype)
+    tp = split(ctx, e) or split(ctx, moe_ff(cfg))
+    buf, s_w = copy_in(buf, tp), copy_in(s_w, tp)
+    if tp is not None and tp.splits(e):
+        n = e // tp.nm
+        lo = tp.index * n
+        mine = _experts(p, buf[lo:lo + n])
+        out_buf = torch.cat([mine.new_zeros((lo, cap, d)), mine,
+                             mine.new_zeros((e - lo - n, cap, d))])
+    else:
+        out_buf = _experts(p, buf)
+    y = reduce_out(_combine_group(out_buf, s_ids, pos_c, s_tok, s_w, t),
+                   tp).to(x.dtype)
 
     if cfg.n_shared_experts > 0:
         sp = p["shared"]
-        sg = F.silu(xf @ sp["w_gate"])
-        y = y + (sg * (xf @ sp["w_up"])) @ sp["w_down"]
+        stp = split(ctx, cfg.n_shared_experts * moe_ff(cfg))
+        xs = copy_in(xf, stp)
+        sg = F.silu(xs @ sp["w_gate"])
+        y = y + reduce_out((sg * (xs @ sp["w_up"])) @ sp["w_down"], stp)
     return y.reshape(b, s, d), aux

@@ -20,16 +20,42 @@ axis name, or a tuple of axis names; ``()`` is fully replicated, as
 dict, so the specs of the production meshes, (16, 16) and (2, 16, 16),
 are computed with no process group.
 
-Not carried over: ``param_shardings`` (``NamedSharding`` trees) and
-``ShardCtx`` (GSPMD activation constraints). They place and constrain
-tensors across the ``model`` axis, and the port's models have no tensor
-parallelism: every mesh the port trains on has worker axes alone of size
-> 1, and on such a mesh the JAX LTP step's ctx, which excludes the
-worker axes, constrains nothing (``src/repro/train/trainer.py:80``).
+Tensor parallelism over ``model`` (the counterpart of the reference's
+``ShardCtx`` and the GSPMD partitioning its constraints drive): a rank
+holds its block of every leaf that ``model_specs`` shards and the model
+code (``layers``, ``attention``, ``moe``, ``transformer``) computes with
+those blocks, Megatron-style, through the differentiable collectives
+below on the ``model`` process group: ``copy_in`` (identity forward,
+all-reduce backward) at the entry of a column-parallel block,
+``reduce_out`` (all-reduce forward, identity backward) after a
+row-parallel one, ``gather`` (all-gather forward, this rank's block
+backward) and ``cols_to_rows`` (the tied table's reshard). Activations
+between blocks are replicated over ``model``. ``ShardCtx`` carries the
+mesh and the group; ``None`` (every call without a model axis) means no
+collective at all.
+
+The layout is ``spec_for(..., fsdp=False)`` on the ``model`` axis, taken
+of one period's leaf for a leaf stacked over the periods (``stack``: its
+leading axis is the periods', which ``spec_for`` would take for a
+weight dim), with one exception: ``wq``, ``wk``, ``wv`` and ``wo`` stay
+replicated unless both ``n_heads`` and ``n_kv`` divide the axis, and
+the attention then runs replicated on every rank. ``spec_for`` shards
+them whenever ``H * hd`` or ``KV * hd`` divides, which would split a
+head (or a query head from its KV head) across ranks; the reference's
+fallback for such heads (``_constrain_heads``) computes the same
+numbers, on sequence shards instead. ``moe_gate`` (the router), the
+norm scales and every 1-D leaf are replicated, as ``spec_for`` says.
+
+Not carried over: ``param_shardings`` (``NamedSharding`` trees): a
+rank's block is a plain tensor (``shard_params``).
 """
 from __future__ import annotations
 
+import warnings
 from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.tree import tree_map_with_path
 
@@ -190,3 +216,237 @@ def spec_at(specs: Any, path: Tuple[Any, ...]) -> Optional[Spec]:
     for k in path:
         node = node[k]
     return node
+
+
+# ----------------------------------------------------------------------------
+# tensor parallelism over the model axis
+# ----------------------------------------------------------------------------
+
+_HEAD_LEAVES = ("wq", "wk", "wv", "wo")
+
+
+def model_dim(spec: Spec) -> Optional[int]:
+    """The dim of ``spec`` sharded over ``model``, or ``None``."""
+    for dim, entry in enumerate(spec):
+        names = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        if "model" in names:
+            return dim
+    return None
+
+
+def model_specs(cfg: Any, params_shape: Any, mesh: Any) -> Any:
+    """The model-axis layout the port's models compute with: a tree of
+    specs over a GLOBAL params (shape-)tree (module docstring)."""
+    nm = axis_size(mesh, "model")
+    heads = cfg.n_heads % nm == 0 and cfg.n_kv % nm == 0
+
+    def spec(path, leaf):
+        if _leaf_name(path) in _HEAD_LEAVES and not heads:
+            return ()
+        lead = 1 if "stack" in path else 0   # the periods' axis
+        s = spec_for(path, tuple(leaf.shape)[lead:], {"model": nm},
+                     fsdp=False)
+        return (None,) * lead + s if s else ()
+
+    return tree_map_with_path(spec, params_shape)
+
+
+def block_of(t: torch.Tensor, dim: int, n: int, idx: int) -> torch.Tensor:
+    """Block ``idx`` of ``n`` equal blocks of ``t`` on ``dim`` (a view)."""
+    size = t.shape[dim] // n
+    return t.narrow(dim, idx * size, size)
+
+
+def all_gather_dim(t: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
+    """The blocks of the ``n`` ranks of ``group`` concatenated on ``dim``
+    in rank order (no autograd)."""
+    x = t.movedim(dim, 0).contiguous()
+    out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    with warnings.catch_warnings():
+        # torch 2.13 deprecates the name for all_gather_single, which
+        # torch 2.11 lacks
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.all_gather_into_tensor(out, x, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def shard_params(params: Any, specs: Any, mesh: Any) -> Any:
+    """This rank's block of every leaf of the GLOBAL ``params`` that
+    ``specs`` (``model_specs``) shards over ``model``, as a copy (the
+    global tree can be freed); other leaves as they are."""
+    nm = axis_size(mesh, "model")
+    if nm == 1:
+        return params
+    idx = mesh.get_local_rank("model")
+
+    def take(path, leaf):
+        dim = model_dim(spec_at(specs, path))
+        return leaf if dim is None else block_of(leaf, dim, nm, idx).clone()
+
+    return tree_map_with_path(take, params)
+
+
+def gather_params(params: Any, specs: Any, mesh: Any) -> Any:
+    """The global tree from every rank's blocks (``shard_params``'s
+    inverse); a collective: every rank of the ``model`` group calls it."""
+    nm = axis_size(mesh, "model")
+    if nm == 1:
+        return params
+    group = mesh.get_group("model")
+
+    def put(path, leaf):
+        dim = model_dim(spec_at(specs, path))
+        return leaf if dim is None else all_gather_dim(leaf, group, nm, dim)
+
+    return tree_map_with_path(put, params)
+
+
+class ShardCtx:
+    """The ``model`` axis of a mesh as the model code sees it: the
+    axis's size ``nm``, this rank's coordinate ``index`` on it and its
+    process group. The batch-parallel axes are the port's worker axes,
+    which the model code never reduces over."""
+
+    def __init__(self, mesh: Any):
+        self.nm = axis_size(mesh, "model")
+        self.index = mesh.get_local_rank("model")
+        self.group = mesh.get_group("model")
+
+    def splits(self, n: int) -> bool:
+        """Whether a dim of size ``n`` splits evenly over ``model``."""
+        return n % self.nm == 0
+
+
+def tp_ctx(mesh: Any) -> Optional[ShardCtx]:
+    """A ``ShardCtx`` for a mesh whose ``model`` axis is larger than 1,
+    else ``None``."""
+    if mesh is None or axis_size(mesh, "model") == 1:
+        return None
+    return ShardCtx(mesh)
+
+
+def split(ctx: Optional[ShardCtx], n: int) -> Optional[ShardCtx]:
+    """``ctx`` where a dim of size ``n`` is split over ``model``, else
+    ``None`` (the part runs replicated)."""
+    return ctx if ctx is not None and ctx.splits(n) else None
+
+
+def _reduced(t: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
+    t = t.contiguous().clone()
+    dist.all_reduce(t, group=ctx.group)
+    return t
+
+
+class _CopyIn(torch.autograd.Function):
+    @staticmethod
+    def forward(x, ctx):
+        return x.view_as(x)
+
+    @staticmethod
+    def setup_context(fctx, inputs, output):
+        fctx.tp = inputs[1]
+
+    @staticmethod
+    def backward(fctx, g):
+        return _reduced(g, fctx.tp), None
+
+
+class _ReduceOut(torch.autograd.Function):
+    @staticmethod
+    def forward(x, ctx):
+        return _reduced(x, ctx)
+
+    @staticmethod
+    def setup_context(fctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(fctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(x, ctx, dim):
+        return all_gather_dim(x, ctx.group, ctx.nm, dim)
+
+    @staticmethod
+    def setup_context(fctx, inputs, output):
+        _, fctx.tp, fctx.dim = inputs
+
+    @staticmethod
+    def backward(fctx, g):
+        tp = fctx.tp
+        g = block_of(g, fctx.dim, tp.nm, tp.index)
+        return g.contiguous(), None, None
+
+
+class _ColsToRows(torch.autograd.Function):
+    @staticmethod
+    def forward(x, ctx):
+        full = all_gather_dim(x, ctx.group, ctx.nm, 1)
+        return block_of(full, 0, ctx.nm, ctx.index).contiguous()
+
+    @staticmethod
+    def setup_context(fctx, inputs, output):
+        fctx.tp = inputs[1]
+
+    @staticmethod
+    def backward(fctx, g):
+        tp = fctx.tp
+        full = all_gather_dim(g, tp.group, tp.nm, 0)
+        return block_of(full, 1, tp.nm, tp.index).contiguous(), None
+
+
+class _AllMax(torch.autograd.Function):
+    @staticmethod
+    def forward(x, ctx):
+        t = x.contiguous().clone()
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=ctx.group)
+        return t
+
+    @staticmethod
+    def setup_context(fctx, inputs, output):
+        fctx.mark_non_differentiable(output)
+
+    @staticmethod
+    def backward(fctx, g):
+        return None, None
+
+
+def copy_in(x: torch.Tensor, ctx: Optional[ShardCtx]) -> torch.Tensor:
+    """A replicated tensor entering a parallel block: the identity
+    forward, its gradient summed over ``model`` backward."""
+    return x if ctx is None else _CopyIn.apply(x, ctx)
+
+
+def reduce_out(x: torch.Tensor, ctx: Optional[ShardCtx]) -> torch.Tensor:
+    """The partial results of a parallel block summed over ``model``;
+    the gradient passes unchanged."""
+    return x if ctx is None else _ReduceOut.apply(x, ctx)
+
+
+def gather(x: torch.Tensor, ctx: Optional[ShardCtx],
+           dim: int) -> torch.Tensor:
+    """Every rank's block of ``x`` concatenated on ``dim``; backward,
+    this rank's block of the gradient."""
+    return x if ctx is None else _Gather.apply(x, ctx, dim % x.ndim)
+
+
+def cols_to_rows(x: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
+    """A table split on its columns (dim 1) resharded to this rank's
+    block of rows (dim 0), and back for the gradient: the reference's
+    tied-embedding reshard (``src/repro/models/layers.py:150-159``)."""
+    return _ColsToRows.apply(x, ctx)
+
+
+def rows_of(x: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
+    """This rank's block of rows of a replicated table used inside a
+    parallel block (its gradient summed over ``model``)."""
+    return block_of(copy_in(x, ctx), 0, ctx.nm, ctx.index)
+
+
+def all_max(x: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
+    """The elementwise maximum over ``model``, a constant for autograd
+    (a logsumexp's shift)."""
+    return _AllMax.apply(x, ctx)

@@ -43,6 +43,14 @@ SSM states for 'M' / 'M2'). A prefill of an SSM layer returns the
 
 The enc-dec family (``family="audio"``, whisper) is ``models/encdec.py``;
 its stacked layers are rematerialised by this module's ``_Remat`` too.
+
+``forward`` and ``loss_fn`` take ``ctx``, a ``sharding.ShardCtx``: the
+params are then this rank's blocks (``sharding.model_specs``) and the
+dense, VLM and MoE layers run tensor-parallel over ``model``
+(``layers``, ``attention``, ``moe``); the logits are this rank's vocab
+block where the vocab divides the axis. Every rank issues the same
+collectives in the same order, in the forward and again in each remat
+recompute. Decode takes no ``ctx``.
 """
 from __future__ import annotations
 
@@ -71,6 +79,7 @@ from repro_torch.models.layers import (
     norm_params,
     unembed,
 )
+from repro_torch.models.sharding import split
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -213,8 +222,10 @@ def init(generator: torch.Generator, cfg: ModelConfig, *,
 # ----------------------------------------------------------------------------
 
 
-def _apply_mixer(cfg, code, p, x, positions, *, collect_cache=False):
-    """Returns (out, cache_or_None)."""
+def _apply_mixer(cfg, code, p, x, positions, *, collect_cache=False,
+                 ctx=None):
+    """Returns (out, cache_or_None). ``ctx`` reaches the attention
+    mixers ('A', 'W') alone."""
     if code == "M":
         return ssm.mamba1_forward(cfg, p, x), None
     if code == "M2":
@@ -227,11 +238,12 @@ def _apply_mixer(cfg, code, p, x, positions, *, collect_cache=False):
             cache = {"ckv": ckv, "krope": krope[:, :, 0, :]}
         return out, cache
     w = window_for(cfg, code)
-    q, k, v = attn._project_qkv(cfg, p, x)
+    tp = attn.heads_ctx(cfg, ctx)
+    q, k, v = attn._project_qkv(cfg, p, x, tp)
     q, k = attn._apply_pos(cfg, q, k, positions)
-    out = attn.multi_head_attention(q, k, v, causal=True, window=w)
-    b, s = x.shape[:2]
-    out = out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"]
+    out = attn._out_proj(
+        attn.multi_head_attention(q, k, v, causal=True, window=w), p, tp)
+    s = x.shape[1]
     cache = None
     if collect_cache:
         if w > 0 and s > w:
@@ -241,25 +253,26 @@ def _apply_mixer(cfg, code, p, x, positions, *, collect_cache=False):
     return out, cache
 
 
-def _apply_ffn(cfg, p, x):
+def _apply_ffn(cfg, p, x, ctx=None):
     """The layer's dense MLP or mixture of experts (or nothing) on the
     residual ``x``. Returns (x, aux loss or None)."""
     if "mlp" in p:
         h = apply_norm(cfg, p["norm2"], x)
-        return x + apply_mlp(cfg, p["mlp"], h), None
+        return x + apply_mlp(cfg, p["mlp"], h, ctx), None
     if "moe" in p:
         y, aux = moe_mod.apply_moe(cfg, p["moe"],
-                                   apply_norm(cfg, p["norm2"], x))
+                                   apply_norm(cfg, p["norm2"], x), ctx=ctx)
         return x + y, aux
     return x, None
 
 
-def _apply_layer(cfg, code, p, x, positions, *, collect_cache=False):
+def _apply_layer(cfg, code, p, x, positions, *, collect_cache=False,
+                 ctx=None):
     """Returns (x, aux loss or None, cache_or_None)."""
     h = apply_norm(cfg, p["norm1"], x)
     mix, cache = _apply_mixer(cfg, code, p["mixer"], h, positions,
-                              collect_cache=collect_cache)
-    x, aux = _apply_ffn(cfg, p, x + mix)
+                              collect_cache=collect_cache, ctx=ctx)
+    x, aux = _apply_ffn(cfg, p, x + mix, ctx)
     return x, aux, cache
 
 
@@ -284,10 +297,15 @@ def _positions_for(cfg: ModelConfig, inputs: Dict[str, Any], s: int, b: int,
     return pos
 
 
-def embed_inputs(cfg: ModelConfig, params: Params, inputs: Dict[str, Any]):
-    """Token (+ modality-stub) embedding. Returns (x, positions)."""
+def embed_inputs(cfg: ModelConfig, params: Params, inputs: Dict[str, Any],
+                 ctx=None):
+    """Token (+ modality-stub) embedding. Returns (x, positions). Under
+    ``ctx`` the table's ``d_model`` columns are split over ``model`` (when
+    they divide it) and the looked-up rows gathered before the VLM's
+    (replicated) patch embeddings join them."""
     tok = inputs["tokens"]
-    x = embed_tokens(params["embed"], tok).to(dtype_of(cfg.dtype))
+    x = embed_tokens(params["embed"], tok, split(ctx, cfg.d_model)).to(
+        dtype_of(cfg.dtype))
     if cfg.family == "vlm" and "patch_embeds" in inputs:
         x = torch.cat([inputs["patch_embeds"].to(x.dtype), x], dim=1)
     b, s = x.shape[:2]
@@ -347,7 +365,7 @@ class _Remat(torch.autograd.Function):
 
 
 def _remat_body(cfg: ModelConfig, plan: LayerPlan, slice_tree: Params,
-                shared: Any):
+                shared: Any, ctx=None):
     """One period's body, for ``_Remat``: the period slice's layers and,
     in the hybrid, the shared block, over the carry (x, aux) and the
     flattened leaves of (slice, shared). Returns (body, leaves)."""
@@ -360,7 +378,7 @@ def _remat_body(cfg: ModelConfig, plan: LayerPlan, slice_tree: Params,
         t = tree_unflatten(tree, list(flat))
         for j, code in enumerate(plan.period_codes):
             x, a, _ = _apply_layer(cfg, code, t["slice"][f"p{j}"], x,
-                                   positions)
+                                   positions, ctx=ctx)
             if a is not None:
                 aux = aux + a
         if plan.shared_attn:
@@ -387,6 +405,7 @@ def forward(
     collect_cache: bool = False,
     remat: bool = True,
     last_only: bool = False,
+    ctx=None,
 ):
     """Full-sequence forward. With ``remat``, each stacked period is
     rematerialised in the backward (``_Remat``); the ``lead`` and
@@ -396,10 +415,11 @@ def forward(
     Returns (logits, aux_loss, caches) — caches is a dict with 'lead'/'stack'/
     'rem'/'shared' entries when collect_cache else None; ``stack`` holds
     each period position's cache (and the hybrid's shared block's, under
-    ``shared``) stacked over the periods.
+    ``shared``) stacked over the periods. Under ``ctx`` the logits are
+    this rank's vocab block where the padded vocab divides ``model``.
     """
     plan = make_plan(cfg)
-    x, positions = embed_inputs(cfg, params, inputs)
+    x, positions = embed_inputs(cfg, params, inputs, ctx)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches: Dict[str, Any] = {"lead": [], "rem": [], "stack": None,
                               "shared": None}
@@ -407,7 +427,7 @@ def forward(
     def layer(p, code, x):
         nonlocal aux
         x, a, c = _apply_layer(cfg, code, p, x, positions,
-                               collect_cache=collect_cache)
+                               collect_cache=collect_cache, ctx=ctx)
         if a is not None:
             aux = aux + a
         return x, c
@@ -422,7 +442,7 @@ def forward(
         period_caches = []
         for sl in _unstack(params["stack"], plan.n_periods):
             if use_remat:
-                body, leaves = _remat_body(cfg, plan, sl, shared_p)
+                body, leaves = _remat_body(cfg, plan, sl, shared_p, ctx)
                 x, aux = _Remat.apply(body, positions, x, aux, *leaves)
                 continue
             pc = {}
@@ -441,14 +461,15 @@ def forward(
     x = apply_norm(cfg, params["final_norm"], x)
     if last_only:
         x = x[:, -1:, :]
-    logits = unembed(params["embed"], x)
+    logits = unembed(params["embed"], x, ctx)
     return logits, aux, (caches if collect_cache else None)
 
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
-            *, remat: bool = True):
-    logits, aux, _ = forward(cfg, params, batch, remat=remat)
-    loss = cross_entropy(logits, batch["labels"], cfg.vocab)
+            *, remat: bool = True, ctx=None):
+    logits, aux, _ = forward(cfg, params, batch, remat=remat, ctx=ctx)
+    loss = cross_entropy(logits, batch["labels"], cfg.vocab,
+                         split(ctx, cfg.vocab_padded))
     if cfg.n_experts > 0:
         loss = loss + 0.01 * aux
     return loss

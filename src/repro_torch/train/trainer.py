@@ -14,13 +14,18 @@ The PyTorch counterpart of the JAX package's ``train/trainer.py``:
                            compensated and applied (paper §III).
 
 The JAX step runs the forward and backward inside a ``shard_map`` manual
-over the worker axes and auto (GSPMD) over the rest. Here a rank holds
-the whole model and computes its gradient with ``torch.func.
-grad_and_value`` of the model's ``loss_fn`` (remat on, as the LM paths
-train); the collectives of ``core.ltp_sync`` stand for ``psum`` and
-friends. A mesh with a non-worker axis larger than 1 would need tensor
-parallelism inside the models, GSPMD's work in JAX, which the port does
-not have yet: both step makers refuse it.
+over the worker axes and auto (GSPMD) over the rest. Here a rank
+computes its gradient with ``torch.func.grad_and_value`` of the model's
+``loss_fn`` (remat on, as the LM paths train); the collectives of
+``core.ltp_sync`` stand for ``psum`` and friends. On a mesh whose
+``model`` axis is larger than 1 the rank holds its block of every leaf
+that ``sharding.model_specs`` shards (``init_state(..., mesh=)``,
+``sharding.shard_params``), the model runs tensor-parallel over
+``model`` (``models.sharding.ShardCtx``: GSPMD's work in JAX), and the
+optimizer updates the blocks. That covers the dense, VLM and MoE
+families; MLA, the SSM and hybrid families, the enc-dec family, the
+CNN, the ZeRO variant and a non-worker ``data`` or ``pod`` axis are
+refused at ``model`` > 1 (ROADMAP.md queue 1 item 13d).
 """
 from __future__ import annotations
 
@@ -35,7 +40,8 @@ from repro_torch.config import LTPConfig
 from repro_torch.core import ltp_sync as ls
 from repro_torch.device import DeviceLike
 from repro_torch.models.api import ModelApi
-from repro_torch.models.sharding import dp_axes, mesh_shape, spec_at
+from repro_torch.models.sharding import axis_size, dp_axes, mesh_shape, \
+    model_specs, shard_params, spec_at, tp_ctx
 from repro_torch.optim import Optimizer
 from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path, \
     tree_unflatten
@@ -48,13 +54,30 @@ class TrainState:
     step: torch.Tensor
 
 
+def model_layout(api: ModelApi, mesh) -> Any:
+    """The model-axis specs of ``api``'s params on ``mesh``
+    (``sharding.model_specs`` over a meta init), or ``None`` where the
+    mesh has no ``model`` axis larger than 1."""
+    if mesh is None or axis_size(mesh, "model") == 1:
+        return None
+    return model_specs(api.cfg, api.init(None, device="meta"), mesh)
+
+
 def init_state(api: ModelApi, opt: Optimizer, seed: int = 0, *,
-               device: DeviceLike = None, params: Any = None) -> TrainState:
+               device: DeviceLike = None, params: Any = None,
+               mesh=None) -> TrainState:
     """Params from ``api.init`` with a CPU generator seeded ``seed`` (or
-    the given ``params``) on ``device`` (``None`` means ``cuda``), the
-    optimizer's state and step 0."""
+    the given GLOBAL ``params``) on ``device`` (``None`` means ``cuda``),
+    the optimizer's state and step 0. On a ``mesh`` whose ``model`` axis
+    is larger than 1, the state holds this rank's blocks
+    (``model_layout``)."""
+    if mesh is not None and axis_size(mesh, "model") > 1:
+        _check_tp(api)
     if params is None:
         params = api.init(torch.Generator().manual_seed(seed), device=device)
+    specs = model_layout(api, mesh)
+    if specs is not None:
+        params = shard_params(params, specs, mesh)
     dev = tree_leaves(params)[0].device
     return TrainState(params=params, opt_state=opt.init(params),
                       step=torch.zeros((), dtype=torch.int32, device=dev))
@@ -64,7 +87,9 @@ def zero_opt_state(params: Any, ltp: LTPConfig, mesh,
                    worker_axes: Sequence[str]) -> Dict[str, Any]:
     """The ZeRO variant's optimizer state: this rank's zero shard of each
     leaf's packet-space momentum (``ls.zero_momentum_shapes`` rows over
-    W), as ``{"m_pkts": [...]}``, which selects that variant."""
+    W), as ``{"m_pkts": [...]}``, which selects that variant. Refused at
+    ``model`` > 1 (item 13d): its packet space is the global leaf's."""
+    _refuse_zero(mesh)
     w = ls.worker_count(mesh, worker_axes)
     dev = tree_leaves(params)[0].device
     return {"m_pkts": [torch.zeros((n // w, p), dtype=torch.float32,
@@ -72,14 +97,43 @@ def zero_opt_state(params: Any, ltp: LTPConfig, mesh,
                        for n, p in ls.zero_momentum_shapes(params, ltp, w)]}
 
 
-def _check_mesh(mesh, worker_axes: Sequence[str]) -> None:
+TP_FAMILIES = ("dense", "vlm", "moe")
+
+
+def _refuse(what: str) -> None:
+    raise NotImplementedError(
+        f"{what} on a mesh whose 'model' axis is larger than 1 is not "
+        f"ported: ROADMAP.md queue 1 item 13d; give the axis size 1")
+
+
+def _refuse_zero(mesh) -> None:
+    if axis_size(mesh, "model") > 1:
+        _refuse("the ZeRO variant of make_ltp_train_step")
+
+
+def _check_tp(api: ModelApi) -> None:
+    """Tensor parallelism covers the dense, VLM and MoE families without
+    MLA."""
+    cfg = api.cfg
+    if cfg.family not in TP_FAMILIES:
+        _refuse(f"the {cfg.family!r} family ({cfg.name})")
+    if "L" in cfg.pattern_layers:
+        _refuse(f"MLA ({cfg.name})")
+
+
+def _check_mesh(api: ModelApi, mesh, worker_axes: Sequence[str]) -> None:
+    """Every axis of size > 1 is a worker axis or ``model``; a ``model``
+    axis > 1 needs a family that runs tensor-parallel."""
     for name, size in mesh_shape(mesh).items():
-        if name not in worker_axes and size > 1:
+        if name in worker_axes or size == 1:
+            continue
+        if name != "model":
             raise NotImplementedError(
-                f"mesh axis {name!r} of size {size} is not a worker axis: "
-                f"sharding the model over it needs tensor parallelism "
-                f"inside the port's models, which is ROADMAP.md queue 1 "
-                f"item 13b; give it size 1")
+                f"mesh axis {name!r} of size {size} is neither a worker "
+                f"axis nor 'model': data parallelism inside a worker is "
+                f"not ported (ROADMAP.md queue 1 item 13d); give it size "
+                f"1")
+        _check_tp(api)
 
 
 def _to(x, device) -> torch.Tensor:
@@ -103,8 +157,10 @@ def _block(x, spec, mesh, device) -> torch.Tensor:
     return x
 
 
-def _loss_and_grads(api: ModelApi, params, batch):
-    grads, loss = grad_and_value(lambda p: api.loss_fn(p, batch))(params)
+def _loss_and_grads(api: ModelApi, params, batch, ctx=None):
+    kw = {} if ctx is None else {"ctx": ctx}
+    grads, loss = grad_and_value(
+        lambda p: api.loss_fn(p, batch, **kw))(params)
     return loss.detach(), grads
 
 
@@ -118,10 +174,13 @@ def make_plain_train_step(api: ModelApi, opt: Optimizer,
     Without a mesh, one process takes the whole batch. With one, each
     rank takes its block of dim 0 of the global batch over the mesh's
     data axes (pod, data), and the gradients and the loss are averaged
-    over them by ``all_reduce``."""
+    over them by ``all_reduce``; over a ``model`` axis the model runs
+    tensor-parallel on the state's blocks."""
     axes = dp_axes(mesh) if mesh is not None else ()
+    ctx = None
     if mesh is not None:
-        _check_mesh(mesh, axes)
+        _check_mesh(api, mesh, axes)
+        ctx = tp_ctx(mesh)
     n = ls.worker_count(mesh, axes) if mesh is not None else 1
     split = (axes if len(axes) > 1 else axes[0],) if axes else ()
 
@@ -132,7 +191,7 @@ def make_plain_train_step(api: ModelApi, opt: Optimizer,
         else:
             batch = tree_map_with_path(
                 lambda path, x: _block(x, split, mesh, dev), batch)
-        loss, grads = _loss_and_grads(api, state.params, batch)
+        loss, grads = _loss_and_grads(api, state.params, batch, ctx)
         if mesh is not None:
             grads = tree_map(lambda g: ls.psum(g, mesh, axes) / n, grads)
             loss = ls.psum(loss.clone(), mesh, axes) / n
@@ -167,11 +226,14 @@ def make_ltp_train_step(api: ModelApi, opt: Optimizer, mesh,
     {"loss", "delivered_frac"})``.
 
     worker_axes: the mesh axes whose members act as the paper's workers,
-    ('data',), ('pod',) or ('pod', 'data'); every other axis must have
-    size 1. batch_specs: a tree of specs for the GLOBAL batch, which
-    every rank passes whole; each takes its block along the worker axes
-    (the other axes of a spec are dropped, as the reference restricts
-    them). frac: (W,) delivered fraction a worker; seed: the step's seed
+    ('data',), ('pod',) or ('pod', 'data'); every other axis but
+    ``model`` must have size 1, and over ``model`` the model runs
+    tensor-parallel on the state's blocks (``init_state(..., mesh=)``),
+    each sharded leaf gated on its global view
+    (``ls.masked_psum_leafwise``'s ``specs``). batch_specs: a tree of
+    specs for the GLOBAL batch, which every rank passes whole; each takes
+    its block along the worker axes (the other axes of a spec are
+    dropped, as the reference restricts them). frac: (W,) delivered fraction a worker; seed: the step's seed
     for the delivery draws, or ``uniforms``, this rank's per-leaf draws.
 
     Two variants, chosen as in the reference: the psum variant
@@ -182,19 +244,22 @@ def make_ltp_train_step(api: ModelApi, opt: Optimizer, mesh,
     params' dtype and added). The loss is the mean over workers of each
     worker's loss on its block."""
     worker_axes = tuple(worker_axes)
-    _check_mesh(mesh, worker_axes)
+    _check_mesh(api, mesh, worker_axes)
     n_workers = ls.worker_count(mesh, worker_axes)
+    ctx = tp_ctx(mesh)
+    specs = model_layout(api, mesh)
 
     def local(state: TrainState, batch):
         dev = tree_leaves(state.params)[0].device
         batch = tree_map_with_path(lambda path, x: _block(
             x, _restrict(spec_at(batch_specs, path), worker_axes), mesh,
             dev), batch)
-        loss, grads = _loss_and_grads(api, state.params, batch)
+        loss, grads = _loss_and_grads(api, state.params, batch, ctx)
         loss = ls.psum(loss.clone(), mesh, worker_axes) / n_workers
         return loss, grads
 
     def zero_step(state: TrainState, batch, frac, seed, lr, uniforms):
+        _refuse_zero(mesh)
         loss, grads = local(state, batch)
         deltas, m_pkts, realized = ls.masked_rs_update_leafwise(
             grads, state.params, state.opt_state["m_pkts"], seed, frac, ltp,
@@ -215,7 +280,7 @@ def make_ltp_train_step(api: ModelApi, opt: Optimizer, mesh,
         loss, grads = local(state, batch)
         synced, realized = ls.masked_psum_leafwise(
             grads, seed, frac, ltp, mesh, worker_axes, n_workers,
-            uniforms=uniforms)
+            uniforms=uniforms, specs=specs)
         updates, opt_state = opt.update(synced, state.opt_state,
                                         state.params, lr)
         return (TrainState(_apply(state.params, updates), opt_state,

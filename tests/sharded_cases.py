@@ -18,10 +18,18 @@ Tasks: ``sync`` (``masked_psum_leafwise``, ``masked_rs_update_leafwise``
 and ``LTPSync`` on (data 2, model 1), and ``LTPSync`` on (data 2, model
 2) with 4 ranks) and ``train`` (both variants of ``make_ltp_train_step``
 on REDUCED smollm-360m cut to 2 layers, one step each, and the plain
-step on REDUCED mixtral-8x22b, whose router groups by data shard). Each
-rank task
-ends with a planted fault: the same case with the rank-to-worker mapping
-reversed, which the tests require to disagree with the reference.
+step on REDUCED mixtral-8x22b, whose router groups by data shard) and
+``tp`` (tensor parallelism over ``model``: the psum step under paper and
+count compensation on REDUCED smollm-360m cut to 2 layers, REDUCED
+mixtral-8x22b, expert-parallel, and REDUCED qwen2-vl, and the plain step
+on REDUCED mixtral, on (data 2, model 2) against the JAX step on the
+same mesh; the rank task ``tp12`` runs the same models and mixtral with
+3 experts, d_ff-parallel, on (data 1, model 2), and ``tp14`` smollm on
+(data 1, model 4), whose 6 heads do not divide 4, each held against the
+port's own (1, 1) step, since the reference cannot run (1, n)). Each
+rank task ends with a planted fault: the same case with the
+rank-to-worker mapping reversed (``tp``: the model ranks' blocks
+swapped), which the tests require to disagree with the reference.
 
 The ``train`` reference runs ``make_ltp_train_step`` with its
 ``shard_map`` check off. With the check on, as the JAX package calls it,
@@ -39,6 +47,7 @@ import datetime
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 
@@ -59,6 +68,16 @@ TRAIN_CASES = (("psum", "paper"), ("psum", "count"), ("psum", "expected"),
                ("zero", "paper"), ("zero", "count"))
 TRAIN_B, TRAIN_S, TRAIN_FRAC = 4, 16, (0.7, 0.9)
 TIMEOUT_S = 300
+# the tp task's models: (architecture, overrides of its REDUCED config)
+TP_MODELS = {"smollm": ("smollm_360m", {"n_layers": 2}),
+             "mixtral": ("mixtral_8x22b", {}),
+             "qwen2vl": ("qwen2_vl_72b", {})}
+TP_COMPS = ("paper", "count")
+# the (1, n) ranks' models and meshes, against the port's (1, 1) step
+TP_LOCAL = {"tp12": ("smollm", "mixtral", "qwen2vl", "mixtral_e3"),
+            "tp14": ("smollm",)}
+TP_MESH = {"tp": (2, 2), "tp12": (1, 2), "tp14": (1, 4)}
+TP_SEED = 3
 
 
 def env() -> dict:
@@ -68,39 +87,68 @@ def env() -> dict:
                 OMP_NUM_THREADS="1")
 
 
+def _start(args: list, log: str) -> subprocess.Popen:
+    """This file as a subprocess, its output to ``log`` (a file, so that
+    no pipe fills while another process is waited on)."""
+    with open(log, "w") as f:
+        return subprocess.Popen([sys.executable, __file__, *args],
+                                env=env(), stdout=f, stderr=subprocess.STDOUT)
+
+
+def _finish(procs: list, logs: list, what: str) -> None:
+    """Wait for ``procs``; one that hangs fails the run at the timeout,
+    and every one is killed."""
+    try:
+        for p in procs:
+            p.wait(timeout=TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, (p, log) in enumerate(zip(procs, logs)):
+        with open(log) as f:
+            assert p.returncode == 0, f"{what} {i}: {f.read()[-4000:]}"
+
+
+def start_jax(task: str, out: str):
+    """The JAX reference of ``task`` started in a subprocess."""
+    return _start(["jax", task, out], out + ".log"), out
+
+
+def finish_jax(started) -> dict:
+    proc, out = started
+    _finish([proc], [out + ".log"], "jax")
+    return dict(np.load(out))
+
+
 def run_jax(task: str, out: str) -> dict:
     """The JAX reference of ``task`` in a subprocess; its npz as a dict."""
-    proc = subprocess.run([sys.executable, __file__, "jax", task, out],
-                          env=env(), capture_output=True, text=True,
-                          timeout=TIMEOUT_S)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    return dict(np.load(out))
+    return finish_jax(start_jax(task, out))
+
+
+def start_ranks(task: str, world: int, ref: str, tmp: str):
+    """``world`` gloo ranks of the port on ``task``, started."""
+    init = os.path.join(tmp, f"{task}{world}.init")
+    outs = [os.path.join(tmp, f"{task}{world}_rank{r}.npz")
+            for r in range(world)]
+    procs = [_start(["rank", task, str(r), str(world), init, ref, outs[r]],
+                    outs[r] + ".log") for r in range(world)]
+    return procs, outs
+
+
+def finish_ranks(started) -> list:
+    """Each rank's npz as a dict, in rank order."""
+    procs, outs = started
+    _finish(procs, [o + ".log" for o in outs], "rank")
+    return [dict(np.load(o)) for o in outs]
 
 
 def run_ranks(task: str, world: int, ref: str, tmp: str) -> list:
     """``world`` gloo ranks of the port on ``task``; each rank's npz as a
     dict, in rank order. A rank that hangs fails the run at the
     timeout, and every rank is killed."""
-    init = os.path.join(tmp, f"{task}{world}.init")
-    outs = [os.path.join(tmp, f"{task}{world}_rank{r}.npz")
-            for r in range(world)]
-    procs = [subprocess.Popen(
-        [sys.executable, __file__, "rank", task, str(r), str(world), init,
-         ref, outs[r]], env=env(), stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for r in range(world)]
-    errs = []
-    try:
-        for p in procs:
-            _, err = p.communicate(timeout=TIMEOUT_S)
-            errs.append(err)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, p in enumerate(procs):
-        assert p.returncode == 0, f"rank {r}: {errs[r][-4000:]}"
-    return [dict(np.load(o)) for o in outs]
+    return finish_ranks(start_ranks(task, world, ref, tmp))
 
 
 @contextlib.contextmanager
@@ -364,6 +412,38 @@ def moe_cfg(get_reduced):
     return get_reduced("mixtral_8x22b").replace(dtype="float32")
 
 
+def tp_cfg(get_reduced, name: str):
+    """A tp case's config: ``TP_MODELS``, and ``mixtral_e3``, REDUCED
+    mixtral with 3 experts (which 2 does not divide)."""
+    if name == "mixtral_e3":
+        return tp_cfg(get_reduced, "mixtral").replace(n_experts=3)
+    arch, over = TP_MODELS[name]
+    return get_reduced(arch).replace(dtype="float32", **over)
+
+
+def tp_batch(cfg, seed: int) -> dict:
+    """A (TRAIN_B, TRAIN_S) global batch from a numpy seed; the VLM's
+    adds patch embeddings for half the positions and M-RoPE ids."""
+    rng = np.random.default_rng(seed)
+    n_text = TRAIN_S - (TRAIN_S // 2 if cfg.family == "vlm" else 0)
+    b = {"tokens": rng.integers(0, cfg.vocab, (TRAIN_B, n_text)),
+         "labels": rng.integers(0, cfg.vocab, (TRAIN_B, TRAIN_S))}
+    b = {k: v.astype(np.int32) for k, v in b.items()}
+    if cfg.family == "vlm":
+        b["patch_embeds"] = (rng.normal(size=(
+            TRAIN_B, TRAIN_S - n_text, cfg.d_model)) * 0.02).astype(
+                np.float32)
+        b["positions3"] = rng.integers(0, TRAIN_S, (3, TRAIN_B, TRAIN_S)) \
+            .astype(np.int32)
+    return b
+
+
+def tp_batch_specs(batch: dict) -> dict:
+    """Every batch leaf split over ``data`` on its batch dim."""
+    return {k: (None, "data") if k == "positions3" else ("data",)
+            for k in batch}
+
+
 def jax_plain_moe(rec: dict) -> None:
     """The reference's plain (GSPMD) step on REDUCED mixtral over the two
     devices, the batch split over ``data``: its router takes one group a
@@ -396,6 +476,104 @@ def jax_plain_moe(rec: dict) -> None:
     for i, x in enumerate(jax.tree.leaves(new.params)):
         rec[f"out/plain_moe/params/{i}"] = np.asarray(x)
     rec["out/plain_moe/loss"] = np.asarray(m["loss"])
+
+
+def tp_inputs(out: str) -> str:
+    """Where ``jax_tp`` writes its inputs first (``wait_for_inputs``)."""
+    return out + ".in.npz"
+
+
+def wait_for_inputs(started) -> str:
+    """The path of the tp inputs once the JAX process has written them;
+    fails if it exits first or takes past the timeout."""
+    proc, out = started
+    path = tp_inputs(out)
+    t0 = time.monotonic()
+    while not os.path.exists(path):
+        if proc.poll() is not None or time.monotonic() - t0 > TIMEOUT_S:
+            finish_jax(started)
+            raise AssertionError(f"no tp inputs at {path}")
+        time.sleep(0.2)
+    return path
+
+
+def jax_tp(out: str) -> None:
+    """The JAX step on a (data 2, model 2) mesh of 4 host devices, its
+    params replicated as the reference's ``init_state`` leaves them and
+    GSPMD partitioning the model over ``model``: one psum step a model
+    and compensation, and the plain step on REDUCED mixtral. The inputs
+    (params, batches, every worker's draws) go to ``tp_inputs(out)``
+    first, so the port's ranks can start while the steps compile."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding
+
+    from repro import compat
+    from repro.config import LTPConfig
+    from repro.configs import get_reduced
+    from repro.models import build
+    from repro.optim import sgd_momentum
+    from repro.train.trainer import init_state, make_ltp_train_step, \
+        make_plain_train_step
+
+    rec = {}
+    key = jax.random.PRNGKey(TP_SEED)
+    mesh = _jax_mesh(TP_MESH["tp"])
+    frac = jnp.asarray(TRAIN_FRAC, jnp.float32)
+    models = {}
+    for name in TP_MODELS:
+        api, opt = build(tp_cfg(get_reduced, name)), sgd_momentum()
+        state = init_state(api, opt, jax.random.PRNGKey(0))
+        leaves = jax.tree.leaves(state.params)
+        batch = tp_batch(api.cfg, 1)
+        models[name] = (api, opt, state, batch)
+        for i, x in enumerate(leaves):
+            rec[f"in/{name}/params/{i}"] = np.asarray(x)
+        rec.update({f"in/{name}/batch/{k}": v for k, v in batch.items()})
+        sizes = [max(1, -(-x.size // LTPConfig().packet_floats))
+                 for x in leaves]
+
+        @jax.jit
+        def draws(k, sizes=tuple(sizes)):
+            # the reference's per-worker, per-leaf draws
+            return [[jax.random.uniform(jax.random.fold_in(
+                jax.random.fold_in(k, w), i), (n,))
+                for i, n in enumerate(sizes)] for w in range(W)]
+
+        for w, us in enumerate(draws(key)):
+            for i, u in enumerate(us):
+                rec[f"u/{name}/{w}/{i}"] = np.asarray(u)
+    np.savez(out + ".tmp.npz", **rec)
+    os.replace(out + ".tmp.npz", tp_inputs(out))
+    checked = compat.shard_map
+    # the reference's code with its shard_map check off, as jax_train
+    compat.shard_map = lambda f, **kw: checked(f, **dict(kw, check=False))
+    try:
+        for name, (api, opt, state, batch) in models.items():
+            specs = {k: _P(v) for k, v in tp_batch_specs(batch).items()}
+            jb = {k: jnp.asarray(v) for k, v in batch.items()}
+            with compat.set_mesh(mesh):
+                for comp in TP_COMPS:
+                    step = jax.jit(make_ltp_train_step(
+                        api, opt, mesh, LTPConfig(compensation=comp),
+                        ("data",), specs))
+                    new, m = step(state, jb, frac, key, jnp.float32(LR))
+                    base = f"out/{name}/{comp}"
+                    for i, x in enumerate(jax.tree.leaves(new.params)):
+                        rec[f"{base}/params/{i}"] = np.asarray(x)
+                    rec[f"{base}/loss"] = np.asarray(m["loss"])
+                    rec[f"{base}/realized"] = np.asarray(m["delivered_frac"])
+                if name == "mixtral":
+                    sb = {k: jax.device_put(v, NamedSharding(mesh, specs[k]))
+                          for k, v in jb.items()}
+                    new, m = jax.jit(make_plain_train_step(api, opt, mesh))(
+                        state, sb, jnp.float32(LR))
+                    for i, x in enumerate(jax.tree.leaves(new.params)):
+                        rec[f"out/{name}/plain/params/{i}"] = np.asarray(x)
+                    rec[f"out/{name}/plain/loss"] = np.asarray(m["loss"])
+    finally:
+        compat.shard_map = checked
+    np.savez(out, **rec)
 
 
 # ----------------------------------------------------------------------------
@@ -569,6 +747,125 @@ def rank_train(z: dict, world: int) -> dict:
     return rec
 
 
+def tp_run(api, mesh, params, batch, comp, *, uniforms=None,
+           blocks=None) -> dict:
+    """One step of the port on ``mesh`` from GLOBAL ``params``: the psum
+    LTP step under ``comp``, or the plain step (``comp == "plain"``),
+    fractions ``TRAIN_FRAC``, the port's own draws from ``TP_SEED`` or
+    ``uniforms``. ``blocks``: this rank's blocks to start from instead
+    of its share of ``params``. Returns the gathered global params, the
+    loss and the delivered fraction."""
+    import torch
+
+    from repro_torch.config import LTPConfig
+    from repro_torch.models.sharding import gather_params
+    from repro_torch.optim import sgd_momentum
+    from repro_torch.tree import tree_leaves
+    from repro_torch.train.trainer import init_state, make_ltp_train_step, \
+        make_plain_train_step, model_layout
+
+    opt = sgd_momentum()
+    st = (init_state(api, opt, params=params, mesh=mesh) if blocks is None
+          else init_state(api, opt, params=blocks))
+    if comp == "plain":
+        new, m = make_plain_train_step(api, opt, mesh)(st, batch, LR)
+    else:
+        step = make_ltp_train_step(api, opt, mesh,
+                                   LTPConfig(compensation=comp), ("data",),
+                                   tp_batch_specs(batch))
+        new, m = step(st, batch, torch.as_tensor(TRAIN_FRAC), TP_SEED, LR,
+                      uniforms=uniforms)
+    specs = model_layout(api, mesh)
+    full = new.params if specs is None else gather_params(new.params,
+                                                          specs, mesh)
+    rec = {f"params/{i}": x.numpy() for i, x in enumerate(tree_leaves(full))}
+    rec["loss"] = m["loss"].numpy()
+    if "delivered_frac" in m:
+        rec["realized"] = m["delivered_frac"].numpy()
+    return rec
+
+
+def tp_params(api, z=None, name=None):
+    """The global params: the JAX init from ``z`` (the tp task), else
+    the port's init from a CPU generator seeded 0."""
+    import torch
+
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    template = api.init(torch.Generator().manual_seed(0), device="cpu")
+    if z is None:
+        return template
+    return tree_unflatten(template, [
+        torch.as_tensor(z[f"in/{name}/params/{i}"])
+        for i in range(len(tree_leaves(template)))])
+
+
+def _mirrored_blocks(params, specs, mesh):
+    """Plant a fault: each rank holds the block of its mirror on
+    ``model``."""
+    from repro_torch.models.sharding import model_dim, spec_at
+    from repro_torch.tree import tree_map_with_path
+
+    nm = mesh.size(1)
+    m = nm - 1 - mesh.get_local_rank("model")
+
+    def take(path, x):
+        dim = model_dim(spec_at(specs, path))
+        if dim is None:
+            return x
+        size = x.shape[dim] // nm
+        return x.narrow(dim, m * size, size).clone()
+
+    return tree_map_with_path(take, params)
+
+
+def rank_tp(z: dict, world: int, task: str) -> dict:
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import build
+    from repro_torch.models.sharding import gather_params, shard_params
+    from repro_torch.tree import tree_leaves
+    from repro_torch.train.trainer import model_layout
+
+    mesh = init_device_mesh("cpu", TP_MESH[task],
+                            mesh_dim_names=("data", "model"))
+    w = mesh.get_local_rank("data")
+    rec = {}
+
+    def put(prefix, r):
+        rec.update({f"{prefix}/{k}": v for k, v in r.items()})
+
+    names = TP_MODELS if task == "tp" else TP_LOCAL[task]
+    for name in names:
+        api = build(tp_cfg(get_reduced, name))
+        if task == "tp":
+            params = tp_params(api, z, name)
+            batch = {k[len(f"in/{name}/batch/"):]: v for k, v in z.items()
+                     if k.startswith(f"in/{name}/batch/")}
+            n = len(tree_leaves(params))
+            u = [z[f"u/{name}/{w}/{i}"] for i in range(n)]
+        else:
+            params, batch, u = tp_params(api), tp_batch(api.cfg, 1), None
+        specs = model_layout(api, mesh)
+        back = gather_params(shard_params(params, specs, mesh), specs, mesh)
+        rec[f"{name}/roundtrip"] = np.asarray(all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(back),
+                                              tree_leaves(params),
+                                              strict=True)))
+        for comp in TP_COMPS:
+            put(f"{name}/{comp}", tp_run(api, mesh, params, batch, comp,
+                                         uniforms=u))
+        if name.startswith("mixtral"):
+            put(f"{name}/plain", tp_run(api, mesh, params, batch, "plain"))
+        if name == "smollm":
+            put(f"plant/{name}/paper", tp_run(
+                api, mesh, params, batch, "paper", uniforms=u,
+                blocks=_mirrored_blocks(params, specs, mesh)))
+    return rec
+
+
 def rank_main(task, rank, world, init, ref, out) -> None:
     import torch
     import torch.distributed as dist
@@ -578,8 +875,12 @@ def rank_main(task, rank, world, init, ref, out) -> None:
         "gloo", init_method=f"file://{init}", rank=int(rank),
         world_size=int(world), timeout=datetime.timedelta(seconds=120))
     try:
-        z = dict(np.load(ref))
-        rec = (rank_sync if task == "sync" else rank_train)(z, int(world))
+        z = dict(np.load(ref)) if os.path.exists(ref) else {}
+        if task in TP_MESH:
+            rec = rank_tp(z, int(world), task)
+        else:
+            rec = (rank_sync if task == "sync" else rank_train)(z,
+                                                                int(world))
         np.savez(out, **rec)
     finally:
         dist.destroy_process_group()
@@ -587,6 +888,7 @@ def rank_main(task, rank, world, init, ref, out) -> None:
 
 if __name__ == "__main__":
     if sys.argv[1] == "jax":
-        {"sync": jax_sync, "train": jax_train}[sys.argv[2]](sys.argv[3])
+        {"sync": jax_sync, "train": jax_train, "tp": jax_tp}[sys.argv[2]](
+            sys.argv[3])
     else:
         rank_main(*sys.argv[2:8])

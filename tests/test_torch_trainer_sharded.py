@@ -191,13 +191,30 @@ def test_ltp_zero_variant_matches_psum_variant(setup, mesh1):
 
 
 def test_non_worker_axis_needs_tensor_parallelism(setup):
-    _, api, _, _, _ = setup
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        tr.make_ltp_train_step(api, sgd_momentum(), {"data": 2, "model": 2},
-                               LTPConfig(), ("data",), _specs()[1])
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        tr.make_plain_train_step(api, sgd_momentum(), {"pod": 2, "data": 1,
-                                                       "model": 4})
+    """A ``model`` axis > 1 runs tensor-parallel for the dense, VLM and
+    MoE families alone (``tests/test_torch_tensor_parallel.py``): MLA,
+    the SSM, hybrid, enc-dec and CNN families, the ZeRO variant and a
+    non-worker data axis are refused, naming ROADMAP item 13d."""
+    _, api, _, params, _ = setup
+    for arch, what in (("deepseek_v2_236b", "MLA"),
+                       ("falcon_mamba_7b", "'ssm'"),
+                       ("zamba2_7b", "'hybrid'"),
+                       ("whisper_small", "'audio'"), ("papernet", "'cnn'")):
+        other = build(get_reduced(arch))
+        with pytest.raises(NotImplementedError, match="item 13d") as e:
+            tr.make_ltp_train_step(other, sgd_momentum(),
+                                   {"data": 2, "model": 2}, LTPConfig(),
+                                   ("data",), _specs()[1])
+        assert what in str(e.value)
+        with pytest.raises(NotImplementedError, match="item 13d"):
+            tr.make_plain_train_step(other, sgd_momentum(),
+                                     {"pod": 2, "data": 1, "model": 4})
+    with pytest.raises(NotImplementedError, match="item 13d"):
+        tr.zero_opt_state(params, LTPConfig(), {"data": 1, "model": 2},
+                          ("data",))
+    with pytest.raises(NotImplementedError, match="item 13d"):
+        tr.make_ltp_train_step(api, sgd_momentum(), {"pod": 2, "data": 2},
+                               LTPConfig(), ("pod",), _specs()[1])
 
 
 def test_init_state_runs_on_the_card_unless_told(setup, monkeypatch):
