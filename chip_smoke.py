@@ -139,23 +139,31 @@ From the root of a checkout it:
     tensors, REDUCED config, 3 steps) against the same two ranks on the
     CPU, within twice the CPU pair's rounding control (the ``sharded``
     line);
-12b. drives tensor parallelism over ``model`` (``run_tp_phase``):
-    ``mixtral_8x22b``'s CONFIG at its published widths in bfloat16, cut
-    to 1 layer, through ``make_ltp_train_step`` (psum, paper,
-    SGD-momentum, batch 32 x seq 128, 3 steps): at (data 1, model 1) in
-    this process through the kernels, with a profiled step, and from a
-    one-ulp-nudged init (the rounding control); at (data 1, model 2) as
-    two gloo ranks sharing the card, subprocesses of ``chip_smoke.py
-    --tp-rank``, each holding its block of the heads, experts
-    (expert-parallel) and vocab, through the kernels and on the plain
-    route: 13 gate launches a step a rank, none on the plain route,
-    params within twice the rounding control of the plain route's and
-    of the (1, 1) run's; host ms a step, peak memory a rank, the model
-    axis's collective calls and bytes a step; meanwhile REDUCED smollm
-    and mixtral on (data 2, model 2), four gloo ranks on the card
-    against four on the CPU (and four from a nudged init); then the gate
-    at the layer's largest leaf (2236963, 360) and over its 13 leaves
-    against its plain version and timed (the ``tp`` line);
+12b. drives tensor parallelism over ``model`` (``run_tp_phase``),
+    each config at its published widths in its own dtype, cut in depth,
+    through ``make_ltp_train_step`` (psum, paper, SGD-momentum, 3
+    steps): one ``mixtral_8x22b`` layer and one ``deepseek_v2_236b``
+    layer (its dense lead layer: MLA), batch 32 x seq 128;
+    ``falcon_mamba_7b`` at 2 layers, ``zamba2_7b`` at 7 (its shared
+    block included), ``whisper_small`` and ``papernet`` whole, batch 8
+    (papernet 128 images). Each at (data 1, model 1) in this process
+    through the kernels (Mixtral with a profiled step) and from a
+    one-ulp-nudged init (the rounding control); then at (data 1, model
+    2) as one pair of gloo ranks sharing the card, subprocesses of
+    ``chip_smoke.py --tp-rank`` that take the models in turn, each rank
+    holding its block of the heads, experts, channels or SSM heads and
+    vocab: Mixtral and DeepSeek through the kernels and on the plain
+    route, the others through the kernels; one gate launch a leaf a step
+    a rank, none on the plain route, params within twice the model's
+    rounding control of the plain route's and of the (1, 1) run's, the
+    ranks' gathered params equal; host ms a step, peak memory a rank,
+    the model axis's collective calls and bytes a step; meanwhile
+    REDUCED smollm, mixtral, deepseek-v2, falcon-mamba and zamba2 on
+    (data 2, model 2), four gloo ranks on the card against four on the
+    CPU (and four from a nudged init); then the gate at Mixtral's
+    layer's largest leaf (2236963, 360) and DeepSeek's (1456356, 360)
+    and over each layer's leaves against its plain version and timed
+    (the ``tp`` line);
 13. drives the MoE path, trained (``run_moe_phase``):
     ``mixtral_8x22b``'s CONFIG at its published widths in bfloat16, its
     own dtype, cut to 1 layer (2,906,720,256 parameters, 8,074,223
@@ -211,8 +219,9 @@ From the root of a checkout it:
     logit (the ``encdec_serve`` line);
 19. prints a ``kernels`` JSON line (dropfill's entry with its EF form's
     numbers beside the plain gate's and its sharded-path rows under
-    ``sharded`` and its tensor-parallel rows under ``tp``, whose
-    launches are counted there alone, packet_reduce's
+    ``sharded`` and its tensor-parallel rows under ``tp`` and
+    ``tp_deepseek``, whose launches are counted there alone,
+    packet_reduce's
     with its des16
     shape's, whose launches are counted there alone, and both with
     their LM shape's under ``lm``, packet_reduce also with its MoE,
@@ -2839,18 +2848,32 @@ def run_sharded_phase(torch, timer, zero_counts, read_counts, launches_of,
     return line, launches, rows
 
 
-# the tp phase's full-width run: mixtral_8x22b's CONFIG at its published
-# widths in bfloat16, cut to 1 layer as on the MoE path; SGD-momentum at
-# examples/train_lm.py's lr; the parent passes it to its ranks
+# the tp phase's full-width runs: each config's CONFIG at its published
+# widths in its own dtype (bfloat16; papernet float32), cut in depth,
+# SGD-momentum at examples/train_lm.py's lr; the parent passes each to
+# its ranks. Mixtral-8x22b at 1 layer (as on the MoE path) and
+# DeepSeek-V2 at 1 layer (its dense lead layer: MLA, d_ff 12,288) run
+# batch 32 x seq 128 at (1, 2) through the kernels and then the plain
+# route; falcon-mamba (2 layers), zamba2 (7: six Mamba-2 layers, the
+# shared block, one more), whisper-small (whole) and papernet (whole)
+# through the kernels alone, at batch 8 (papernet 128 images)
 TP_MODEL = {"arch": "mixtral_8x22b", "reduced": False, "n_layers": 1,
             "steps": 3, "batch": 32, "seq": 128, "lr": 3e-4,
-            "data_vocab": LM_DATA_VOCAB}
-TP_REDUCED = ("smollm_360m", "mixtral_8x22b")
-TP_CHILD_TIMEOUT_S = 600
+            "data_vocab": LM_DATA_VOCAB, "routes": ["cuda", "python"]}
+TP_FAMILY_RUN = dict(TP_MODEL, batch=8, routes=["cuda"])
+TP_MODELS = [TP_MODEL,
+             dict(TP_MODEL, arch="deepseek_v2_236b"),
+             dict(TP_FAMILY_RUN, arch="falcon_mamba_7b", n_layers=2),
+             dict(TP_FAMILY_RUN, arch="zamba2_7b", n_layers=7),
+             dict(TP_FAMILY_RUN, arch="whisper_small", n_layers=12),
+             dict(TP_FAMILY_RUN, arch="papernet", n_layers=6, batch=128)]
+TP_REDUCED = ("smollm_360m", "mixtral_8x22b", "deepseek_v2_236b",
+              "falcon_mamba_7b", "zamba2_7b")
+TP_CHILD_TIMEOUT_S = 900
 
 
 def tp_config(model: dict):
-    """The config of a ``TP_MODEL``-like dict."""
+    """The config of a ``TP_MODELS`` entry."""
     from repro_torch.configs import get_config, get_reduced
 
     get = get_reduced if model["reduced"] else get_config
@@ -2858,23 +2881,51 @@ def tp_config(model: dict):
 
 
 def tp_batches(model: dict) -> list:
-    from repro_torch.data import SyntheticLM
+    """A run's batches: ``SyntheticLM(data_vocab)`` tokens (and an
+    enc-dec config's ``train.lm.audio_frames``), or papernet's
+    ``SyntheticCIFAR`` images."""
+    from repro_torch.data import SyntheticCIFAR, SyntheticLM
+    from repro_torch.train.lm import audio_frames
 
+    cfg = tp_config(model)
+    if cfg.family == "cnn":
+        data = SyntheticCIFAR(seed=0)
+        return [data.train_batch(model["batch"], s)
+                for s in range(model["steps"])]
     corpus = SyntheticLM(vocab=model["data_vocab"], seed=0)
-    return [corpus.train_batch(model["batch"], model["seq"], s)
-            for s in range(model["steps"])]
+    out = []
+    for s in range(model["steps"]):
+        b = corpus.train_batch(model["batch"], model["seq"], s)
+        if cfg.family == "audio":
+            b["frames"] = audio_frames(cfg, model["batch"], 0, s)
+        out.append(b)
+    return out
+
+
+def tp_expected_loss(cfg) -> float:
+    """Step 1's loss at the random init: ln V for papernet (its head is
+    near zero); for an LM ln V plus the random head's logit variance
+    over 2 (0.02^2 d after a unit-variance norm), plus 0.01 where a MoE
+    layer adds its balance loss (near 1)."""
+    if cfg.family == "cnn":
+        return math.log(cfg.vocab)
+    moe = cfg.n_experts > 0 and cfg.n_layers > cfg.first_dense_layers
+    return (math.log(cfg.vocab) + 0.5 * 0.02 ** 2 * cfg.d_model
+            + (0.01 if moe else 0.0))
 
 
 class CollectiveCounter:
-    """Counts the calls and bytes of ``torch.distributed.all_reduce`` and
-    ``all_gather_into_tensor`` on the ``model`` group of a mesh (bytes:
-    the tensor each rank passes in), by wrapping the two functions of
-    the module the port calls them through."""
+    """Counts the calls and bytes of ``torch.distributed.all_reduce``,
+    ``all_gather_into_tensor`` and ``all_to_all_single`` on the ``model``
+    group of a mesh (bytes: the tensor each rank passes in), by wrapping
+    the functions of the module the port calls them through."""
+
+    INPUT_ARG = {"all_reduce": 0, "all_gather_into_tensor": 1,
+                 "all_to_all_single": 1}
 
     def __init__(self, dist, mesh):
         self.dist, self.group = dist, mesh.get_group("model")
-        self.orig = {n: getattr(dist, n) for n in (
-            "all_reduce", "all_gather_into_tensor")}
+        self.orig = {n: getattr(dist, n) for n in self.INPUT_ARG}
         self.zero()
         for name, fn in self.orig.items():
             setattr(dist, name, self._wrap(name, fn))
@@ -2882,7 +2933,7 @@ class CollectiveCounter:
     def _wrap(self, name, fn):
         def counted(*args, **kw):
             if kw.get("group") is self.group:
-                t = args[1] if name == "all_gather_into_tensor" else args[0]
+                t = args[self.INPUT_ARG[name]]
                 self.calls[name] += 1
                 self.bytes[name] += t.numel() * t.element_size()
             return fn(*args, **kw)
@@ -2969,69 +3020,100 @@ def tp_train(torch, api, opt, mesh, params, backend, batches, frac, lr, *,
     return out
 
 
-def tp_full_rank(torch, dist, spec: dict) -> dict:
-    """One of the two ranks of the full-width run (``spec["model"]``),
-    once the (1, 1) run's params are in ``spec["one"]`` (a ``torch.save``
-    of its leaves, written when the card is free): the kernel route, then
-    the plain route, from the same init; then the distances of this
-    rank's blocks between the two routes and to those params. Returns
-    the numbers of both runs and the distances."""
-    from repro_torch.launch.mesh import make_host_mesh
+def tp_init(torch, api, dev):
+    """The global init from a generator seeded 0: on the card for an LM
+    (its leaves are drawn where the generator lives), on the CPU for
+    papernet (whose init draws there and moves its leaves)."""
+    gen_dev = "cpu" if api.cfg.family == "cnn" else dev
+    return api.init(torch.Generator(device=gen_dev).manual_seed(0),
+                    device=dev)
+
+
+def params_digest(torch, params) -> str:
+    """SHA-1 of every leaf's bytes in tree order."""
+    import hashlib
+
+    from repro_torch.tree import tree_leaves
+
+    h = hashlib.sha1()
+    for x in tree_leaves(params):
+        h.update(x.detach().reshape(-1).view(torch.uint8).cpu().numpy())
+    return h.hexdigest()
+
+
+def tp_full_model(torch, dist, mesh, counter, model: dict, dev,
+                  t_start: float) -> dict:
+    """One model of a full-width rank (``tp_full_rank``), once the (1, 1)
+    run's params are in ``model["one"]`` (a ``torch.save`` of its
+    leaves): each of ``model["routes"]`` from the same init; then the
+    global params of the kernel route gathered (``gather_params``), their
+    digest and their distance to the (1, 1) params, and the distance of
+    this rank's blocks between the routes."""
     from repro_torch.launch.train import frac_schedule
     from repro_torch.models import build
-    from repro_torch.models.sharding import model_dim, spec_at
+    from repro_torch.models.sharding import gather_params
     from repro_torch.optim import sgd_momentum
-    from repro_torch.tree import tree_leaves, tree_leaves_with_path
+    from repro_torch.tree import tree_leaves
     from repro_torch.train.trainer import model_layout
 
-    dev, model = spec["device"], spec["model"]
     api, opt = build(tp_config(model)), sgd_momentum()
-    mesh = make_host_mesh(1, 2)
     batches = tp_batches(model)
     t0 = time.perf_counter()
-    # the CUDA context and cuBLAS, made while the (1, 1) run holds the card
-    x = torch.ones((256, 256), dtype=torch.bfloat16, device=dev)
-    float((x @ x).sum())
-    warm_s = time.perf_counter() - t0
-    while not os.path.exists(spec["one"]):
-        if time.perf_counter() - t0 > TP_CHILD_TIMEOUT_S:
-            raise TimeoutError(f"no (1, 1) params at {spec['one']}")
+    while not os.path.exists(model["one"]):
+        if time.perf_counter() - t_start > TP_CHILD_TIMEOUT_S:
+            raise TimeoutError(f"no (1, 1) params at {model['one']}")
         time.sleep(0.2)
-    counter = CollectiveCounter(dist, mesh)
-    rec = {"warm_s": warm_s, "waited_s": time.perf_counter() - t0 - warm_s}
+    rec = {"waited_s": time.perf_counter() - t0}
     kept = {}
+    for backend in model["routes"]:
+        t0 = time.perf_counter()
+        params = tp_init(torch, api, dev)
+        r = tp_train(torch, api, opt, mesh, params, backend, batches,
+                     frac_schedule(0.001, 1), model["lr"], counter=counter)
+        del params
+        kept[backend] = r.pop("params")
+        r["seconds"] = time.perf_counter() - t0
+        r["steps_seconds"] = sum(r["step_ms"]) / 1e3
+        rec[backend] = r
+    if "python" in kept:
+        rec["d_kernel_plain"] = distance(kept["cuda"], kept.pop("python"))
+    rec["n_params_rank"] = sum(x.numel() for x in tree_leaves(kept["cuda"]))
+    full = gather_params(kept.pop("cuda"), model_layout(api, mesh), mesh)
+    rec["digest"] = params_digest(torch, full)
+    one = torch.load(model["one"], mmap=True, map_location="cpu",
+                     weights_only=True)
+    rec["d_one_rank"] = max(
+        (a.float() - b.to(dev).float()).abs().max().item()
+        for a, b in zip(tree_leaves(full), one, strict=True))
+    del full, one
+    gc.collect()
+    if dev != "cpu":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def tp_full_rank(torch, dist, spec: dict) -> dict:
+    """One of the two ranks of the full-width runs: each model of
+    ``spec["models"]`` in turn (``tp_full_model``). Returns each model's
+    numbers."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    dev = spec["device"]
+    mesh = make_host_mesh(1, 2)
+    t0 = time.perf_counter()
+    if dev != "cpu":
+        # the CUDA context and cuBLAS, made while the (1, 1) runs hold
+        # the card
+        x = torch.ones((256, 256), dtype=torch.bfloat16, device=dev)
+        float((x @ x).sum())
+    rec = {"warm_s": time.perf_counter() - t0, "models": {}}
+    counter = CollectiveCounter(dist, mesh)
     try:
-        for backend in ("cuda", "python"):
-            t0 = time.perf_counter()
-            params = api.init(torch.Generator(device=dev).manual_seed(0),
-                              device=dev)
-            r = tp_train(torch, api, opt, mesh, params, backend, batches,
-                         frac_schedule(0.001, 1), model["lr"],
-                         counter=counter)
-            del params
-            kept[backend] = r.pop("params")
-            r["seconds"] = time.perf_counter() - t0
-            r["steps_seconds"] = sum(r["step_ms"]) / 1e3
-            rec[backend] = r
+        for model in spec["models"]:
+            rec["models"][model["arch"]] = tp_full_model(
+                torch, dist, mesh, counter, model, dev, t0)
     finally:
         counter.close()
-    specs = model_layout(api, mesh)
-    one = torch.load(spec["one"], mmap=True, map_location="cpu",
-                     weights_only=True)
-    idx = mesh.get_local_rank("model")
-    d_routes = d_one = 0.0
-    for (path, a), b, c in zip(tree_leaves_with_path(kept["cuda"]),
-                               tree_leaves(kept["python"]), one,
-                               strict=True):
-        dim = model_dim(spec_at(specs, path))
-        if dim is not None:
-            size = c.shape[dim] // 2
-            c = c.narrow(dim, idx * size, size)
-        c = c.to(dev)
-        d_routes = max(d_routes, (a - b).abs().max().item())
-        d_one = max(d_one, (a.float() - c.float()).abs().max().item())
-    rec["d_kernel_plain"], rec["d_one_rank"] = d_routes, d_one
-    rec["n_params_rank"] = sum(x.numel() for x in tree_leaves(kept["cuda"]))
     return rec
 
 
@@ -3095,7 +3177,7 @@ def tp_child(argv) -> int:
     ``chip_smoke.py --tp-rank RANK WORLD INIT SPEC OUT``, SPEC a JSON
     object (``kind`` ``full``: ``tp_full_rank``, its numbers to OUT as
     JSON; ``reduced``: ``tp_reduced_rank``, to OUT as npz). Gloo, with
-    TF32 off, one CPU thread."""
+    TF32 off and deterministic convolutions, one CPU thread."""
     import datetime
 
     import numpy as np
@@ -3107,10 +3189,11 @@ def tp_child(argv) -> int:
     sys.path.insert(0, os.path.join(HERE, "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
                             world_size=world,
-                            timeout=datetime.timedelta(seconds=300))
+                            timeout=datetime.timedelta(seconds=600))
     try:
         if spec["kind"] == "full":
             with open(out, "w") as f:
@@ -3161,66 +3244,114 @@ def finish_tp_ranks(procs: dict) -> dict:
     return {name: [path for _, path in ps] for name, ps in procs.items()}
 
 
+def tp_model1(torch, dev, model: dict, launches_of, profile: bool) -> tuple:
+    """``model`` at (data 1, model 1) in this process: through the
+    kernels (with a profiled step when ``profile``), then from the init
+    nudged by one ulp (the rounding control). Returns (its part of the
+    line, the kernel run's params, the launches of both runs)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import frac_schedule
+    from repro_torch.models import build
+    from repro_torch.optim import sgd_momentum
+    from repro_torch.tree import tree_leaves
+
+    cfg = tp_config(model)
+    api = build(cfg)
+    mesh = make_host_mesh(1, 1)
+    n_leaves = len(tree_leaves(api.init(None, device="meta")))
+    batches = tp_batches(model)
+    part, one, launches = {}, {}, []
+    for label, nudge in (("cuda", 0), ("cuda_nudged", 1)):
+        params = tp_init(torch, api, dev)
+        if nudge:
+            params = nudged(torch, params, 2)
+        r = tp_train(torch, api, sgd_momentum(), mesh, params, "cuda",
+                     batches, frac_schedule(0.001, 1), model["lr"],
+                     profile=profile and not nudge)
+        del params
+        if r["launches"] != launches_of(dropfill=n_leaves
+                                        * model["steps"]):
+            raise AssertionError(f"tp (1, 1) {cfg.name} {label}: launches "
+                                 f"{r['launches']}")
+        launches.append(r["launches"])
+        if "profile_step" in r:
+            prof = r["profile_step"]
+            gate = {k: v for k, v in prof["port_kernels_ms"].items()
+                    if "dropfill" in k}
+            n_gate = sum(n for k, n in prof["port_launches"].items()
+                         if "dropfill" in k)
+            if n_gate != n_leaves or len(prof["port_launches"]) != len(
+                    gate):
+                raise AssertionError(f"tp (1, 1) {cfg.name} profile: port "
+                                     f"launches {prof['port_launches']}")
+            prof["gate_device_ms"] = sum(gate.values())
+        one[label] = r.pop("params")
+        part[f"model1_{label}"] = r
+    part["rounding_control_max_abs_diff"] = distance(one["cuda"],
+                                                     one["cuda_nudged"])
+    return part, one["cuda"], launches
+
+
 def run_tp_phase(torch, timer, launches_of, *, device="cuda") -> tuple:
     """Tensor parallelism over ``model`` (the ``tp`` line).
 
-    Full width: ``TP_MODEL`` (one Mixtral-8x22b layer, bfloat16,
-    2,906,720,256 parameters), SGD-momentum at lr 3e-4, batch 32 x seq
-    128 from ``SyntheticLM(8192)``, the launcher's delivered fraction at
-    loss rate 0.001 (0.99), psum paper, 3 steps, init from a generator
-    on the card seeded 0. First at (data 1, model 1) in this
-    process (world size 1, ``launch.train.init_distributed``) through
-    the kernels, then the same from the init nudged by one ulp (the
-    rounding control), and the first run's params saved. Then two gloo
-    ranks on (data 1, model 2) sharing the card (``tp_full_rank``:
-    kernels, then the plain route), while four gloo ranks on (data 2,
-    model 2) run REDUCED smollm-360m and mixtral-8x22b on the card, and
-    four more on the CPU twice, from the init and from it nudged
+    Full width (``TP_MODELS``): one Mixtral-8x22b layer (bfloat16,
+    2,906,720,256 parameters) and one DeepSeek-V2 layer (its dense lead
+    layer, MLA, 1,386,562,560), batch 32 x seq 128; falcon-mamba at 2
+    layers, zamba2 at 7, whisper-small and papernet whole, batch 8
+    (papernet 128 images). SGD-momentum at lr 3e-4, the launcher's
+    delivered fraction at loss rate 0.001 (0.99), psum paper, 3 steps,
+    init from a generator on the card seeded 0. First each at (data 1,
+    model 1) in this process (world size 1,
+    ``launch.train.init_distributed``) through the kernels, then the
+    same from the init nudged by one ulp (the rounding control), and the
+    first run's params saved (Mixtral's step profiled). Then two gloo
+    ranks on (data 1, model 2) sharing the card take the models in turn
+    (``tp_full_rank``): Mixtral and DeepSeek through the kernels, then
+    the plain route; the others through the kernels. Meanwhile four gloo
+    ranks on (data 2, model 2) run ``TP_REDUCED`` on the card, and four
+    more on the CPU twice, from the init and from it nudged
     (``tp_reduced_rank``).
 
-    Checks: the gate's kernel launched once a leaf a step (13) on each
-    kernel rank and on the (1, 1) kernel runs, no other kernel, none on
-    the plain route; kernels against plain and (1, 2) against (1, 1)
-    within twice the rounding control's distance, the delivered
-    fractions equal and the losses within rtol 1e-3 (bfloat16); step 1
-    near ln V as on the MoE path; the (2, 2) CUDA ranks against the CPU
-    ranks within twice the CPU rounding control, every rank of a run
-    holding the same global params. Then the gate (``sharded_gate_rows``)
-    at the layer's largest leaf and over its 13 leaves, held against its
-    plain version and timed. Returns (the line, the launches of the
-    kernel runs, the gate rows)."""
+    Checks: the gate's kernel launched once a leaf a step on each kernel
+    rank and on the (1, 1) runs, no other kernel, none on the plain
+    route; kernels against plain and (1, 2) against (1, 1) within twice
+    the model's rounding control, the delivered fractions equal and the
+    losses within rtol 1e-3; step 1 near ``tp_expected_loss``; the ranks'
+    gathered global params equal (one digest); the ``model`` axis's
+    collectives there where a leaf is split (the SSM families' all-to-all
+    too), none for papernet; the (2, 2) CUDA ranks against the CPU ranks
+    within twice the CPU rounding control, every rank of a run holding
+    the same global params. Then the gate (``sharded_gate_rows``) at
+    Mixtral's and DeepSeek's layer's largest leaf and over its leaves,
+    held against its plain version and timed. Returns (the line, the
+    launches of the kernel runs, the gate rows by architecture, the gate
+    launches by architecture)."""
     import tempfile
 
     import numpy as np
     import torch.distributed as dist
 
-    from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.launch.train import frac_schedule, init_distributed
+    from repro_torch.launch.train import init_distributed
     from repro_torch.models import build
-    from repro_torch.optim import sgd_momentum
-    from repro_torch.tree import tree_leaves
+    from repro_torch.models.sharding import model_dim, spec_at
+    from repro_torch.models.ssm import tp_splits
+    from repro_torch.tree import tree_leaves, tree_leaves_with_path
+    from repro_torch.train.trainer import model_layout
 
-    model = TP_MODEL
-    cfg = tp_config(model)
-    api = build(cfg)
-    shapes = api.init(None, device="meta")
-    n_pkts = [max(1, -(-x.numel() // 360)) for x in tree_leaves(shapes)]
-    n_leaves = len(n_pkts)
-    line = {"config": {k: getattr(cfg, k) for k in (
-        "name", "n_layers", "d_model", "n_heads", "n_kv", "head_dim",
-        "d_ff", "n_experts", "top_k", "window", "vocab", "dtype")},
-        "n_params": sum(x.numel() for x in tree_leaves(shapes)),
-        **{k: model[k] for k in ("steps", "batch", "seq", "lr",
-                                 "data_vocab")},
-        "optimizer": "sgdm", "variant": "psum, paper",
-        "collectives": "gloo, the tensors' own dtypes (bf16 activations "
-                       "and gradient blocks; f32 combined MoE output)"}
-    expect = math.log(cfg.vocab) + 0.5 * 0.02 ** 2 * cfg.d_model + 0.01
-    batches = tp_batches(model)
-    steps = model["steps"]
-    launches = []
+    models = TP_MODELS
+    line = {"collectives": "gloo, the tensors' own dtypes (bf16 "
+                           "activations and gradient blocks; f32 combined "
+                           "MoE output and Mamba statistics)",
+            "optimizer": "sgdm", "variant": "psum, paper", "runs": {}}
+    launches, by_model = [], {}
     procs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    # papernet's convolutions: the same sums on every rank and run
+    torch.backends.cudnn.deterministic = True
     with tempfile.TemporaryDirectory() as tmp:
+        for m in models:
+            m["one"] = f"{tmp}/one_{m['arch']}.pt"
         try:
             # the (2, 2) ranks first: they take the CPU while this process
             # takes the card
@@ -3231,57 +3362,28 @@ def run_tp_phase(torch, timer, launches_of, *, device="cuda") -> tuple:
                 procs[name] = start_tp_ranks(4, {"kind": "reduced",
                                                  "device": dev_r,
                                                  "nudge": nudge}, tmp, name)
-            # and the (1, 2) ranks, which wait for the (1, 1) run's params
+            # and the (1, 2) ranks, which wait for the (1, 1) runs' params
             procs["full"] = start_tp_ranks(2, {
-                "kind": "full", "device": device, "model": model,
-                "one": f"{tmp}/one.pt"}, tmp, "full")
-            # (data 1, model 1) in this process: the reference of the (1, 2)
-            # run, and the rounding control
+                "kind": "full", "device": device, "models": models}, tmp,
+                "full")
             gc.collect()
             torch.cuda.empty_cache()
             dev, tmp_pg = init_distributed(
                 "cuda:0" if device == "cuda" else device)
             try:
-                mesh = make_host_mesh(1, 1)
-                one = {}
-                for label, nudge in (("cuda", 0), ("cuda_nudged", 1)):
-                    params = api.init(torch.Generator(device=dev)
-                                      .manual_seed(0), device=dev)
-                    if nudge:
-                        params = nudged(torch, params, 2)
-                    r = tp_train(torch, api, sgd_momentum(), mesh, params,
-                                 "cuda", batches, frac_schedule(0.001, 1),
-                                 model["lr"], profile=not nudge)
-                    if r["launches"] != launches_of(
-                            dropfill=n_leaves * steps):
-                        raise AssertionError(f"tp (1, 1) {label}: launches "
-                                             f"{r['launches']}")
-                    launches.append(r["launches"])
-                    if not nudge:
-                        prof = r["profile_step"]
-                        gate = {k: v for k, v in
-                                prof["port_kernels_ms"].items()
-                                if "dropfill" in k}
-                        n_gate = sum(n for k, n in
-                                     prof["port_launches"].items()
-                                     if "dropfill" in k)
-                        if n_gate != launches_of(dropfill=n_leaves)[
-                                "dropfill"] or len(
-                                prof["port_launches"]) != len(gate):
-                            raise AssertionError(
-                                f"tp (1, 1) profile: port launches "
-                                f"{prof['port_launches']}")
-                        prof["gate_device_ms"] = sum(gate.values())
-                    one[label] = r.pop("params")
-                    del params
-                    line[f"model1_{label}"] = r
-                ctl = distance(one["cuda"], one["cuda_nudged"])
-                del one["cuda_nudged"]
-                t1 = time.perf_counter()
-                torch.save([x.cpu() for x in tree_leaves(one["cuda"])],
-                           f"{tmp}/one.part")
-                line["model1_save_seconds"] = time.perf_counter() - t1
-                del one
+                for m in models:
+                    t1 = time.perf_counter()
+                    part, one, ls_ = tp_model1(torch, dev, m, launches_of,
+                                               m is TP_MODEL)
+                    launches += ls_
+                    by_model[m["arch"]] = sum(x["dropfill"] for x in ls_)
+                    line["runs"][m["arch"]] = part
+                    torch.save([x.cpu() for x in tree_leaves(one)],
+                               m["one"] + ".part")
+                    del one
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                    part["model1_seconds"] = time.perf_counter() - t1
             finally:
                 dist.destroy_process_group()
                 if tmp_pg is not None:
@@ -3289,7 +3391,8 @@ def run_tp_phase(torch, timer, launches_of, *, device="cuda") -> tuple:
             gc.collect()
             torch.cuda.empty_cache()
             # the card is free: the (1, 2) ranks start training
-            os.replace(f"{tmp}/one.part", f"{tmp}/one.pt")
+            for m in models:
+                os.replace(m["one"] + ".part", m["one"])
             t1 = time.perf_counter()
             line["model1_seconds"] = t1 - t0
             outs = finish_tp_ranks(procs)
@@ -3297,6 +3400,9 @@ def run_tp_phase(torch, timer, launches_of, *, device="cuda") -> tuple:
             line["children_seconds"] = time.perf_counter() - t0
         finally:
             stop_tp_ranks(procs)
+            torch.backends.cudnn.deterministic = deterministic
+            for m in models:
+                m.pop("one")
         full = []
         for path in outs["full"]:
             with open(path) as f:
@@ -3304,44 +3410,84 @@ def run_tp_phase(torch, timer, launches_of, *, device="cuda") -> tuple:
         reduced = {name: [dict(np.load(p)) for p in outs[name]]
                    for name in outs if name != "full"}
 
-    # the full-width (1, 2) run
-    want = launches_of(dropfill=n_leaves * steps)
-    for r, rk in enumerate(full):
-        a, b = rk["cuda"], rk["python"]
-        if a["launches"] != want or b["launches"] != launches_of():
-            raise AssertionError(f"tp (1, 2) rank {r}: launches "
-                                 f"{a['launches']} / {b['launches']}, "
-                                 f"expected {want} through the kernels")
-        one_loss = line["model1_cuda"]["loss"]
-        if (a["delivered"] != b["delivered"]
-                or a["delivered"] != line["model1_cuda"]["delivered"]
-                or any(abs(x - y) > 1e-3 * abs(y) for x, y in
-                       zip(a["loss"] + b["loss"], one_loss + one_loss))):
-            raise AssertionError(f"tp (1, 2) rank {r}: losses {a['loss']} "
-                                 f"{b['loss']} vs (1, 1) {one_loss}, "
-                                 f"delivered {a['delivered']} "
-                                 f"{b['delivered']}")
-        if not all(a["model_collectives"]["calls_per_step"].values()):
-            raise AssertionError(f"tp (1, 2) rank {r}: model-axis "
-                                 f"collectives {a['model_collectives']}")
-        launches.append(a["launches"])
-    loss = line["model1_cuda"]["loss"]
-    if not (all(math.isfinite(x) for x in loss)
-            and abs(loss[0] - expect) < 1.0):
-        raise AssertionError(f"tp: losses {loss}, step 1 expected {expect}")
-    d_routes = max(rk["d_kernel_plain"] for rk in full)
-    d_one = max(rk["d_one_rank"] for rk in full)
-    if not (d_routes <= 2 * ctl and d_one <= 2 * ctl):
-        raise AssertionError(f"tp: kernels vs plain {d_routes:.4e}, (1, 2) "
-                             f"vs (1, 1) {d_one:.4e}, over twice the "
-                             f"rounding control's {ctl:.4e}")
-    line["model2"] = {"mesh": {"data": 1, "model": 2}, "world_size": 2,
-                      "backend": "gloo", "ranks": full}
-    line["rounding"] = {"kernel_vs_plain_max_abs_diff": d_routes,
-                        "model2_vs_model1_max_abs_diff": d_one,
-                        "rounding_control_max_abs_diff": ctl}
-    line["ln_vocab"], line["loss_step1_expected"] = math.log(cfg.vocab), \
-        expect
+    # the full-width (1, 2) runs
+    gate_shapes = {}
+    for m in models:
+        arch, steps = m["arch"], m["steps"]
+        cfg = tp_config(m)
+        api = build(cfg)
+        shapes = api.init(None, device="meta")
+        n_pkts = [max(1, -(-x.numel() // 360)) for x in tree_leaves(shapes)]
+        gate_shapes[arch] = [(n, 360) for n in n_pkts]
+        specs = model_layout(api, {"model": 2})
+        split = any(model_dim(spec_at(specs, p)) is not None
+                    for p, _ in tree_leaves_with_path(shapes))
+        a2a = tp_splits(cfg, 2)
+        part = line["runs"][arch]
+        part.update({"config": {k: getattr(cfg, k) for k in (
+            "name", "family", "n_layers", "d_model", "n_heads", "n_kv",
+            "d_ff", "n_experts", "vocab", "dtype")},
+            "n_params": sum(x.numel() for x in tree_leaves(shapes)),
+            **{k: m[k] for k in ("steps", "batch", "seq", "lr",
+                                 "data_vocab", "routes")}})
+        one = part["model1_cuda"]
+        ctl = part["rounding_control_max_abs_diff"]
+        want = launches_of(dropfill=len(n_pkts) * steps)
+        ranks = [rk["models"][arch] for rk in full]
+        for r, rk in enumerate(ranks):
+            for route in m["routes"]:
+                a = rk[route]
+                expect = want if route == "cuda" else launches_of()
+                if a["launches"] != expect:
+                    raise AssertionError(f"tp (1, 2) {arch} rank {r} "
+                                         f"{route}: launches "
+                                         f"{a['launches']}, expected "
+                                         f"{expect}")
+                if (a["delivered"] != one["delivered"] or any(
+                        abs(x - y) > 1e-3 * abs(y)
+                        for x, y in zip(a["loss"], one["loss"]))):
+                    raise AssertionError(
+                        f"tp (1, 2) {arch} rank {r} {route}: losses "
+                        f"{a['loss']} vs (1, 1) {one['loss']}, delivered "
+                        f"{a['delivered']} vs {one['delivered']}")
+                calls = a["model_collectives"]["calls_per_step"]
+                if split:
+                    ok = (calls["all_reduce"] > 0
+                          and calls["all_gather_into_tensor"] > 0
+                          and (calls["all_to_all_single"] > 0) == a2a)
+                else:
+                    ok = not any(calls.values())
+                if not ok:
+                    raise AssertionError(f"tp (1, 2) {arch} rank {r}: "
+                                         f"model-axis collectives "
+                                         f"{a['model_collectives']}")
+            launches.append(rk["cuda"]["launches"])
+            by_model[arch] += rk["cuda"]["launches"]["dropfill"]
+        if len({rk["digest"] for rk in ranks}) != 1:
+            raise AssertionError(f"tp (1, 2) {arch}: the ranks' gathered "
+                                 f"params differ")
+        loss = one["loss"]
+        expect = tp_expected_loss(cfg)
+        if not (all(math.isfinite(x) for x in loss)
+                and abs(loss[0] - expect) < 1.0):
+            raise AssertionError(f"tp {arch}: losses {loss}, step 1 "
+                                 f"expected {expect}")
+        d_one = max(rk["d_one_rank"] for rk in ranks)
+        d_routes = max((rk["d_kernel_plain"] for rk in ranks
+                        if "d_kernel_plain" in rk), default=0.0)
+        if not (d_routes <= 2 * ctl and d_one <= 2 * ctl):
+            raise AssertionError(f"tp {arch}: kernels vs plain "
+                                 f"{d_routes:.4e}, (1, 2) vs (1, 1) "
+                                 f"{d_one:.4e}, over twice the rounding "
+                                 f"control's {ctl:.4e}")
+        part["model2"] = {"mesh": {"data": 1, "model": 2}, "world_size": 2,
+                          "backend": "gloo", "ranks": ranks}
+        part["rounding"] = {"kernel_vs_plain_max_abs_diff": d_routes,
+                            "model2_vs_model1_max_abs_diff": d_one,
+                            "rounding_control_max_abs_diff": ctl}
+        part["ln_vocab"], part["loss_step1_expected"] = \
+            math.log(cfg.vocab), expect
+    line["warm_s"] = [rk["warm_s"] for rk in full]
 
     # the reduced (2, 2) runs: the card against the CPU
     red = {"mesh": {"data": 2, "model": 2}, "world_size": 4,
@@ -3392,11 +3538,15 @@ def run_tp_phase(torch, timer, launches_of, *, device="cuda") -> tuple:
             "loss_cpu": cpu[f"{arch}/loss"].tolist(),
             "delivered": cuda[f"{arch}/delivered"].tolist(), **held}
     line["data2_model2_reduced"] = red
-    gc.collect()
-    torch.cuda.empty_cache()
-    rows = sharded_gate_rows(torch, timer, [(n, 360) for n in n_pkts])
+    line["launches_by_model"] = dict(by_model, reduced=sum(
+        x["dropfill"] for x in launches[-len(TP_REDUCED):]))
+    rows = {}
+    for arch in ("mixtral_8x22b", "deepseek_v2_236b"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        rows[arch] = sharded_gate_rows(torch, timer, gate_shapes[arch])
     line["gate_rows"] = rows
-    return line, launches, rows
+    return line, launches, rows, by_model
 
 
 def main() -> int:
@@ -3590,12 +3740,16 @@ def main() -> int:
     print("sharded " + json.dumps(sharded_line))
     del lm_init
 
-    # tensor parallelism over the model axis: one Mixtral-8x22b layer at
-    # its published widths on (data 1, model 2) as two gloo ranks on the
-    # card against (1, 1); REDUCED models on (data 2, model 2)
+    # tensor parallelism over the model axis: one Mixtral-8x22b layer and
+    # one DeepSeek-V2 layer at their published widths, and falcon-mamba,
+    # zamba2, whisper-small and papernet, on (data 1, model 2) as two gloo
+    # ranks on the card against (1, 1); REDUCED models on (data 2, model 2)
     gc.collect()
     torch.cuda.empty_cache()
-    tp_line, tp_launches, tp_rows = run_tp_phase(torch, timer, launches_of)
+    t_tp = time.perf_counter()
+    tp_line, tp_launches, tp_rows, tp_by_model = run_tp_phase(
+        torch, timer, launches_of)
+    tp_line["phase_seconds"] = time.perf_counter() - t_tp
     print("tp " + json.dumps(tp_line))
 
     # the MoE family: mixtral-8x22b at its published widths trained over
@@ -3737,16 +3891,25 @@ def main() -> int:
                                        "library_call")},
                 "step": sharded_rows["step"]}
             # and on the tensor-parallel path, at one Mixtral layer's
-            # largest leaf and over its 13 leaves
-            row = tp_rows["leaf"]
-            line[-1]["tp"] = {
-                "shape": row["shape"], "form": "plain",
-                "launches": tp_path["dropfill"],
-                "launches_from": "main paths: tp (every rank)",
-                **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                       "bound_ms", "bound_by", "library_ms",
-                                       "library_call")},
-                "step": tp_rows["step"]}
+            # largest leaf and over its 13 leaves (the launches: every
+            # model's, every rank's), and at one DeepSeek-V2 layer's (its
+            # runs' launches)
+            for key, arch, n in (
+                    ("tp", "mixtral_8x22b", tp_path["dropfill"]),
+                    ("tp_deepseek", "deepseek_v2_236b",
+                     tp_by_model["deepseek_v2_236b"])):
+                row = tp_rows[arch]["leaf"]
+                line[-1][key] = {
+                    "shape": row["shape"], "form": "plain",
+                    "launches": n,
+                    "launches_from": ("main paths: tp (every model, every "
+                                      "rank)" if key == "tp" else
+                                      "main paths: tp, deepseek_v2_236b "
+                                      "(every rank)"),
+                    **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                           "bound_ms", "bound_by",
+                                           "library_ms", "library_call")},
+                    "step": tp_rows[arch]["step"]}
         if name == "packet_reduce":
             # the des16 path's shape: every launch of that phase
             e = entries["packet_reduce_w16"]

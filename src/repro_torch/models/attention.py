@@ -282,15 +282,16 @@ def self_attention_decode(cfg, p, x1, cache_k, cache_v, pos, *,
     return out, new_k, new_v
 
 
-def cross_attention(cfg: ModelConfig, p: Params, x, enc_kv):
+def cross_attention(cfg: ModelConfig, p: Params, x, enc_kv, tp=None):
     """Encoder-decoder cross attention (whisper). enc_kv: precomputed
-    (k, v) from encoder output, each (B, Senc, KV, hd)."""
+    (k, v) from encoder output, each (B, Senc, KV, hd); under ``tp``
+    (``heads_ctx``) this rank's heads of them, ``x`` entering the
+    parallel block here."""
     b, s, _ = x.shape
-    h, hd = cfg.n_heads, cfg.hd
-    q = (x @ p["wq"]).reshape(b, s, h, hd)
+    q = (copy_in(x, tp) @ p["wq"]).reshape(b, s, -1, cfg.hd)
     k, v = enc_kv
     out = multi_head_attention(q, k, v, causal=False, window=0)
-    return out.reshape(b, s, h * hd) @ p["wo"]
+    return _out_proj(out, p, tp)
 
 
 def cross_attn_params(gen: torch.Generator, cfg: ModelConfig,

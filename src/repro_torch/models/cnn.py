@@ -118,7 +118,11 @@ def forward(cfg: ModelConfig, params: Params, images: torch.Tensor):
     return x @ params["fc"] + params["fc_b"]
 
 
-def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, Any]):
+def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
+            ctx=None):
+    """Mean cross-entropy. ``ctx`` (a ``sharding.ShardCtx``) is taken and
+    ignored: the layout splits nothing of the CNN over ``model``, so
+    every model rank computes it whole."""
     logits = forward(cfg, params, batch["images"]).to(torch.float32)
     labels = batch["labels"].to(torch.int64)
     logp = F.log_softmax(logits, dim=-1)

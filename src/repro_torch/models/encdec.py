@@ -25,6 +25,18 @@ layers, carries the gradient of every encoder leaf.
 The encoder's work, its forward and each layer's backward under remat,
 runs inside the profiler span ``encoder``.
 
+Under a ``ShardCtx`` (``ctx=``, tensor parallelism over ``model``;
+``encode``, ``decode_train`` and ``loss_fn``): the self and cross
+attention run heads-parallel where both head counts divide the axis
+(``attention.heads_ctx``; else replicated), the MLP ``d_ff``-parallel,
+the embedding on its ``d_model`` columns and the unembedding and the
+cross-entropy vocab-parallel, as in ``transformer``. The encoder output
+enters the parallel block (``copy_in``) before each cross-attention's
+``wk`` / ``wv`` blocks, so its gradient back into the encoder is summed
+over ``model``. Each remat body carries ``ctx``, so a recompute issues
+the forward's collectives again (the layer is bound to ``ctx``).
+Serving takes no ``ctx``.
+
 Serving: ``prefill`` runs the encoder and fills the cross K/V of every
 decoder layer, in a cache as long as the prompt whose self K/V it leaves
 at zero, as the reference's does; ``decode_step`` decodes one token
@@ -54,6 +66,7 @@ from repro_torch.models.layers import (
     norm_params,
     unembed,
 )
+from repro_torch.models.sharding import copy_in, split
 from repro_torch.models.transformer import _Remat, _unstack
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -114,33 +127,42 @@ def init(generator: torch.Generator, cfg: ModelConfig, *,
     return tree_map(lambda x: x.to(dev), params)
 
 
-def _enc_layer(cfg: ModelConfig, p: Params, x, positions):
+def _enc_layer(cfg: ModelConfig, p: Params, x, positions, ctx=None):
     h = apply_norm(cfg, p["norm1"], x)
-    x = x + attn.self_attention(cfg, p["attn"], h, positions, causal=False)
-    return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+    x = x + attn.self_attention(cfg, p["attn"], h, positions, causal=False,
+                                ctx=ctx)
+    return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x), ctx)
 
 
-def _cross_kv(cfg: ModelConfig, p: Params, enc_out):
+def _cross_kv(cfg: ModelConfig, p: Params, enc_out, tp=None):
+    """Cross K/V of the heads whose columns ``p`` holds (all, or under
+    ``tp`` this rank's); the encoder output enters the parallel block
+    here."""
     b, f, _ = enc_out.shape
-    k = (enc_out @ p["wk"]).reshape(b, f, cfg.n_kv, cfg.hd)
-    v = (enc_out @ p["wv"]).reshape(b, f, cfg.n_kv, cfg.hd)
+    enc_out = copy_in(enc_out, tp)
+    k = (enc_out @ p["wk"]).reshape(b, f, -1, cfg.hd)
+    v = (enc_out @ p["wv"]).reshape(b, f, -1, cfg.hd)
     return k, v
 
 
-def _dec_layer(cfg: ModelConfig, p: Params, x, enc_out, positions):
+def _dec_layer(cfg: ModelConfig, p: Params, x, enc_out, positions,
+               ctx=None):
+    tp = attn.heads_ctx(cfg, ctx)
     h = apply_norm(cfg, p["norm1"], x)
-    x = x + attn.self_attention(cfg, p["self_attn"], h, positions)
+    x = x + attn.self_attention(cfg, p["self_attn"], h, positions, ctx=ctx)
     h = apply_norm(cfg, p["norm_x"], x)
-    kv = _cross_kv(cfg, p["cross_attn"], enc_out)
-    x = x + attn.cross_attention(cfg, p["cross_attn"], h, kv)
-    return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+    kv = _cross_kv(cfg, p["cross_attn"], enc_out, tp)
+    x = x + attn.cross_attention(cfg, p["cross_attn"], h, kv, tp)
+    return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x), ctx)
 
 
 def _remat_layer(layer, p: Params, positions, *inputs, span=None):
     """``layer(p, *inputs, positions)`` through ``_Remat``: the layer's
     ``inputs`` (the carry, and a decoder layer's encoder output) and
     the leaves of ``p`` are the Function's inputs, so each gets its
-    grad. With ``span``, the backward runs inside that profiler span."""
+    grad. With ``span``, the backward runs inside that profiler span.
+    A ``layer`` with ``ctx`` bound issues the forward's collectives
+    again in the recompute."""
     n = len(inputs)
 
     def body(positions, *flat):
@@ -152,7 +174,8 @@ def _remat_layer(layer, p: Params, positions, *inputs, span=None):
     return _Remat.apply(body, positions, *inputs, *tree_leaves(p))[0]
 
 
-def encode(cfg: ModelConfig, params: Params, frames, *, remat: bool = True):
+def encode(cfg: ModelConfig, params: Params, frames, *, remat: bool = True,
+           ctx=None):
     """frames: (B, F, d) stubbed frontend output -> (B, F, d). Remat is
     skipped where grad mode is off."""
     with record_function(ENCODER_SPAN):
@@ -164,20 +187,23 @@ def encode(cfg: ModelConfig, params: Params, frames, *, remat: bool = True):
         use_remat = remat and torch.is_grad_enabled()
         for p in _unstack(params["enc_stack"], cfg.encoder_layers):
             if use_remat:
-                x = _remat_layer(functools.partial(_enc_layer, cfg), p,
+                x = _remat_layer(functools.partial(_enc_layer, cfg,
+                                                   ctx=ctx), p,
                                  positions, x, span=ENCODER_SPAN)
             else:
-                x = _enc_layer(cfg, p, x, positions)
+                x = _enc_layer(cfg, p, x, positions, ctx=ctx)
         return apply_norm(cfg, params["enc_norm"], x)
 
 
 def decode_train(cfg: ModelConfig, params: Params, tokens, enc_out, *,
-                 remat: bool = True, last_only: bool = False):
+                 remat: bool = True, last_only: bool = False, ctx=None):
     """Teacher-forced decoder over ``tokens`` (B, S) against ``enc_out``
-    -> logits (B, S or 1, vocab_padded). Remat is skipped where grad mode
-    is off."""
+    -> logits (B, S or 1, vocab_padded; under ``ctx`` this rank's vocab
+    block where the padded vocab divides ``model``). Remat is skipped
+    where grad mode is off."""
     b, s = tokens.shape
-    x = embed_tokens(params["embed"], tokens).to(dtype_of(cfg.dtype))
+    x = embed_tokens(params["embed"], tokens, split(ctx, cfg.d_model)).to(
+        dtype_of(cfg.dtype))
     pos = torch.arange(s, device=x.device)
     x = x + sinusoid(pos, cfg.d_model, x.dtype)
     positions = pos.expand(b, s)
@@ -186,25 +212,27 @@ def decode_train(cfg: ModelConfig, params: Params, tokens, enc_out, *,
         if use_remat:
             # enc_out is an input of the Function, not a closure: the
             # encoder's grads flow back through it
-            x = _remat_layer(functools.partial(_dec_layer, cfg), p,
-                             positions, x, enc_out)
+            x = _remat_layer(functools.partial(_dec_layer, cfg, ctx=ctx),
+                             p, positions, x, enc_out)
         else:
             # one alias a layer: its two cross K/V grads sum first, then
             # the layers' sums add up in order, as the Functions' grads
             # do under remat, so both paths give the same bits
-            x = _dec_layer(cfg, p, x, enc_out.view_as(enc_out), positions)
+            x = _dec_layer(cfg, p, x, enc_out.view_as(enc_out), positions,
+                           ctx=ctx)
     x = apply_norm(cfg, params["final_norm"], x)
     if last_only:
         x = x[:, -1:]
-    return unembed(params["embed"], x)
+    return unembed(params["embed"], x, ctx)
 
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
-            remat: bool = True):
-    enc_out = encode(cfg, params, batch["frames"], remat=remat)
+            remat: bool = True, ctx=None):
+    enc_out = encode(cfg, params, batch["frames"], remat=remat, ctx=ctx)
     logits = decode_train(cfg, params, batch["tokens"], enc_out,
-                          remat=remat)
-    return cross_entropy(logits, batch["labels"], cfg.vocab)
+                          remat=remat, ctx=ctx)
+    return cross_entropy(logits, batch["labels"], cfg.vocab,
+                         split(ctx, cfg.vocab_padded))
 
 
 # ----------------------------------------------------------------------------

@@ -33,6 +33,7 @@ from repro_torch.models.sharding import (
     cols_to_rows,
     copy_in,
     gather,
+    reduce_both,
     reduce_out,
     rows_of,
     split,
@@ -69,10 +70,18 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
 # ----------------------------------------------------------------------------
 
 
-def rms_norm(x, scale, eps: float = 1e-6):
+def rms_norm(x, scale, eps: float = 1e-6, ctx=None):
+    """Under ``ctx`` ``x`` (and ``scale``) is this rank's block of the
+    last dim, and the mean of squares is over every rank's block: the
+    sum summed both ways over ``model`` (``reduce_both``)."""
     dt = x.dtype
     x = x.to(torch.float32)
-    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    sq = torch.square(x)
+    if ctx is None:
+        var = torch.mean(sq, dim=-1, keepdim=True)
+    else:
+        var = reduce_both(torch.sum(sq, dim=-1, keepdim=True), ctx) \
+            / (x.shape[-1] * ctx.nm)
     out = x * torch.rsqrt(var + eps)
     return (out * (1.0 + scale.to(torch.float32))).to(dt)
 

@@ -6,6 +6,18 @@ decode uses the *absorbed* formulation: the query is projected into the
 kv_lora latent space so the KV cache holds only (c_kv: kv_lora) +
 (k_rope: qk_rope_dim) per token (576 values a token and layer at
 deepseek-v2's widths, against 32,768 for plain MHA of 128 heads of 128).
+
+Under a ``ShardCtx`` (``ctx=``) whose axis both ``n_heads`` and ``n_kv``
+divide, ``mla_attention`` runs head-parallel: the latent projections
+``w_dq`` and ``w_dkv`` and their norms are replicated, so the latents
+``cq``, ``c_kv`` and ``k_rope`` are computed whole on every rank; they
+enter the parallel block (``copy_in``) where this rank's column blocks
+of ``w_uq`` (or ``wq``), ``w_uk`` and ``w_uv``, whole heads, take them.
+Each rank's heads see only part of the latents' gradient, which
+``copy_in`` sums, so ``w_dq``, ``w_dkv`` and the norms get their whole
+gradient on every rank. ``wo`` is a row block, followed by
+``reduce_out``. Elsewhere the attention runs replicated. Decode takes
+no ``ctx``.
 """
 from __future__ import annotations
 
@@ -20,6 +32,7 @@ from repro_torch.models.attention import (
     pos_tensor,
 )
 from repro_torch.models.layers import Params, apply_rope, dense_init, rms_norm
+from repro_torch.models.sharding import copy_in, reduce_out
 
 
 def mla_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
@@ -41,16 +54,19 @@ def mla_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
     return p
 
 
-def _queries(cfg: ModelConfig, p: Params, x):
+def _queries(cfg: ModelConfig, p: Params, x, tp=None):
+    """(q_nope, q_rope) of the heads whose columns ``p`` holds (all, or
+    under ``tp`` this rank's); the normed ``cq`` (or ``x`` without
+    ``q_lora``) enters the parallel block here."""
     b, s, _ = x.shape
-    h = cfg.n_heads
     qk = cfg.qk_nope_dim + cfg.qk_rope_dim
     if cfg.q_lora > 0:
         cq = x @ p["w_dq"]
-        q = rms_norm(cq, p["q_norm_scale"], cfg.norm_eps) @ p["w_uq"]
+        cq = copy_in(rms_norm(cq, p["q_norm_scale"], cfg.norm_eps), tp)
+        q = cq @ p["w_uq"]
     else:
-        q = x @ p["wq"]
-    q = q.reshape(b, s, h, qk)
+        q = copy_in(x, tp) @ p["wq"]
+    q = q.reshape(b, s, -1, qk)
     return q[..., : cfg.qk_nope_dim], q[..., cfg.qk_nope_dim :]
 
 
@@ -64,13 +80,15 @@ def _latents(cfg: ModelConfig, p: Params, x, positions):
     return c_kv, k_rope
 
 
-def mla_attention(cfg: ModelConfig, p: Params, x, positions):
-    """Full-sequence MLA (train/prefill). Decompresses K/V per layer."""
+def mla_attention(cfg: ModelConfig, p: Params, x, positions, tp=None):
+    """Full-sequence MLA (train/prefill). Decompresses K/V per layer.
+    ``tp``: the heads split over ``model`` (``attention.heads_ctx``)."""
     b, s, _ = x.shape
-    h = cfg.n_heads
-    q_nope, q_rope = _queries(cfg, p, x)
+    q_nope, q_rope = _queries(cfg, p, x, tp)
+    h = q_nope.shape[2]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     c_kv, k_rope = _latents(cfg, p, x, positions)
+    c_kv, k_rope = copy_in(c_kv, tp), copy_in(k_rope, tp)
     k_nope = (c_kv @ p["w_uk"]).reshape(b, s, h, cfg.qk_nope_dim)
     v = (c_kv @ p["w_uv"]).reshape(b, s, h, cfg.v_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
@@ -80,7 +98,7 @@ def mla_attention(cfg: ModelConfig, p: Params, x, positions):
     pad = q.shape[-1] - cfg.v_head_dim
     vp = torch.nn.functional.pad(v, (0, pad)) if pad > 0 else v
     out = multi_head_attention(q, k, vp, causal=True)[..., : cfg.v_head_dim]
-    return out.reshape(b, s, h * cfg.v_head_dim) @ p["wo"]
+    return reduce_out(out.reshape(b, s, h * cfg.v_head_dim) @ p["wo"], tp)
 
 
 def mla_decode(cfg: ModelConfig, p: Params, x1, cache_ckv, cache_krope,

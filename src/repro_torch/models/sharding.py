@@ -23,34 +23,72 @@ are computed with no process group.
 Tensor parallelism over ``model`` (the counterpart of the reference's
 ``ShardCtx`` and the GSPMD partitioning its constraints drive): a rank
 holds its block of every leaf that ``model_specs`` shards and the model
-code (``layers``, ``attention``, ``moe``, ``transformer``) computes with
-those blocks, Megatron-style, through the differentiable collectives
-below on the ``model`` process group: ``copy_in`` (identity forward,
-all-reduce backward) at the entry of a column-parallel block,
-``reduce_out`` (all-reduce forward, identity backward) after a
-row-parallel one, ``gather`` (all-gather forward, this rank's block
-backward) and ``cols_to_rows`` (the tied table's reshard). Activations
+code (``layers``, ``attention``, ``mla``, ``moe``, ``ssm``,
+``transformer``, ``encdec``) computes with those blocks, Megatron-style,
+through the differentiable collectives below on the ``model`` process
+group: ``copy_in`` (identity forward, all-reduce backward) at the entry
+of a column-parallel block, ``reduce_out`` (all-reduce forward, identity
+backward) after a row-parallel one, ``reduce_both`` (all-reduce both
+ways), ``gather`` (all-gather forward, this rank's block backward),
+``reblock`` (a column-parallel output regrouped by all-to-all),
+``cols_to_rows`` (the tied table's reshard), and ``rows_of`` /
+``cols_of`` (this rank's block of a replicated leaf). Activations
 between blocks are replicated over ``model``. ``ShardCtx`` carries the
 mesh and the group; ``None`` (every call without a model axis) means no
-collective at all.
+collective at all. The CNN computes whole on every rank: its layout
+splits nothing.
+
+Two of these collectives are right only where they are used:
+
+- ``gather``'s backward takes this rank's block of the gradient. That
+  holds when every rank uses the gathered tensor alike (replicated
+  computation). A tensor gathered and then used differently on each
+  rank (a weight gathered and sliced) needs a reduce-scatter backward:
+  ``reblock``'s gathered segments have one.
+- ``reduce_out``'s backward passes the gradient unchanged. That holds
+  when what follows runs replicated. A sum over ``model`` that then
+  feeds code split over ``model`` gets only this rank's share of its
+  gradient back, and needs ``reduce_both``: Mamba-1's ``x_proj`` output
+  (its input is split over channels, its output feeds the channel-split
+  ``dt_proj`` and scan) and the mean of squares of Mamba-2's gated
+  RMSNorm (over the whole ``d_inner``, applied per head block).
 
 The layout is ``spec_for(..., fsdp=False)`` on the ``model`` axis, taken
-of one period's leaf for a leaf stacked over the periods (``stack``: its
-leading axis is the periods', which ``spec_for`` would take for a
-weight dim), with one exception: ``wq``, ``wk``, ``wv`` and ``wo`` stay
-replicated unless both ``n_heads`` and ``n_kv`` divide the axis, and
-the attention then runs replicated on every rank. ``spec_for`` shards
-them whenever ``H * hd`` or ``KV * hd`` divides, which would split a
-head (or a query head from its KV head) across ranks; the reference's
-fallback for such heads (``_constrain_heads``) computes the same
-numbers, on sequence shards instead. ``moe_gate`` (the router), the
-norm scales and every 1-D leaf are replicated, as ``spec_for`` says.
+of one period's leaf for a leaf stacked over the periods or layers
+(``stack``, and the enc-dec's ``enc_stack`` and ``dec_stack``: its
+leading axis is the stack's, which ``spec_for`` would take for a weight
+dim), with two exceptions:
+
+- the heads: ``wq``, ``wk``, ``wv`` and ``wo`` (and MLA's ``w_uq``,
+  ``w_uk`` and ``w_uv``) stay replicated unless both ``n_heads`` and
+  ``n_kv`` divide the axis, and the attention then runs replicated on
+  every rank. ``spec_for`` shards them whenever ``H * hd`` or ``KV * hd``
+  divides, which would split a head (or a query head from its KV head)
+  across ranks; the reference's fallback for such heads
+  (``_constrain_heads``) computes the same numbers, on sequence shards
+  instead;
+- the SSM channels: ``in_proj``, ``out_proj`` and ``dt_proj`` stay
+  replicated unless the mixer splits whole (Mamba-1: ``d_inner``
+  divides; Mamba-2: ``ssm_heads`` and ``in_proj``'s width divide), and
+  the mixer then runs replicated. Where they split, ``in_proj``'s
+  contiguous column block is not this rank's channels: its columns are
+  ``[x | z]`` (Mamba-1) or ``[z | x | B | C | dt]`` (Mamba-2), so at
+  ``model`` = 2 rank 0 holds all of Mamba-1's ``x`` and rank 1 all of
+  its ``z``. The leaf keeps ``spec_for``'s block (``shard_params``,
+  ``gather_params`` and the gate's global view stay as they are) and
+  the model ``reblock``s the projection's output instead: an all-to-all
+  leaves rank r with its channels of each split segment and the whole
+  of ``B`` and ``C``.
+
+``moe_gate`` (the router), the norm scales and every 1-D leaf are
+replicated, as ``spec_for`` says.
 
 Not carried over: ``param_shardings`` (``NamedSharding`` trees): a
 rank's block is a plain tensor (``shard_params``).
 """
 from __future__ import annotations
 
+import functools
 import warnings
 from typing import Any, Dict, Optional, Tuple
 
@@ -222,7 +260,11 @@ def spec_at(specs: Any, path: Tuple[Any, ...]) -> Optional[Spec]:
 # tensor parallelism over the model axis
 # ----------------------------------------------------------------------------
 
-_HEAD_LEAVES = ("wq", "wk", "wv", "wo")
+_HEAD_LEAVES = ("wq", "wk", "wv", "wo", "w_uq", "w_uk", "w_uv")
+_SSM_LEAVES = ("in_proj", "out_proj", "dt_proj")
+# the trees whose leaves are stacked over periods (``transformer``) or
+# layers (``encdec``)
+_STACKS = ("stack", "enc_stack", "dec_stack")
 
 
 def model_dim(spec: Spec) -> Optional[int]:
@@ -234,16 +276,28 @@ def model_dim(spec: Spec) -> Optional[int]:
     return None
 
 
+def segments_split(segments: Tuple[Tuple[int, bool], ...], nm: int) -> bool:
+    """Whether a column-parallel output of ``segments`` ((width, split)
+    in column order) splits whole over ``nm`` ranks: its width and every
+    split segment divide (``reblock``)."""
+    return (sum(w for w, _ in segments) % nm == 0
+            and all(w % nm == 0 for w, split_ in segments if split_))
+
+
 def model_specs(cfg: Any, params_shape: Any, mesh: Any) -> Any:
     """The model-axis layout the port's models compute with: a tree of
     specs over a GLOBAL params (shape-)tree (module docstring)."""
     nm = axis_size(mesh, "model")
+    from repro_torch.models.ssm import tp_splits  # ssm imports this module
     heads = cfg.n_heads % nm == 0 and cfg.n_kv % nm == 0
+    ssm = tp_splits(cfg, nm)
 
     def spec(path, leaf):
-        if _leaf_name(path) in _HEAD_LEAVES and not heads:
+        name = _leaf_name(path)
+        if (name in _HEAD_LEAVES and not heads
+                or name in _SSM_LEAVES and not ssm):
             return ()
-        lead = 1 if "stack" in path else 0   # the periods' axis
+        lead = 1 if path[0] in _STACKS else 0   # the periods' axis
         s = spec_for(path, tuple(leaf.shape)[lead:], {"model": nm},
                      fsdp=False)
         return (None,) * lead + s if s else ()
@@ -331,6 +385,55 @@ def split(ctx: Optional[ShardCtx], n: int) -> Optional[ShardCtx]:
     return ctx if ctx is not None and ctx.splits(n) else None
 
 
+@functools.lru_cache(maxsize=None)
+def _reblock_plan(segments: Tuple[Tuple[int, bool], ...], nm: int,
+                  q: int):
+    """Rank ``q``'s side of ``reblock``: the columns of its block that
+    it sends, in the order it sends them (to rank 0 first), and the
+    counts it sends to and receives from each rank. ``segments``: (width,
+    split) in column order; rank r needs its block of every split
+    segment and the whole of every other, in column order."""
+    total = sum(w for w, _ in segments)
+    size = total // nm
+
+    def needs(r):
+        out, start = [], 0
+        for w, split_ in segments:
+            lo, hi = ((start + r * (w // nm), start + (r + 1) * (w // nm))
+                      if split_ else (start, start + w))
+            out.extend(range(lo, hi))
+            start += w
+        return out
+
+    def held(cols, owner):
+        return [c - owner * size for c in cols
+                if owner * size <= c < (owner + 1) * size]
+
+    send = [held(needs(r), q) for r in range(nm)]
+    recv = [len(held(needs(q), o)) for o in range(nm)]
+    return (tuple(c for cols in send for c in cols),
+            tuple(len(cols) for cols in send), tuple(recv))
+
+
+@functools.lru_cache(maxsize=None)
+def _reblock_cols(segments: Tuple[Tuple[int, bool], ...], nm: int, q: int,
+                  device: torch.device) -> torch.Tensor:
+    """``_reblock_plan``'s columns as an index tensor on ``device``, made
+    once for each layout (not a host-to-device copy a call)."""
+    idx = _reblock_plan(segments, nm, q)[0]
+    return torch.as_tensor(idx, dtype=torch.int64, device=device)
+
+
+def _all_to_all_last(x: torch.Tensor, ctx: ShardCtx, send, recv):
+    """``x``'s last-dim columns, ``send[r]`` of them to rank r in rank
+    order, exchanged for ``recv[r]`` columns from rank r (no autograd)."""
+    xs = x.movedim(-1, 0).contiguous()
+    out = xs.new_empty((sum(recv),) + tuple(xs.shape[1:]))
+    dist.all_to_all_single(out, xs, output_split_sizes=list(recv),
+                           input_split_sizes=list(send), group=ctx.group)
+    return out.movedim(0, -1).contiguous()
+
+
 def _reduced(t: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
     t = t.contiguous().clone()
     dist.all_reduce(t, group=ctx.group)
@@ -398,6 +501,30 @@ class _ColsToRows(torch.autograd.Function):
         return block_of(full, 1, tp.nm, tp.index).contiguous(), None
 
 
+class _Reblock(torch.autograd.Function):
+    @staticmethod
+    def forward(x, ctx, segments):
+        _, send, recv = _reblock_plan(segments, ctx.nm, ctx.index)
+        cols = _reblock_cols(segments, ctx.nm, ctx.index, x.device)
+        return _all_to_all_last(x.index_select(-1, cols), ctx, send, recv)
+
+    @staticmethod
+    def setup_context(fctx, inputs, output):
+        x, fctx.tp, fctx.segments = inputs
+        fctx.shape = x.shape
+
+    @staticmethod
+    def backward(fctx, g):
+        tp = fctx.tp
+        _, send, recv = _reblock_plan(fctx.segments, tp.nm, tp.index)
+        back = _all_to_all_last(g, tp, recv, send)
+        cols = _reblock_cols(fctx.segments, tp.nm, tp.index, g.device)
+        # a column sent to several ranks (a gathered segment) sums their
+        # gradients: the reduce-scatter half
+        return (g.new_zeros(fctx.shape).index_add(-1, cols, back), None,
+                None)
+
+
 class _AllMax(torch.autograd.Function):
     @staticmethod
     def forward(x, ctx):
@@ -426,6 +553,26 @@ def reduce_out(x: torch.Tensor, ctx: Optional[ShardCtx]) -> torch.Tensor:
     return x if ctx is None else _ReduceOut.apply(x, ctx)
 
 
+def reduce_both(x: torch.Tensor, ctx: Optional[ShardCtx]) -> torch.Tensor:
+    """``reduce_out`` followed by ``copy_in``: partial sums summed over
+    ``model``, and their gradient summed too, for a sum that feeds code
+    split over ``model`` (module docstring)."""
+    return copy_in(reduce_out(x, ctx), ctx)
+
+
+def reblock(x: torch.Tensor, ctx: Optional[ShardCtx],
+            segments: Tuple[Tuple[int, bool], ...]) -> torch.Tensor:
+    """A column-parallel output regrouped: ``x`` is this rank's block of
+    contiguous columns of an output whose columns are ``segments``
+    ((width, split) in order); the result holds this rank's block of
+    each split segment and the whole of each other, in column order, by
+    one all-to-all. Backward, the inverse all-to-all, the gradients of
+    a whole segment summed over the ranks that took it."""
+    if ctx is None:
+        return x
+    return _Reblock.apply(x, ctx, tuple(segments))
+
+
 def gather(x: torch.Tensor, ctx: Optional[ShardCtx],
            dim: int) -> torch.Tensor:
     """Every rank's block of ``x`` concatenated on ``dim``; backward,
@@ -444,6 +591,13 @@ def rows_of(x: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
     """This rank's block of rows of a replicated table used inside a
     parallel block (its gradient summed over ``model``)."""
     return block_of(copy_in(x, ctx), 0, ctx.nm, ctx.index)
+
+
+def cols_of(x: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
+    """This rank's block of the last dim of a replicated leaf used inside
+    a parallel block (its gradient summed over ``model``): a per-channel
+    leaf such as a conv's ``(k, C)`` taps or a ``(C,)`` bias."""
+    return block_of(copy_in(x, ctx), -1, ctx.nm, ctx.index)
 
 
 def all_max(x: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:

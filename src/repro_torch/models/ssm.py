@@ -31,6 +31,28 @@ Where the torch ops differ from JAX's:
 
 Every op is out of place, so the functions run under ``torch.func.vmap``
 / ``grad``.
+
+Under a ``ShardCtx`` (``ctx=``, tensor parallelism over ``model``, where
+``tp_splits`` holds; otherwise the mixer runs replicated):
+
+- Mamba-1 runs channel-parallel over ``d_inner``. ``in_proj``'s column
+  block gives ``[x | z]`` columns that are not this rank's channels, so
+  its output is ``reblock``ed into this rank's ``x`` and ``z``. The
+  replicated per-channel leaves (``conv_w``, ``conv_b``, ``A_log``,
+  ``D``, ``dt_bias``) are sliced to this rank's channels after
+  ``copy_in``, and so are the rows of ``x_proj``, whose partial
+  product ``xdbl`` is summed both ways (``reduce_both``) before ``dt``,
+  ``B`` and ``C`` feed the channel-split ``dt_proj`` block and scan.
+  ``out_proj`` is a row block, followed by ``reduce_out``.
+- Mamba-2 runs head-parallel over ``ssm_heads``: the reblock gives this
+  rank's ``z``, ``x`` and ``dt`` heads and the whole of ``B`` and ``C``
+  (one group, shared by every head; their gradient is summed over the
+  ranks). Each rank convolves its ``x`` channels and the whole ``B``,
+  ``C``. The gated RMSNorm (``layers.rms_norm`` under ``ctx``) sums its
+  squares over the whole ``d_inner`` both ways; ``gamma``, ``A_log_m2``,
+  ``D`` and ``dt_bias`` are sliced by heads after ``copy_in``.
+
+Decode takes no ``ctx``.
 """
 from __future__ import annotations
 
@@ -42,6 +64,16 @@ from torch.profiler import record_function
 
 from repro_torch.config import ModelConfig
 from repro_torch.models.layers import Params, dense_init, normal, rms_norm
+from repro_torch.models.sharding import (
+    block_of,
+    cols_of,
+    copy_in,
+    reblock,
+    reduce_both,
+    reduce_out,
+    rows_of,
+    segments_split,
+)
 
 
 def softplus(x):
@@ -79,12 +111,37 @@ def _conv_step(buf, x1, conv_w, conv_b):
 # ============================================================================
 
 
+def in_proj_segments(cfg: ModelConfig):
+    """The columns of the SSM mixer's ``in_proj``, ``(width, split)`` in
+    order, ``split`` where each ``model`` rank takes its block of the
+    segment: Mamba-1's ``[x | z]`` (channels), Mamba-2's ``[z | x | B |
+    C | dt]`` (heads; ``B`` and ``C`` are one group shared by every head,
+    whole on every rank). The params, the split, the reblock and the
+    layout rule all read them here."""
+    di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    if "M2" in cfg.pattern_layers:
+        return ((di, True), (di, True), (n, False), (n, False), (nh, True))
+    return ((di, True), (di, True))
+
+
+def tp_splits(cfg: ModelConfig, nm: int) -> bool:
+    """Whether ``cfg`` has an SSM mixer whose ``in_proj`` segments split
+    whole over ``nm`` model ranks (``model_specs``' rule)."""
+    codes = cfg.pattern_layers
+    return (("M" in codes or "M2" in codes)
+            and segments_split(in_proj_segments(cfg), nm))
+
+
+def _in_width(cfg: ModelConfig) -> int:
+    return sum(w for w, _ in in_proj_segments(cfg))
+
+
 def mamba1_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
     d, di, n = cfg.d_model, cfg.d_inner, cfg.ssm_state
     r = _dt_rank(cfg)
     A = torch.arange(1, n + 1, dtype=torch.float32).expand(di, n)
     return {
-        "in_proj": dense_init(gen, d, 2 * di, dtype),
+        "in_proj": dense_init(gen, d, _in_width(cfg), dtype),
         "conv_w": (normal(gen, (cfg.ssm_conv, di)) * 0.1).to(dtype),
         "conv_b": torch.zeros((di,), dtype=dtype),
         "x_proj": dense_init(gen, di, r + 2 * n, dtype),
@@ -97,27 +154,49 @@ def mamba1_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
     }
 
 
-def _mamba1_inputs(cfg: ModelConfig, p: Params, u):
-    """Shared projection path. u: (B, S, d). Returns x, z, dt, Bc, Cc."""
+def ssm_ctx(cfg: ModelConfig, ctx):
+    """``ctx`` where the SSM mixer splits over ``model`` (``tp_splits``,
+    the layout's rule), else ``None``."""
+    return ctx if ctx is not None and tp_splits(cfg, ctx.nm) else None
+
+
+def _channels(p: Params, names, tp):
+    """The per-channel leaves ``names`` of ``p``, whole, or under ``tp``
+    this rank's block of their last dim (``A_log``, ``x_proj``: of
+    their rows)."""
+    if tp is None:
+        return [p[k] for k in names]
+    return [rows_of(p[k], tp) if k in ("A_log", "x_proj")
+            else cols_of(p[k], tp) for k in names]
+
+
+def _mamba1_inputs(cfg: ModelConfig, p: Params, u, tp=None):
+    """Shared projection path. u: (B, S, d). Returns x, z, dt, Bc, Cc;
+    under ``tp`` the channels are this rank's."""
     n, r = cfg.ssm_state, _dt_rank(cfg)
-    xz = u @ p["in_proj"]
-    x, z = torch.chunk(xz, 2, dim=-1)
-    x = F.silu(_causal_conv(x, p["conv_w"], p["conv_b"]))
-    xdbl = x @ p["x_proj"]
+    xz = copy_in(u, tp) @ p["in_proj"]
+    x, z = torch.chunk(reblock(xz, tp, in_proj_segments(cfg)), 2, dim=-1)
+    conv_w, conv_b, x_proj, dt_bias = _channels(
+        p, ("conv_w", "conv_b", "x_proj", "dt_bias"), tp)
+    x = F.silu(_causal_conv(x, conv_w, conv_b))
+    xdbl = reduce_both(x @ x_proj, tp)
     dt = softplus((xdbl[..., :r] @ p["dt_proj"]).to(torch.float32)
-                  + p["dt_bias"])
+                  + dt_bias)
     Bc = xdbl[..., r:r + n].to(torch.float32)
     Cc = xdbl[..., r + n:].to(torch.float32)
     return x, z, dt, Bc, Cc
 
 
-def mamba1_forward(cfg: ModelConfig, p: Params, u):
-    """Full-sequence selective scan. u: (B, S, d) -> (B, S, d)."""
+def mamba1_forward(cfg: ModelConfig, p: Params, u, ctx=None):
+    """Full-sequence selective scan. u: (B, S, d) -> (B, S, d). Under
+    ``ctx``, channel-parallel (module docstring)."""
     b, s, _ = u.shape
-    x, z, dt, Bc, Cc = _mamba1_inputs(cfg, p, u)
-    A = -torch.exp(p["A_log"])  # (di, n)
+    tp = ssm_ctx(cfg, ctx)
+    x, z, dt, Bc, Cc = _mamba1_inputs(cfg, p, u, tp)
+    A_log, D = _channels(p, ("A_log", "D"), tp)
+    A = -torch.exp(A_log)  # (di, n)
     xf = x.to(torch.float32)
-    h = torch.zeros((b, cfg.d_inner, cfg.ssm_state), dtype=torch.float32,
+    h = torch.zeros((b, x.shape[-1], cfg.ssm_state), dtype=torch.float32,
                     device=u.device)
     ys = []
     with record_function("mamba1_scan"):
@@ -126,9 +205,9 @@ def mamba1_forward(cfg: ModelConfig, p: Params, u):
             da = torch.exp(dtt[..., None] * A)  # (B, di, n)
             h = da * h + (dtt * xf[:, t])[..., None] * Bc[:, t, None, :]
             ys.append(torch.einsum("bdn,bn->bd", h, Cc[:, t]))
-    y = torch.stack(ys, dim=1) + xf * p["D"]
+    y = torch.stack(ys, dim=1) + xf * D
     y = y.to(u.dtype) * F.silu(z)
-    return y @ p["out_proj"]
+    return reduce_out(y @ p["out_proj"], tp)
 
 
 def mamba1_decode(cfg: ModelConfig, p: Params, u1, state):
@@ -174,7 +253,7 @@ def mamba2_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
     nh = cfg.ssm_heads
     conv_ch = di + 2 * n  # conv over (x, B, C)
     return {
-        "in_proj": dense_init(gen, d, 2 * di + 2 * n + nh, dtype),
+        "in_proj": dense_init(gen, d, _in_width(cfg), dtype),
         "conv_w": (normal(gen, (cfg.ssm_conv, conv_ch)) * 0.1).to(dtype),
         "conv_b": torch.zeros((conv_ch,), dtype=dtype),
         "dt_bias": torch.zeros((nh,), dtype=torch.float32),
@@ -185,8 +264,9 @@ def mamba2_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
     }
 
 
-def _mamba2_split(cfg: ModelConfig, proj):
-    di, n = cfg.d_inner, cfg.ssm_state
+def _mamba2_split(proj, di: int, n: int):
+    """``in_proj``'s output, with ``di`` channels each of ``z`` and ``x``
+    (this rank's under ``ctx``), split into ``z``, ``xBC`` and ``dt``."""
     z = proj[..., :di]
     xBC = proj[..., di:2 * di + 2 * n]
     dt = proj[..., 2 * di + 2 * n:]
@@ -220,9 +300,27 @@ def _ssd_chunk(hstate, xc, bc, cc, lac, dtc):
     return h_new, y_intra + y_inter
 
 
-def mamba2_forward(cfg: ModelConfig, p: Params, u, *, chunk: int = 128):
-    """Chunked SSD. u: (B, S, d) -> (B, S, d)."""
+def _mamba2_conv(cfg: ModelConfig, p: Params, tp):
+    """``conv_w`` / ``conv_b`` over (x, B, C): whole, or under ``tp`` this
+    rank's ``x`` channels and the whole ``B``, ``C`` (after ``copy_in``)."""
+    if tp is None:
+        return p["conv_w"], p["conv_b"]
+    di = cfg.d_inner
+    out = []
+    for k in ("conv_w", "conv_b"):
+        w = copy_in(p[k], tp)
+        out.append(torch.cat([block_of(w[..., :di], -1, tp.nm, tp.index),
+                              w[..., di:]], dim=-1))
+    return out
+
+
+def mamba2_forward(cfg: ModelConfig, p: Params, u, *, chunk: int = 128,
+                   ctx=None):
+    """Chunked SSD. u: (B, S, d) -> (B, S, d). Under ``ctx``,
+    head-parallel (module docstring)."""
     b, s, _ = u.shape
+    tp = ssm_ctx(cfg, ctx)
+    nm = 1 if tp is None else tp.nm
     di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     hp = di // nh  # head dim
     lc = chunk
@@ -230,14 +328,18 @@ def mamba2_forward(cfg: ModelConfig, p: Params, u, *, chunk: int = 128):
         lc //= 2
     nchunks = s // lc
 
-    proj = u @ p["in_proj"]
-    z, xBC, dt = _mamba2_split(cfg, proj)
-    xBC = F.silu(_causal_conv(xBC, p["conv_w"], p["conv_b"]))
+    proj = copy_in(u, tp) @ p["in_proj"]
+    proj = reblock(proj, tp, in_proj_segments(cfg))
+    di, nh = di // nm, nh // nm   # this rank's channels and heads
+    z, xBC, dt = _mamba2_split(proj, di, n)
+    xBC = F.silu(_causal_conv(xBC, *_mamba2_conv(cfg, p, tp)))
     x = xBC[..., :di].reshape(b, s, nh, hp)
     Bc = xBC[..., di:di + n].to(torch.float32)
     Cc = xBC[..., di + n:].to(torch.float32)
-    dt = softplus(dt.to(torch.float32) + p["dt_bias"])  # (B, S, nh)
-    A = -torch.exp(p["A_log_m2"])  # (nh,)
+    dt_bias, A_log, D, gamma = _channels(
+        p, ("dt_bias", "A_log_m2", "D", "gamma"), tp)
+    dt = softplus(dt.to(torch.float32) + dt_bias)  # (B, S, nh)
+    A = -torch.exp(A_log)  # (nh,)
     la = dt * A  # log decay per step (B, S, nh), <= 0
     xf = x.to(torch.float32)
 
@@ -250,10 +352,10 @@ def mamba2_forward(cfg: ModelConfig, p: Params, u, *, chunk: int = 128):
                                la[:, sl], dt[:, sl])
         ys.append(yc)
     y = ys[0] if nchunks == 1 else torch.cat(ys, dim=1)  # (B, S, nh, hp)
-    y = y + xf * p["D"][:, None]
+    y = y + xf * D[:, None]
     y = y.reshape(b, s, di).to(u.dtype)
-    y = rms_norm(y * F.silu(z), p["gamma"] - 1.0, cfg.norm_eps)
-    return y @ p["out_proj"]
+    y = rms_norm(y * F.silu(z), gamma - 1.0, cfg.norm_eps, tp)
+    return reduce_out(y @ p["out_proj"], tp)
 
 
 def mamba2_decode(cfg: ModelConfig, p: Params, u1, state):
@@ -261,7 +363,7 @@ def mamba2_decode(cfg: ModelConfig, p: Params, u1, state):
     di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     hp = di // nh
     proj = u1[:, 0] @ p["in_proj"]
-    z, xBC, dt = _mamba2_split(cfg, proj)
+    z, xBC, dt = _mamba2_split(proj, di, n)
     xBC, conv_buf = _conv_step(state["conv"], xBC, p["conv_w"], p["conv_b"])
     xBC = F.silu(xBC)
     x = xBC[..., :di].reshape(-1, nh, hp).to(torch.float32)

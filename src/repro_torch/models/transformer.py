@@ -45,12 +45,15 @@ The enc-dec family (``family="audio"``, whisper) is ``models/encdec.py``;
 its stacked layers are rematerialised by this module's ``_Remat`` too.
 
 ``forward`` and ``loss_fn`` take ``ctx``, a ``sharding.ShardCtx``: the
-params are then this rank's blocks (``sharding.model_specs``) and the
-dense, VLM and MoE layers run tensor-parallel over ``model``
-(``layers``, ``attention``, ``moe``); the logits are this rank's vocab
-block where the vocab divides the axis. Every rank issues the same
-collectives in the same order, in the forward and again in each remat
-recompute. Decode takes no ``ctx``.
+params are then this rank's blocks (``sharding.model_specs``) and every
+layer runs tensor-parallel over ``model``: the attention mixers and
+MLA by heads (``attention``, ``mla``), Mamba-1 by channels and Mamba-2
+by heads (``ssm``), the MLP by ``d_ff`` and the experts by expert or
+``d_ff`` (``layers``, ``moe``), the hybrid's shared block as an
+attention layer; the logits are this rank's vocab block where the
+vocab divides the axis. Every rank issues the same collectives in the
+same order, in the forward and again in each remat recompute. Decode
+takes no ``ctx``.
 """
 from __future__ import annotations
 
@@ -224,14 +227,14 @@ def init(generator: torch.Generator, cfg: ModelConfig, *,
 
 def _apply_mixer(cfg, code, p, x, positions, *, collect_cache=False,
                  ctx=None):
-    """Returns (out, cache_or_None). ``ctx`` reaches the attention
-    mixers ('A', 'W') alone."""
+    """Returns (out, cache_or_None)."""
     if code == "M":
-        return ssm.mamba1_forward(cfg, p, x), None
+        return ssm.mamba1_forward(cfg, p, x, ctx=ctx), None
     if code == "M2":
-        return ssm.mamba2_forward(cfg, p, x), None
+        return ssm.mamba2_forward(cfg, p, x, ctx=ctx), None
     if code == "L":
-        out = mla_mod.mla_attention(cfg, p, x, positions)
+        out = mla_mod.mla_attention(cfg, p, x, positions,
+                                    attn.heads_ctx(cfg, ctx))
         cache = None
         if collect_cache:
             ckv, krope = mla_mod._latents(cfg, p, x, positions)
@@ -276,14 +279,16 @@ def _apply_layer(cfg, code, p, x, positions, *, collect_cache=False,
     return x, aux, cache
 
 
-def _apply_shared_block(cfg, p, x, positions, *, collect_cache=False):
+def _apply_shared_block(cfg, p, x, positions, *, collect_cache=False,
+                        ctx=None):
     """The hybrid's shared attention + MLP block: a full-attention ('A')
-    mixer, then the MLP. Returns (x, cache or None)."""
+    mixer, then the MLP, both split over ``model`` under ``ctx``.
+    Returns (x, cache or None)."""
     h = apply_norm(cfg, p["norm1"], x)
     out, cache = _apply_mixer(cfg, "A", p["attn"], h, positions,
-                              collect_cache=collect_cache)
+                              collect_cache=collect_cache, ctx=ctx)
     x = x + out
-    x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+    x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x), ctx)
     return x, cache
 
 
@@ -382,7 +387,8 @@ def _remat_body(cfg: ModelConfig, plan: LayerPlan, slice_tree: Params,
             if a is not None:
                 aux = aux + a
         if plan.shared_attn:
-            x, _ = _apply_shared_block(cfg, t["shared"], x, positions)
+            x, _ = _apply_shared_block(cfg, t["shared"], x, positions,
+                                       ctx=ctx)
         return x, aux
 
     return body, leaves
@@ -450,7 +456,8 @@ def forward(
                 x, pc[f"p{j}"] = layer(sl[f"p{j}"], code, x)
             if plan.shared_attn:
                 x, pc["shared"] = _apply_shared_block(
-                    cfg, shared_p, x, positions, collect_cache=collect_cache)
+                    cfg, shared_p, x, positions, collect_cache=collect_cache,
+                    ctx=ctx)
             period_caches.append(pc)
         if collect_cache:
             caches["stack"] = _stack_caches(period_caches)

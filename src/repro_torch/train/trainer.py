@@ -22,10 +22,10 @@ computes its gradient with ``torch.func.grad_and_value`` of the model's
 that ``sharding.model_specs`` shards (``init_state(..., mesh=)``,
 ``sharding.shard_params``), the model runs tensor-parallel over
 ``model`` (``models.sharding.ShardCtx``: GSPMD's work in JAX), and the
-optimizer updates the blocks. That covers the dense, VLM and MoE
-families; MLA, the SSM and hybrid families, the enc-dec family, the
-CNN, the ZeRO variant and a non-worker ``data`` or ``pod`` axis are
-refused at ``model`` > 1 (ROADMAP.md queue 1 item 13d).
+optimizer updates the blocks. That covers every family of the repo
+(dense, VLM, MoE with MLA, SSM, hybrid, enc-dec; the CNN computes whole
+on every model rank). The ZeRO variant and a non-worker ``data`` or
+``pod`` axis are refused at ``model`` > 1 (ROADMAP.md queue 1 item 13e).
 """
 from __future__ import annotations
 
@@ -71,8 +71,6 @@ def init_state(api: ModelApi, opt: Optimizer, seed: int = 0, *,
     the optimizer's state and step 0. On a ``mesh`` whose ``model`` axis
     is larger than 1, the state holds this rank's blocks
     (``model_layout``)."""
-    if mesh is not None and axis_size(mesh, "model") > 1:
-        _check_tp(api)
     if params is None:
         params = api.init(torch.Generator().manual_seed(seed), device=device)
     specs = model_layout(api, mesh)
@@ -88,7 +86,7 @@ def zero_opt_state(params: Any, ltp: LTPConfig, mesh,
     """The ZeRO variant's optimizer state: this rank's zero shard of each
     leaf's packet-space momentum (``ls.zero_momentum_shapes`` rows over
     W), as ``{"m_pkts": [...]}``, which selects that variant. Refused at
-    ``model`` > 1 (item 13d): its packet space is the global leaf's."""
+    ``model`` > 1 (item 13e): its packet space is the global leaf's."""
     _refuse_zero(mesh)
     w = ls.worker_count(mesh, worker_axes)
     dev = tree_leaves(params)[0].device
@@ -97,43 +95,23 @@ def zero_opt_state(params: Any, ltp: LTPConfig, mesh,
                        for n, p in ls.zero_momentum_shapes(params, ltp, w)]}
 
 
-TP_FAMILIES = ("dense", "vlm", "moe")
-
-
-def _refuse(what: str) -> None:
-    raise NotImplementedError(
-        f"{what} on a mesh whose 'model' axis is larger than 1 is not "
-        f"ported: ROADMAP.md queue 1 item 13d; give the axis size 1")
-
-
 def _refuse_zero(mesh) -> None:
     if axis_size(mesh, "model") > 1:
-        _refuse("the ZeRO variant of make_ltp_train_step")
+        raise NotImplementedError(
+            "the ZeRO variant of make_ltp_train_step on a mesh whose "
+            "'model' axis is larger than 1 is not ported: ROADMAP.md "
+            "queue 1 item 13e; give the axis size 1")
 
 
-def _check_tp(api: ModelApi) -> None:
-    """Tensor parallelism covers the dense, VLM and MoE families without
-    MLA."""
-    cfg = api.cfg
-    if cfg.family not in TP_FAMILIES:
-        _refuse(f"the {cfg.family!r} family ({cfg.name})")
-    if "L" in cfg.pattern_layers:
-        _refuse(f"MLA ({cfg.name})")
-
-
-def _check_mesh(api: ModelApi, mesh, worker_axes: Sequence[str]) -> None:
-    """Every axis of size > 1 is a worker axis or ``model``; a ``model``
-    axis > 1 needs a family that runs tensor-parallel."""
+def _check_mesh(mesh, worker_axes: Sequence[str]) -> None:
+    """Every axis of size > 1 is a worker axis or ``model``."""
     for name, size in mesh_shape(mesh).items():
-        if name in worker_axes or size == 1:
+        if name in worker_axes or size == 1 or name == "model":
             continue
-        if name != "model":
-            raise NotImplementedError(
-                f"mesh axis {name!r} of size {size} is neither a worker "
-                f"axis nor 'model': data parallelism inside a worker is "
-                f"not ported (ROADMAP.md queue 1 item 13d); give it size "
-                f"1")
-        _check_tp(api)
+        raise NotImplementedError(
+            f"mesh axis {name!r} of size {size} is neither a worker axis "
+            f"nor 'model': data parallelism inside a worker is not ported "
+            f"(ROADMAP.md queue 1 item 13e); give it size 1")
 
 
 def _to(x, device) -> torch.Tensor:
@@ -179,7 +157,7 @@ def make_plain_train_step(api: ModelApi, opt: Optimizer,
     axes = dp_axes(mesh) if mesh is not None else ()
     ctx = None
     if mesh is not None:
-        _check_mesh(api, mesh, axes)
+        _check_mesh(mesh, axes)
         ctx = tp_ctx(mesh)
     n = ls.worker_count(mesh, axes) if mesh is not None else 1
     split = (axes if len(axes) > 1 else axes[0],) if axes else ()
@@ -244,7 +222,7 @@ def make_ltp_train_step(api: ModelApi, opt: Optimizer, mesh,
     params' dtype and added). The loss is the mean over workers of each
     worker's loss on its block."""
     worker_axes = tuple(worker_axes)
-    _check_mesh(api, mesh, worker_axes)
+    _check_mesh(mesh, worker_axes)
     n_workers = ls.worker_count(mesh, worker_axes)
     ctx = tp_ctx(mesh)
     specs = model_layout(api, mesh)

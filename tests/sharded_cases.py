@@ -78,6 +78,22 @@ TP_LOCAL = {"tp12": ("smollm", "mixtral", "qwen2vl", "mixtral_e3"),
             "tp14": ("smollm",)}
 TP_MESH = {"tp": (2, 2), "tp12": (1, 2), "tp14": (1, 4)}
 TP_SEED = 3
+# the families the tp task leaves out (tests/test_torch_tp_families.py):
+# the ``tpf`` task on (2, 2) against the JAX step, whose two processes
+# (``TPF_JAX``) split the compiles; ``tpf12`` and ``tpf14`` against the
+# port's own (1, 1) step
+TPF_MODELS = {"deepseek": ("deepseek_v2_236b", {}),
+              "falcon": ("falcon_mamba_7b", {}),
+              "zamba2": ("zamba2_7b", {}),
+              "whisper": ("whisper_small", {}),
+              "papernet": ("papernet", {})}
+TPF_JAX = {"tpf_a": ("deepseek", "papernet"),
+           "tpf_b": ("falcon", "zamba2", "whisper")}
+TPF_LOCAL = {"tpf12": tuple(TPF_MODELS), "tpf14": tuple(TPF_MODELS)}
+TPF_MESH = {"tpf": (2, 2), "tpf12": (1, 2), "tpf14": (1, 4)}
+# the planted fault of the tpf tasks: falcon's Mamba-1 in_proj, each rank
+# starting from its mirror's block
+TPF_PLANT = ("falcon", "in_proj")
 
 
 def env() -> dict:
@@ -413,18 +429,34 @@ def moe_cfg(get_reduced):
 
 
 def tp_cfg(get_reduced, name: str):
-    """A tp case's config: ``TP_MODELS``, and ``mixtral_e3``, REDUCED
-    mixtral with 3 experts (which 2 does not divide)."""
+    """A tp case's config: ``TP_MODELS``, ``TPF_MODELS``, and
+    ``mixtral_e3``, REDUCED mixtral with 3 experts (which 2 does not
+    divide)."""
     if name == "mixtral_e3":
         return tp_cfg(get_reduced, "mixtral").replace(n_experts=3)
-    arch, over = TP_MODELS[name]
+    arch, over = {**TP_MODELS, **TPF_MODELS}[name]
     return get_reduced(arch).replace(dtype="float32", **over)
 
 
 def tp_batch(cfg, seed: int) -> dict:
     """A (TRAIN_B, TRAIN_S) global batch from a numpy seed; the VLM's
-    adds patch embeddings for half the positions and M-RoPE ids."""
+    adds patch embeddings for half the positions and M-RoPE ids, the
+    enc-dec's frame embeddings; the CNN's is TRAIN_B images and
+    labels."""
     rng = np.random.default_rng(seed)
+    if cfg.family == "cnn":
+        return {"images": rng.normal(size=(TRAIN_B, 32, 32, 3)).astype(
+                    np.float32),
+                "labels": rng.integers(0, cfg.vocab, (TRAIN_B,)).astype(
+                    np.int32)}
+    if cfg.family == "audio":
+        return {"frames": (rng.normal(size=(
+                    TRAIN_B, cfg.encoder_frames, cfg.d_model)) * 0.02)
+                    .astype(np.float32),
+                "tokens": rng.integers(0, cfg.vocab, (TRAIN_B, TRAIN_S))
+                    .astype(np.int32),
+                "labels": rng.integers(0, cfg.vocab, (TRAIN_B, TRAIN_S))
+                    .astype(np.int32)}
     n_text = TRAIN_S - (TRAIN_S // 2 if cfg.family == "vlm" else 0)
     b = {"tokens": rng.integers(0, cfg.vocab, (TRAIN_B, n_text)),
          "labels": rng.integers(0, cfg.vocab, (TRAIN_B, TRAIN_S))}
@@ -497,13 +529,14 @@ def wait_for_inputs(started) -> str:
     return path
 
 
-def jax_tp(out: str) -> None:
+def jax_tp(out: str, names=tuple(TP_MODELS)) -> None:
     """The JAX step on a (data 2, model 2) mesh of 4 host devices, its
     params replicated as the reference's ``init_state`` leaves them and
     GSPMD partitioning the model over ``model``: one psum step a model
-    and compensation, and the plain step on REDUCED mixtral. The inputs
-    (params, batches, every worker's draws) go to ``tp_inputs(out)``
-    first, so the port's ranks can start while the steps compile."""
+    of ``names`` and compensation, and the plain step on REDUCED
+    mixtral. The inputs (params, batches, every worker's draws) go to
+    ``tp_inputs(out)`` first, so the port's ranks can start while the
+    steps compile."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import NamedSharding
@@ -521,7 +554,7 @@ def jax_tp(out: str) -> None:
     mesh = _jax_mesh(TP_MESH["tp"])
     frac = jnp.asarray(TRAIN_FRAC, jnp.float32)
     models = {}
-    for name in TP_MODELS:
+    for name in names:
         api, opt = build(tp_cfg(get_reduced, name)), sgd_momentum()
         state = init_state(api, opt, jax.random.PRNGKey(0))
         leaves = jax.tree.leaves(state.params)
@@ -800,19 +833,23 @@ def tp_params(api, z=None, name=None):
         for i in range(len(tree_leaves(template)))])
 
 
-def _mirrored_blocks(params, specs, mesh):
+def _mirrored_blocks(params, specs, mesh, leaf=None):
     """Plant a fault: each rank holds the block of its mirror on
-    ``model``."""
-    from repro_torch.models.sharding import model_dim, spec_at
+    ``model`` (of every leaf named ``leaf``, or of every leaf)."""
+    from repro_torch.models.sharding import model_dim, shard_params, \
+        spec_at
     from repro_torch.tree import tree_map_with_path
 
     nm = mesh.size(1)
     m = nm - 1 - mesh.get_local_rank("model")
+    own = shard_params(params, specs, mesh)
 
     def take(path, x):
         dim = model_dim(spec_at(specs, path))
         if dim is None:
             return x
+        if leaf is not None and path[-1] != leaf:
+            return spec_at(own, path)
         size = x.shape[dim] // nm
         return x.narrow(dim, m * size, size).clone()
 
@@ -829,7 +866,7 @@ def rank_tp(z: dict, world: int, task: str) -> dict:
     from repro_torch.tree import tree_leaves
     from repro_torch.train.trainer import model_layout
 
-    mesh = init_device_mesh("cpu", TP_MESH[task],
+    mesh = init_device_mesh("cpu", {**TP_MESH, **TPF_MESH}[task],
                             mesh_dim_names=("data", "model"))
     w = mesh.get_local_rank("data")
     rec = {}
@@ -837,10 +874,11 @@ def rank_tp(z: dict, world: int, task: str) -> dict:
     def put(prefix, r):
         rec.update({f"{prefix}/{k}": v for k, v in r.items()})
 
-    names = TP_MODELS if task == "tp" else TP_LOCAL[task]
+    names = {"tp": TP_MODELS, "tpf": TPF_MODELS, **TP_LOCAL,
+             **TPF_LOCAL}[task]
     for name in names:
         api = build(tp_cfg(get_reduced, name))
-        if task == "tp":
+        if task in ("tp", "tpf"):
             params = tp_params(api, z, name)
             batch = {k[len(f"in/{name}/batch/"):]: v for k, v in z.items()
                      if k.startswith(f"in/{name}/batch/")}
@@ -863,6 +901,124 @@ def rank_tp(z: dict, world: int, task: str) -> dict:
             put(f"plant/{name}/paper", tp_run(
                 api, mesh, params, batch, "paper", uniforms=u,
                 blocks=_mirrored_blocks(params, specs, mesh)))
+        if name == TPF_PLANT[0]:
+            put(f"plant/{name}/paper", tp_run(
+                api, mesh, params, batch, "paper", uniforms=u,
+                blocks=_mirrored_blocks(params, specs, mesh, TPF_PLANT[1])))
+    return rec
+
+
+# the collectives' unit cases (``tpcoll``, two ranks): reblock segments
+# (width, split) of Mamba-1's [x | z] and Mamba-2's [z | x | B | C | dt]
+COLL_SEGMENTS = {"m1": ((16, True), (16, True)),
+                 "m2": ((8, True), (8, True), (4, False), (4, False),
+                        (2, True))}
+COLL_MIXERS = {"m1": "falcon", "m2": "zamba2"}
+
+
+def coll_inputs() -> dict:
+    """The ``tpcoll`` inputs from a numpy seed: ``rb`` each rank's partial
+    sum, ``reblock/<k>`` a global column-parallel output, ``cols`` a
+    replicated (k, C) leaf, ``mixer/<k>`` a mixer's input; the ``c``
+    entries weigh each rank's output in its loss."""
+    rng = np.random.default_rng(11)
+    d = {"rb/x": rng.normal(size=(2, 3, 5)),
+         "rb/c": rng.normal(size=(2, 3, 5)),
+         "cols/w": rng.normal(size=(4, 6)),
+         "cols/c": rng.normal(size=(2, 4, 3))}
+    for k, seg in COLL_SEGMENTS.items():
+        width = sum(w // 2 if split else w for w, split in seg)
+        d[f"reblock/{k}/x"] = rng.normal(size=(3, 4, sum(w for w, _ in seg)))
+        d[f"reblock/{k}/c"] = rng.normal(size=(2, 3, 4, width))
+    for k in COLL_MIXERS:
+        d[f"mixer/{k}/u"] = rng.normal(size=(2, 8, 256)) * 0.5
+        d[f"mixer/{k}/c"] = rng.normal(size=(2, 8, 256))
+    return {k: v.astype(np.float32) for k, v in d.items()}
+
+
+def coll_mixer(get_reduced, k: str):
+    """The config and params (a CPU generator seeded 0) of the
+    ``tpcoll`` mixer ``k``: layer 0's mixer of a REDUCED SSM model."""
+    import torch
+
+    from repro_torch.models import build
+
+    cfg = tp_cfg(get_reduced, COLL_MIXERS[k])
+    params = build(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    p = params["stack"]["p0"]["mixer"]
+    return cfg, {name: x[0] for name, x in p.items()}
+
+
+def coll_mixer_grads(cfg, p, u, c, ctx=None, mesh=None) -> dict:
+    """The grads of ``sum(mixer(u) * c)`` for the mixer's params and
+    ``u``; under ``ctx`` from this rank's blocks, the sharded leaves'
+    grads gathered over ``model``."""
+    import torch
+
+    from repro_torch.models import ssm
+    from repro_torch.models.sharding import gather_params, model_specs, \
+        shard_params
+
+    fwd = ssm.mamba2_forward if "A_log_m2" in p else ssm.mamba1_forward
+    specs = None if ctx is None else model_specs(cfg, p, mesh)
+    p = p if ctx is None else shard_params(p, specs, mesh)
+    p = {k: x.detach().requires_grad_() for k, x in p.items()}
+    u = torch.as_tensor(u).clone().requires_grad_()
+    out = fwd(cfg, p, u, ctx=ctx)
+    (out * torch.as_tensor(c)).sum().backward()
+    grads = {k: x.grad for k, x in p.items()}
+    if ctx is not None:
+        grads = gather_params(grads, specs, mesh)
+    return {"out": out.detach().numpy(), "u": u.grad.numpy(),
+            **{k: g.numpy() for k, g in grads.items()}}
+
+
+def rank_collectives() -> dict:
+    """Two ranks on (data 1, model 2): ``reduce_both`` (and
+    ``reduce_out`` on the same partials), ``reblock`` on each segment
+    layout, ``cols_of``, and the Mamba-1 and Mamba-2 mixers' grads at
+    ``model`` = 2, then again with ``reduce_both`` planted as
+    ``reduce_out``; the forward outputs and the inputs' grads."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import layers, ssm
+    from repro_torch.models import sharding as sh
+
+    mesh = init_device_mesh("cpu", (1, 2), mesh_dim_names=("data", "model"))
+    ctx = sh.tp_ctx(mesh)
+    r = ctx.index
+    z = {k: torch.as_tensor(v) for k, v in coll_inputs().items()}
+    rec = {}
+    for name, fn in (("both", sh.reduce_both), ("out", sh.reduce_out)):
+        x = z["rb/x"][r].clone().requires_grad_()
+        y = fn(x, ctx)
+        (y * z["rb/c"][r]).sum().backward()
+        rec[f"rb/{name}/y"], rec[f"rb/{name}/grad"] = y.detach().numpy(), \
+            x.grad.numpy()
+    for k, seg in COLL_SEGMENTS.items():
+        x = sh.block_of(z[f"reblock/{k}/x"], -1, 2, r).clone() \
+            .requires_grad_()
+        y = sh.reblock(x, ctx, seg)
+        (y * z[f"reblock/{k}/c"][r]).sum().backward()
+        rec[f"reblock/{k}/y"] = y.detach().numpy()
+        rec[f"reblock/{k}/grad"] = x.grad.numpy()
+    w = z["cols/w"].clone().requires_grad_()
+    y = sh.cols_of(w, ctx)
+    (y * z["cols/c"][r]).sum().backward()
+    rec["cols/y"], rec["cols/grad"] = y.detach().numpy(), w.grad.numpy()
+    for k in COLL_MIXERS:
+        cfg, p = coll_mixer(get_reduced, k)
+        args = (cfg, p, z[f"mixer/{k}/u"], z[f"mixer/{k}/c"])
+        for tag in ("mixer", "plant"):
+            if tag == "plant":   # the mixers' and the gated norm's
+                ssm.reduce_both = layers.reduce_both = sh.reduce_out
+            try:
+                got = coll_mixer_grads(*args, ctx=ctx, mesh=mesh)
+            finally:
+                ssm.reduce_both = layers.reduce_both = sh.reduce_both
+            rec.update({f"{tag}/{k}/{n}": v for n, v in got.items()})
     return rec
 
 
@@ -875,9 +1031,14 @@ def rank_main(task, rank, world, init, ref, out) -> None:
         "gloo", init_method=f"file://{init}", rank=int(rank),
         world_size=int(world), timeout=datetime.timedelta(seconds=120))
     try:
-        z = dict(np.load(ref)) if os.path.exists(ref) else {}
-        if task in TP_MESH:
+        z = {}
+        for path in ref.split(os.pathsep):
+            if os.path.exists(path):
+                z.update(np.load(path))
+        if task in TP_MESH or task in TPF_MESH:
             rec = rank_tp(z, int(world), task)
+        elif task == "tpcoll":
+            rec = rank_collectives()
         else:
             rec = (rank_sync if task == "sync" else rank_train)(z,
                                                                 int(world))
@@ -887,7 +1048,9 @@ def rank_main(task, rank, world, init, ref, out) -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1] == "jax":
+    if sys.argv[1] == "jax" and sys.argv[2] in TPF_JAX:
+        jax_tp(sys.argv[3], TPF_JAX[sys.argv[2]])
+    elif sys.argv[1] == "jax":
         {"sync": jax_sync, "train": jax_train, "tp": jax_tp}[sys.argv[2]](
             sys.argv[3])
     else:

@@ -191,30 +191,27 @@ def test_ltp_zero_variant_matches_psum_variant(setup, mesh1):
 
 
 def test_non_worker_axis_needs_tensor_parallelism(setup):
-    """A ``model`` axis > 1 runs tensor-parallel for the dense, VLM and
-    MoE families alone (``tests/test_torch_tensor_parallel.py``): MLA,
-    the SSM, hybrid, enc-dec and CNN families, the ZeRO variant and a
-    non-worker data axis are refused, naming ROADMAP item 13d."""
+    """A ``model`` axis > 1 runs tensor-parallel for every family
+    (``tests/test_torch_tensor_parallel.py``,
+    ``tests/test_torch_tp_families.py``): no family is refused any more.
+    The ZeRO variant at ``model`` > 1 and a non-worker data axis are
+    refused, naming ROADMAP item 13e."""
     _, api, _, params, _ = setup
-    for arch, what in (("deepseek_v2_236b", "MLA"),
-                       ("falcon_mamba_7b", "'ssm'"),
-                       ("zamba2_7b", "'hybrid'"),
-                       ("whisper_small", "'audio'"), ("papernet", "'cnn'")):
-        other = build(get_reduced(arch))
-        with pytest.raises(NotImplementedError, match="item 13d") as e:
-            tr.make_ltp_train_step(other, sgd_momentum(),
-                                   {"data": 2, "model": 2}, LTPConfig(),
-                                   ("data",), _specs()[1])
-        assert what in str(e.value)
-        with pytest.raises(NotImplementedError, match="item 13d"):
-            tr.make_plain_train_step(other, sgd_momentum(),
-                                     {"pod": 2, "data": 1, "model": 4})
-    with pytest.raises(NotImplementedError, match="item 13d"):
+    assert not hasattr(tr, "TP_FAMILIES") and not hasattr(tr, "_check_tp")
+    for mesh in ({"data": 2, "model": 2}, {"pod": 2, "data": 1,
+                                            "model": 4}):
+        tr._check_mesh(mesh, ("pod", "data"))
+    with pytest.raises(NotImplementedError, match="item 13e") as e:
         tr.zero_opt_state(params, LTPConfig(), {"data": 1, "model": 2},
                           ("data",))
-    with pytest.raises(NotImplementedError, match="item 13d"):
+    assert "ZeRO" in str(e.value)
+    with pytest.raises(NotImplementedError, match="item 13e") as e:
         tr.make_ltp_train_step(api, sgd_momentum(), {"pod": 2, "data": 2},
                                LTPConfig(), ("pod",), _specs()[1])
+    assert "'data'" in str(e.value)
+    with pytest.raises(NotImplementedError, match="item 13e"):
+        tr.make_plain_train_step(api, sgd_momentum(),
+                                 {"data": 2, "seq": 2, "model": 1})
 
 
 def test_init_state_runs_on_the_card_unless_told(setup, monkeypatch):
