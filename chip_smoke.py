@@ -76,23 +76,24 @@ From the root of a checkout it:
    each transport, the profiled step's idle share, the two kernels'
    device time in it and its EF gate by op;
 8. drives the paper's Fig 13 time-to-accuracy run (``train.tta.run_tta``,
-   ``run_tta_phase``) at the same width and the benchmark's full
-   schedule: 150 steps, an eval every 10 on 1,024 images, losses 0 /
-   0.001 / 0.01 x ltp / bbr / cubic; checks completion, finite losses,
-   evals in [0, 1], delivered 1.0 for bbr and cubic and one packet_reduce
-   launch an ltp step; holds a 20-step ltp run at loss 0.01 through the
-   kernels against the plain backend (params within twice the distance
-   of a one-ulp rounding control); prints the ``tta`` line (final
-   accuracy, time to 0.45, final loss, delivered, simulated and host
-   time, images/s of each run; ltp minus cubic final accuracy a loss,
-   one seed);
+   ``run_tta_phase``) at the same width and ``TTA_STEPS`` steps (the
+   benchmark's 150, cut to 100 for the script's time; every run had
+   reached the target by step 90), an eval every 10 on 1,024 images,
+   losses 0 / 0.001 / 0.01 x ltp / bbr / cubic; checks completion,
+   finite losses, evals in [0, 1], delivered 1.0 for bbr and cubic and
+   one packet_reduce launch an ltp step; holds a 20-step ltp run at loss
+   0.01 through the kernels against the plain backend (params within twice
+   the distance of a one-ulp rounding control); prints the ``tta`` line
+   (final accuracy, time to 0.45, final loss, delivered, simulated and host
+   time, images/s of each run; ltp minus cubic final accuracy a loss, one
+   seed);
 9. drives the des16 fabric-chaos scenario (``train.netfault``,
    ``run_netfault_phase``) at the same width: 16 workers in 4 racks, two
    PS shards, 40 steps a run, clean, faulted with the loss-budget
    controller and faulted without it; checks completion, the
    conservation of gradients, that faults and controller moves happened
-   and one packet_reduce launch at (16, 1934, 360) a commit; holds a
-   12-step faulted run with the controller through the kernels against
+   and one packet_reduce launch at (16, 1934, 360) a commit; holds an
+   8-step faulted run with the controller through the kernels against
    the plain backend (equal transport fields and telemetry, params
    within twice the distance of a one-ulp rounding control), profiled
    over one step during the faults; prints the ``netfault`` line
@@ -139,27 +140,34 @@ From the root of a checkout it:
     tensors, REDUCED config, 3 steps) against the same two ranks on the
     CPU, within twice the CPU pair's rounding control (the ``sharded``
     line);
-12b. drives tensor parallelism over ``model`` (``run_tp_phase``),
-    each config at its published widths in its own dtype, cut in depth,
-    through ``make_ltp_train_step`` (psum, paper, SGD-momentum, 3
-    steps): one ``mixtral_8x22b`` layer and one ``deepseek_v2_236b``
-    layer (its dense lead layer: MLA), batch 32 x seq 128;
-    ``falcon_mamba_7b`` at 2 layers, ``zamba2_7b`` at 7 (its shared
-    block included), ``whisper_small`` and ``papernet`` whole, batch 8
-    (papernet 128 images). Each at (data 1, model 1) in this process
-    through the kernels (Mixtral with a profiled step) and from a
-    one-ulp-nudged init (the rounding control); then at (data 1, model
-    2) as one pair of gloo ranks sharing the card, subprocesses of
-    ``chip_smoke.py --tp-rank`` that take the models in turn, each rank
-    holding its block of the heads, experts, channels or SSM heads and
-    vocab: Mixtral and DeepSeek through the kernels and on the plain
-    route, the others through the kernels; one gate launch a leaf a step
-    a rank, none on the plain route, params within twice the model's
-    rounding control of the plain route's and of the (1, 1) run's, the
-    ranks' gathered params equal; host ms a step, peak memory a rank,
-    the model axis's collective calls and bytes a step; meanwhile
-    REDUCED smollm, mixtral, deepseek-v2, falcon-mamba and zamba2 on
-    (data 2, model 2), four gloo ranks on the card against four on the
+12b. drives tensor parallelism over ``model`` and data parallelism
+    inside a worker (``run_tp_phase``), each config at its published
+    widths in its own dtype, cut in depth, through
+    ``make_ltp_train_step`` (psum, paper, SGD-momentum, 3 steps): one
+    ``mixtral_8x22b`` layer and one ``deepseek_v2_236b`` layer (its
+    dense lead layer: MLA), batch 32 x seq 128; ``falcon_mamba_7b`` at
+    2 layers, ``zamba2_7b`` at 7 (its shared block included),
+    ``whisper_small`` and ``papernet`` whole, batch 8 (papernet 128
+    images). Each at (data 1, model 1) in this process through the
+    kernels (Mixtral with a profiled step) and from a one-ulp-nudged
+    init (the rounding control), DeepSeek's ZeRO variant the same two
+    ways; then at (data 1, model 2) as one pair of gloo ranks sharing
+    the card, subprocesses of ``chip_smoke.py --tp-rank`` that take the
+    models in turn, each rank holding its block of the heads, experts,
+    channels or SSM heads and vocab: each through the kernels, Mixtral
+    also on the plain route for one step, DeepSeek for all three and
+    with the ZeRO variant; one gate launch a leaf a step a rank, none on
+    the plain route or by ZeRO, params within twice the model's rounding
+    control of the plain route's (at its last step) and of the (1, 1)
+    run's, the ranks' gathered params equal; host ms a
+    step, peak memory a rank, the model axis's collective calls and
+    bytes a step; then the same two ranks on (pod 1, data 2, model 1)
+    train the sharded phase's smollm-360m (AdamW, psum paper through
+    the kernels, each rank on half the batch) against that phase's
+    world-size-1 run at step 3, the data axis's collectives counted;
+    meanwhile REDUCED smollm, mixtral, deepseek-v2, falcon-mamba and
+    zamba2 on (data 2, model 2), psum and ZeRO, and smollm on (pod 2,
+    data 2, model 1), four gloo ranks on the card against four on the
     CPU (and four from a nudged init); then the gate at Mixtral's
     layer's largest leaf (2236963, 360) and DeepSeek's (1456356, 360)
     and over each layer's leaves against its plain version and timed
@@ -226,8 +234,9 @@ From the root of a checkout it:
     shape's, whose launches are counted there alone, and both with
     their LM shape's under ``lm``, packet_reduce also with its MoE,
     SSM and enc-dec shapes' under ``moe``, ``ssm``, ``hybrid`` and
-    ``whisper``, whose launches are counted there alone) and, last, the
-    device JSON line.
+    ``whisper``, whose launches are counted there alone), a ``phases``
+    line (each phase's wall seconds, which its own line carries too, and
+    the total) and, last, the device JSON line.
 
 Every LM path trains with remat (``loss_fn``'s default): each stacked
 period, and each layer of whisper's two stacks, is recomputed in the
@@ -1291,12 +1300,15 @@ def strip_loss(events) -> list:
     return [{k: v for k, v in e.items() if k != "loss"} for e in events]
 
 
+TTA_STEPS = 100      # benchmarks/fig13_tta.py's 150, cut (PERF.md §4)
+
+
 def run_tta_phase(torch, zero_counts, read_counts, launches_of, *,
-                  device="cuda", cfg=None, steps=150, eval_every=10,
+                  device="cuda", cfg=None, steps=TTA_STEPS, eval_every=10,
                   n_test=1024, check_steps=20):
     """The paper's Fig 13 (``train.tta.run_tta``) at papernet's full width
-    and the benchmark's full schedule: 9 runs of ``steps`` steps (losses
-    0 / 0.001 / 0.01 x ltp / bbr / cubic; 8 workers, batch 128,
+    and the benchmark's schedule cut in steps: 9 runs of ``steps`` steps
+    (losses 0 / 0.001 / 0.01 x ltp / bbr / cubic; 8 workers, batch 128,
     ``compute_time=0.05``), an eval every ``eval_every`` steps on
     ``n_test`` images, target 0.45. Checks that every run completes with
     finite losses and evals in [0, 1], that bbr and cubic deliver 1.0 and
@@ -1388,7 +1400,7 @@ def run_tta_phase(torch, zero_counts, read_counts, launches_of, *,
 
 
 def run_netfault_phase(torch, zero_counts, read_counts, launches_of, *,
-                       device="cuda", cfg=None, steps=40, check_steps=12):
+                       device="cuda", cfg=None, steps=40, check_steps=8):
     """The des16 fabric-chaos scenario (``train.netfault``) at papernet's
     full width: 16 workers in 4 racks of 4, two PS shards, batch 64,
     ``compute_time=0.01``, staleness_comp 0.5, ``steps`` steps a run, three
@@ -2621,7 +2633,10 @@ def run_sharded_phase(torch, timer, zero_counts, read_counts, launches_of,
     the gate's device time, summed and a launch). Then
     ``sharded_gate_rows`` and
     ``run_sharded_gloo``. Returns (the ``sharded`` line, the launches of
-    the counted runs, the gate rows)."""
+    the counted runs, the gate rows, and the psum paper kernel run at
+    step ``TP_DP_MODEL["steps"]`` for the ``tp`` phase: its params on the
+    host, losses and delivered fractions to there, and the distance
+    between the plain run and its nudged twin there)."""
     import torch.distributed as dist
 
     from repro_torch.config import LTPConfig
@@ -2707,6 +2722,10 @@ def run_sharded_phase(torch, timer, zero_counts, read_counts, launches_of,
                 delivered.append(float(m["delivered_frac"]))
                 torch.cuda.synchronize()
                 step_s.append(time.perf_counter() - t0)
+                if (label.startswith("psum_paper")
+                        and s + 1 == TP_DP_MODEL["steps"]):
+                    snaps[label] = [x.detach().clone()
+                                    for x in tree_leaves(state.params)]
             got = read_counts()
             launches.append(got)
             if not all(math.isfinite(x) for x in losses):
@@ -2724,6 +2743,7 @@ def run_sharded_phase(torch, timer, zero_counts, read_counts, launches_of,
 
         control = nudged(torch, init, 2)
         n_leaves = len(n_pkts)
+        snaps = {}
         for variant, comp, per_step in (("psum", "paper", n_leaves),
                                         ("psum", "count", n_leaves),
                                         ("zero", "paper", 0)):
@@ -2750,6 +2770,17 @@ def run_sharded_phase(torch, timer, zero_counts, read_counts, launches_of,
                                      f"{b['loss']} {b['delivered']}")
             line[form] = within_rounding(f"sharded {form}", ker, plain, ctl)
             del ker, plain, ctl
+            if form == "psum_paper":
+                # the tp phase's (pod 1, data 2) run is held against this
+                # run at its last step
+                k = TP_DP_MODEL["steps"]
+                ws1 = {"params": [x.cpu() for x in
+                                  snaps.pop("psum_paper_cuda")],
+                       "control": distance(
+                           snaps.pop("psum_paper_python"),
+                           snaps.pop("psum_paper_python_nudged")),
+                       "loss": runs["psum_paper_cuda"]["loss"][:k],
+                       "delivered": runs["psum_paper_cuda"]["delivered"][:k]}
         del control
         loss = line["runs"]["psum_paper_cuda"]["loss"]
         if not (abs(loss[0] - math.log(cfg.vocab)) < 1.0
@@ -2845,7 +2876,7 @@ def run_sharded_phase(torch, timer, zero_counts, read_counts, launches_of,
     gc.collect()
     torch.cuda.empty_cache()
     line["gloo_two_ranks"] = run_sharded_gloo(torch)
-    return line, launches, rows
+    return line, launches, rows, ws1
 
 
 # the tp phase's full-width runs: each config's CONFIG at its published
@@ -2853,31 +2884,43 @@ def run_sharded_phase(torch, timer, zero_counts, read_counts, launches_of,
 # SGD-momentum at examples/train_lm.py's lr; the parent passes each to
 # its ranks. Mixtral-8x22b at 1 layer (as on the MoE path) and
 # DeepSeek-V2 at 1 layer (its dense lead layer: MLA, d_ff 12,288) run
-# batch 32 x seq 128 at (1, 2) through the kernels and then the plain
-# route; falcon-mamba (2 layers), zamba2 (7: six Mamba-2 layers, the
-# shared block, one more), whisper-small (whole) and papernet (whole)
-# through the kernels alone, at batch 8 (papernet 128 images)
+# batch 32 x seq 128 at (1, 2) through the kernels, then the plain
+# route (Mixtral's over its first step, DeepSeek's over all three), and
+# DeepSeek's ZeRO variant; falcon-mamba (2 layers), zamba2
+# (7: six Mamba-2 layers, the shared block, one more), whisper-small
+# (whole) and papernet (whole) through the kernels, at batch 8 (papernet
+# 128 images)
 TP_MODEL = {"arch": "mixtral_8x22b", "reduced": False, "n_layers": 1,
             "steps": 3, "batch": 32, "seq": 128, "lr": 3e-4,
-            "data_vocab": LM_DATA_VOCAB, "routes": ["cuda", "python"]}
+            "data_vocab": LM_DATA_VOCAB, "routes": ["cuda", "python"],
+            "plain_steps": 1}
 TP_FAMILY_RUN = dict(TP_MODEL, batch=8, routes=["cuda"])
 TP_MODELS = [TP_MODEL,
-             dict(TP_MODEL, arch="deepseek_v2_236b"),
+             dict(TP_MODEL, arch="deepseek_v2_236b", plain_steps=3,
+                  zero=True),
              dict(TP_FAMILY_RUN, arch="falcon_mamba_7b", n_layers=2),
              dict(TP_FAMILY_RUN, arch="zamba2_7b", n_layers=7),
              dict(TP_FAMILY_RUN, arch="whisper_small", n_layers=12),
              dict(TP_FAMILY_RUN, arch="papernet", n_layers=6, batch=128)]
+# data parallelism inside a worker: the sharded phase's smollm-360m (the
+# LM phase's CONFIG at float32, 32 layers, its init and batches, AdamW,
+# psum paper) on (pod 1, data 2, model 1), worker_axes ("pod",), the same
+# two ranks, held against that phase's world-size-1 run at step 3
+TP_DP_MODEL = {"arch": "smollm_360m", "reduced": False, "n_layers": 32,
+               "dtype": "float32", "steps": 3, "batch": LM_BATCH,
+               "seq": LM_SEQ, "lr": SHARDED_LR, "data_vocab": LM_DATA_VOCAB}
 TP_REDUCED = ("smollm_360m", "mixtral_8x22b", "deepseek_v2_236b",
               "falcon_mamba_7b", "zamba2_7b")
 TP_CHILD_TIMEOUT_S = 900
 
 
 def tp_config(model: dict):
-    """The config of a ``TP_MODELS`` entry."""
+    """The config of a ``TP_MODELS`` entry (or ``TP_DP_MODEL``)."""
     from repro_torch.configs import get_config, get_reduced
 
     get = get_reduced if model["reduced"] else get_config
-    return get(model["arch"]).replace(n_layers=model["n_layers"])
+    cfg = get(model["arch"]).replace(n_layers=model["n_layers"])
+    return cfg.replace(dtype=model["dtype"]) if "dtype" in model else cfg
 
 
 def tp_batches(model: dict) -> list:
@@ -2902,29 +2945,50 @@ def tp_batches(model: dict) -> list:
     return out
 
 
-def tp_expected_loss(cfg) -> float:
-    """Step 1's loss at the random init: ln V for papernet (its head is
-    near zero); for an LM ln V plus the random head's logit variance
-    over 2 (0.02^2 d after a unit-variance norm), plus 0.01 where a MoE
-    layer adds its balance loss (near 1)."""
+def tp_expected_loss(cfg, labels=None) -> tuple:
+    """Step 1's loss at the random init and the spread of a given init
+    around it. ln V for papernet (its head is near zero), spread 0. For
+    an LM, ln V plus the random head's logit variance over 2 (s^2 = 0.02^2
+    d after a unit-variance norm: the mean logsumexp over the vocab),
+    plus 0.01 where a MoE layer adds its balance loss (near 1). That is
+    the mean over the head's init. One init's loss also subtracts the
+    mean logit of the label tokens, which is 0 only on average: it is
+    Gaussian over the head's columns with a standard deviation of at most
+    0.02 sqrt(d sum_y p_y^2) (p_y the share of label y in ``labels``),
+    reached where the final hidden states share one direction, and
+    synthetic text repeats its labels (sum_y p_y^2 = 0.0055 at batch 8 x
+    128 of ``SyntheticLM(8192)``). Zamba2's step 1 read 0.14-0.18 above
+    the mean, the port and the JAX package giving the same loss from the
+    same params (``tests/test_torch_ssm.py``, which also finds the mean
+    logsumexp at ln V + s^2 / 2): about two of these standard deviations
+    (0.089). ``run_tp_phase`` holds step 1 within four of them (papernet
+    within 1.0)."""
     if cfg.family == "cnn":
-        return math.log(cfg.vocab)
+        return math.log(cfg.vocab), 0.0
     moe = cfg.n_experts > 0 and cfg.n_layers > cfg.first_dense_layers
-    return (math.log(cfg.vocab) + 0.5 * 0.02 ** 2 * cfg.d_model
+    mean = (math.log(cfg.vocab) + 0.5 * 0.02 ** 2 * cfg.d_model
             + (0.01 if moe else 0.0))
+    if labels is None:
+        return mean, None
+    import numpy as np
+
+    share = np.unique(np.asarray(labels), return_counts=True)[1] / np.size(
+        labels)
+    return mean, 0.02 * math.sqrt(cfg.d_model * float((share ** 2).sum()))
 
 
 class CollectiveCounter:
     """Counts the calls and bytes of ``torch.distributed.all_reduce``,
-    ``all_gather_into_tensor`` and ``all_to_all_single`` on the ``model``
-    group of a mesh (bytes: the tensor each rank passes in), by wrapping
-    the functions of the module the port calls them through."""
+    ``all_gather_into_tensor`` and ``all_to_all_single`` on the groups of
+    ``axes`` of a mesh (bytes: the tensor each rank passes in), by
+    wrapping the functions of the module the port calls them through."""
 
     INPUT_ARG = {"all_reduce": 0, "all_gather_into_tensor": 1,
                  "all_to_all_single": 1}
 
-    def __init__(self, dist, mesh):
-        self.dist, self.group = dist, mesh.get_group("model")
+    def __init__(self, dist, mesh, axes=("model",)):
+        self.dist = dist
+        self.groups = {a: mesh.get_group(a) for a in axes}
         self.orig = {n: getattr(dist, n) for n in self.INPUT_ARG}
         self.zero()
         for name, fn in self.orig.items():
@@ -2932,22 +2996,27 @@ class CollectiveCounter:
 
     def _wrap(self, name, fn):
         def counted(*args, **kw):
-            if kw.get("group") is self.group:
-                t = args[self.INPUT_ARG[name]]
-                self.calls[name] += 1
-                self.bytes[name] += t.numel() * t.element_size()
+            for a, group in self.groups.items():
+                if kw.get("group") is group:
+                    t = args[self.INPUT_ARG[name]]
+                    self.calls[a][name] += 1
+                    self.bytes[a][name] += t.numel() * t.element_size()
             return fn(*args, **kw)
         return counted
 
     def zero(self):
-        self.calls = dict.fromkeys(self.orig, 0)
-        self.bytes = dict.fromkeys(self.orig, 0)
+        self.calls = {a: dict.fromkeys(self.orig, 0) for a in self.groups}
+        self.bytes = {a: dict.fromkeys(self.orig, 0) for a in self.groups}
 
     def read(self, steps: int) -> dict:
-        return {"calls_per_step": {k: v / steps for k, v in
-                                   self.calls.items()},
-                "bytes_per_step": {k: v / steps for k, v in
-                                   self.bytes.items()}}
+        """``{"<axis>_collectives": {"calls_per_step", "bytes_per_step"}}``
+        an axis."""
+        return {f"{a}_collectives": {
+            "calls_per_step": {k: v / steps for k, v in
+                               self.calls[a].items()},
+            "bytes_per_step": {k: v / steps for k, v in
+                               self.bytes[a].items()}}
+            for a in self.groups}
 
     def close(self):
         for name, fn in self.orig.items():
@@ -2955,30 +3024,42 @@ class CollectiveCounter:
 
 
 def tp_train(torch, api, opt, mesh, params, backend, batches, frac, lr, *,
-             uniforms=None, counter=None, profile=False) -> dict:
-    """``make_ltp_train_step`` (psum, paper) from the GLOBAL ``params`` on
-    ``mesh`` through ``backend``, one step a batch, the draws from seed 1
-    + step (or ``uniforms(step, state)``). Every kernel's launch count is
-    set to 0 just before the run and read just after. Returns the
-    state's blocks, host ms a step, losses, delivered fractions, those
-    launches, the peak memory and, with ``counter``, the model
-    axis's collectives a step; with ``profile``, one more step profiled
-    after the counts are read (its params are not returned)."""
+             uniforms=None, counter=None, profile=False, variant="psum",
+             worker_axes=("data",), keep_at=None) -> dict:
+    """``make_ltp_train_step`` (paper) from the GLOBAL ``params`` on
+    ``mesh`` through ``backend``, over ``worker_axes`` (the batch split
+    over the mesh's batch axes), the psum variant with ``opt`` or the
+    ZeRO variant (``variant="zero"``: its own SGD-momentum), one step a
+    batch, the draws from seed 1 + step (or ``uniforms(step, state)``).
+    Every kernel's launch count is set to 0 just before the run and read
+    just after. Returns the state's blocks, host ms a step, losses,
+    delivered fractions, those launches, the peak memory and, with
+    ``counter``, its axes' collectives a step; with ``profile``, one more
+    step profiled after the counts are read (its params are not
+    returned); with ``keep_at``, a copy on the host of the state's
+    blocks after that many steps (``params_at``), taken outside the
+    steps' times."""
     import statistics as st
 
     from repro_torch.config import LTPConfig
     from repro_torch.kernels import dropfill as df_mod
     from repro_torch.kernels import packet_reduce as pr_mod
     from repro_torch.kernels import randomk as rk_mod
-    from repro_torch.train.trainer import init_state, make_ltp_train_step
-    from repro_torch.tree import tree_leaves
+    from repro_torch.models.sharding import dp_axes
+    from repro_torch.train.trainer import init_state, make_ltp_train_step, \
+        zero_opt_state
+    from repro_torch.tree import tree_leaves, tree_map
 
     cuda = tree_leaves(params)[0].device.type == "cuda"
+    ltp = LTPConfig(sync_backend=backend)
     state = init_state(api, opt, params=params, mesh=mesh)
+    if variant == "zero":
+        state.opt_state = zero_opt_state(params, ltp, mesh, worker_axes)
     del params
+    dp = dp_axes(mesh)
     step = make_ltp_train_step(
-        api, opt, mesh, LTPConfig(sync_backend=backend), ("data",),
-        {k: ("data",) for k in batches[0]})
+        api, opt, mesh, ltp, worker_axes,
+        {k: (dp[0] if len(dp) == 1 else dp,) for k in batches[0]})
     if cuda:
         gc.collect()
         torch.cuda.empty_cache()
@@ -2988,7 +3069,7 @@ def tp_train(torch, api, opt, mesh, params, backend, batches, frac, lr, *,
         setattr(mod, attr, 0)
     if counter is not None:
         counter.zero()
-    step_s, losses, delivered = [], [], []
+    step_s, losses, delivered, kept = [], [], [], {}
     for s, b in enumerate(batches):
         if cuda:
             torch.cuda.synchronize()
@@ -3000,18 +3081,21 @@ def tp_train(torch, api, opt, mesh, params, backend, batches, frac, lr, *,
         if cuda:
             torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-    out = {"params": state.params,
+        if s + 1 == keep_at:
+            kept["params_at"] = tree_map(
+                lambda x: x.detach().to("cpu", copy=True), state.params)
+    out = {"params": state.params, **kept,
            "launches": {"packet_reduce": pr_mod.LAUNCHES,
                         "tree_reduce": pr_mod.TREE_LAUNCHES,
                         "dropfill": df_mod.LAUNCHES,
                         "randomk": rk_mod.LAUNCHES},
            "step_ms": [t * 1e3 for t in step_s],
-           "median_step_ms": st.median(step_s[1:]) * 1e3,
+           "median_step_ms": st.median(step_s[1:] or step_s) * 1e3,
            "loss": losses, "delivered": delivered}
     if cuda:
         out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     if counter is not None:
-        out["model_collectives"] = counter.read(len(batches))
+        out.update(counter.read(len(batches)))
     if profile:
         gc.collect()
         torch.cuda.empty_cache()
@@ -3041,6 +3125,29 @@ def params_digest(torch, params) -> str:
     return h.hexdigest()
 
 
+def wait_for(path: str, t_start: float) -> float:
+    """Seconds spent waiting for ``path`` to exist; raises past
+    ``TP_CHILD_TIMEOUT_S`` from ``t_start``."""
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if time.perf_counter() - t_start > TP_CHILD_TIMEOUT_S:
+            raise TimeoutError(f"no params at {path}")
+        time.sleep(0.2)
+    return time.perf_counter() - t0
+
+
+def against_saved(torch, full, path: str, dev) -> dict:
+    """The digest of the global params ``full`` and their largest
+    distance to the leaves saved at ``path`` (``torch.save``)."""
+    from repro_torch.tree import tree_leaves
+
+    saved = torch.load(path, mmap=True, map_location="cpu",
+                       weights_only=True)
+    d = max((a.float() - b.to(dev).float()).abs().max().item()
+            for a, b in zip(tree_leaves(full), saved, strict=True))
+    return {"digest": params_digest(torch, full), "d_saved": d}
+
+
 def tp_full_model(torch, dist, mesh, counter, model: dict, dev,
                   t_start: float) -> dict:
     """One model of a full-width rank (``tp_full_rank``), once the (1, 1)
@@ -3048,44 +3155,98 @@ def tp_full_model(torch, dist, mesh, counter, model: dict, dev,
     leaves): each of ``model["routes"]`` from the same init; then the
     global params of the kernel route gathered (``gather_params``), their
     digest and their distance to the (1, 1) params, and the distance of
-    this rank's blocks between the routes."""
+    this rank's blocks between the routes (the plain route over the first
+    ``model["plain_steps"]`` steps, against the kernel route's blocks
+    there). With ``model["zero"]``, then
+    the ZeRO variant through the kernels' backend (its mask is the
+    reference's multiply), its gathered params against the (1, 1) ZeRO
+    run's (``model["one_zero"]``)."""
     from repro_torch.launch.train import frac_schedule
     from repro_torch.models import build
     from repro_torch.models.sharding import gather_params
     from repro_torch.optim import sgd_momentum
-    from repro_torch.tree import tree_leaves
+    from repro_torch.tree import tree_leaves, tree_map
     from repro_torch.train.trainer import model_layout
 
     api, opt = build(tp_config(model)), sgd_momentum()
     batches = tp_batches(model)
-    t0 = time.perf_counter()
-    while not os.path.exists(model["one"]):
-        if time.perf_counter() - t_start > TP_CHILD_TIMEOUT_S:
-            raise TimeoutError(f"no (1, 1) params at {model['one']}")
-        time.sleep(0.2)
-    rec = {"waited_s": time.perf_counter() - t0}
+    rec = {"waited_s": wait_for(model["one"], t_start)}
+    specs = model_layout(api, mesh)
     kept = {}
-    for backend in model["routes"]:
+    n_plain = model["plain_steps"]
+    runs = [(backend, backend, "psum") for backend in model["routes"]]
+    if model.get("zero"):
+        runs.append(("zero", "cuda", "zero"))
+    for label, backend, variant in runs:
         t0 = time.perf_counter()
         params = tp_init(torch, api, dev)
-        r = tp_train(torch, api, opt, mesh, params, backend, batches,
-                     frac_schedule(0.001, 1), model["lr"], counter=counter)
+        cut = label == "cuda" and "python" in model["routes"] \
+            and n_plain < len(batches)
+        r = tp_train(torch, api, opt, mesh, params, backend,
+                     batches[:n_plain] if label == "python" else batches,
+                     frac_schedule(0.001, 1), model["lr"], counter=counter,
+                     variant=variant, keep_at=n_plain if cut else None)
         del params
-        kept[backend] = r.pop("params")
+        kept[label] = r.pop("params")
+        if cut:
+            kept["cuda_at"] = r.pop("params_at")
         r["seconds"] = time.perf_counter() - t0
         r["steps_seconds"] = sum(r["step_ms"]) / 1e3
-        rec[backend] = r
+        rec[label] = r
     if "python" in kept:
-        rec["d_kernel_plain"] = distance(kept["cuda"], kept.pop("python"))
+        at = kept.pop("cuda_at", None)
+        rec["d_kernel_plain"] = distance(
+            kept["cuda"] if at is None else tree_map(lambda x: x.to(dev), at),
+            kept.pop("python"))
+        del at
     rec["n_params_rank"] = sum(x.numel() for x in tree_leaves(kept["cuda"]))
-    full = gather_params(kept.pop("cuda"), model_layout(api, mesh), mesh)
-    rec["digest"] = params_digest(torch, full)
-    one = torch.load(model["one"], mmap=True, map_location="cpu",
-                     weights_only=True)
-    rec["d_one_rank"] = max(
-        (a.float() - b.to(dev).float()).abs().max().item()
-        for a, b in zip(tree_leaves(full), one, strict=True))
-    del full, one
+    for label, key in (("cuda", "one"), ("zero", "one_zero")):
+        if label not in kept:
+            continue
+        full = gather_params(kept.pop(label), specs, mesh)
+        got = against_saved(torch, full, model[key], dev)
+        del full
+        sfx = "" if label == "cuda" else "_zero"
+        rec[f"digest{sfx}"], rec[f"d_one_rank{sfx}"] = got["digest"], \
+            got["d_saved"]
+        gc.collect()
+        if dev != "cpu":
+            torch.cuda.empty_cache()
+    return rec
+
+
+def tp_dp_model(torch, dist, spec: dict, dev, t_start: float) -> dict:
+    """``spec`` (``TP_DP_MODEL`` with ``ws1``, the world-size-1 run's
+    params at its last step, saved) on (pod 1, data 2, model 1) over the
+    process group: the LM phase's init (a CPU generator seeded 0), AdamW,
+    psum paper through the kernels, ``worker_axes=("pod",)``, each rank
+    on its half of the global batch, the gradients averaged over
+    ``data``. Returns its numbers (the ``data`` axis's collectives a
+    step), the digest of its params and their distance to ``ws1``."""
+    from repro_torch.launch.mesh import _mesh
+    from repro_torch.launch.train import frac_schedule
+    from repro_torch.models import build
+    from repro_torch.optim import adamw
+
+    mesh = _mesh((1, 2, 1), ("pod", "data", "model"))
+    api = build(tp_config(spec))
+    rec = {"mesh": {"pod": 1, "data": 2, "model": 1},
+           "worker_axes": ["pod"],
+           "waited_s": wait_for(spec["ws1"], t_start)}
+    counter = CollectiveCounter(dist, mesh, ("data",))
+    try:
+        t0 = time.perf_counter()
+        params = api.init(torch.Generator().manual_seed(0), device=dev)
+        r = tp_train(torch, api, adamw(), mesh, params, "cuda",
+                     tp_batches(spec), frac_schedule(0.001, 1), spec["lr"],
+                     counter=counter, worker_axes=("pod",))
+        del params
+    finally:
+        counter.close()
+    got = against_saved(torch, r.pop("params"), spec["ws1"], dev)
+    r["seconds"] = time.perf_counter() - t0
+    r["steps_seconds"] = sum(r["step_ms"]) / 1e3
+    rec.update(r, digest=got["digest"], d_ws1=got["d_saved"])
     gc.collect()
     if dev != "cpu":
         torch.cuda.empty_cache()
@@ -3094,7 +3255,8 @@ def tp_full_model(torch, dist, mesh, counter, model: dict, dev,
 
 def tp_full_rank(torch, dist, spec: dict) -> dict:
     """One of the two ranks of the full-width runs: each model of
-    ``spec["models"]`` in turn (``tp_full_model``). Returns each model's
+    ``spec["models"]`` in turn (``tp_full_model``) on (data 1, model 2),
+    then ``spec["dp"]`` (``tp_dp_model``). Returns each model's
     numbers."""
     from repro_torch.launch.mesh import make_host_mesh
 
@@ -3114,25 +3276,37 @@ def tp_full_rank(torch, dist, spec: dict) -> dict:
                 torch, dist, mesh, counter, model, dev, t0)
     finally:
         counter.close()
+    rec["dp"] = tp_dp_model(torch, dist, spec["dp"], dev, t0)
     return rec
 
 
+# the REDUCED runs on four ranks: (label, architecture, variant, mesh,
+# worker axes), the ZeRO variant on (data 2, model 2) beside the psum one,
+# and data parallelism inside a worker on (pod 2, data 2, model 1)
+TP_REDUCED_RUNS = ([(arch, arch, "psum", (2, 2), ("data",))
+                    for arch in TP_REDUCED]
+                   + [(f"zero/{arch}", arch, "zero", (2, 2), ("data",))
+                      for arch in TP_REDUCED]
+                   + [("pd/smollm_360m", "smollm_360m", "psum", (2, 2, 1),
+                       ("pod",))])
+
+
 def tp_reduced_rank(torch, spec: dict) -> dict:
-    """One of four ranks on (data 2, model 2): ``TP_REDUCED`` at their
-    REDUCED configs in float32 on ``spec["device"]`` (the init moved by
-    one ulp with ``spec["nudge"]``), the psum step (paper, the ``auto``
-    backend: the gate's kernel on CUDA tensors), SGD-momentum lr 0.1,
-    fractions (0.7, 0.9), ``SHARDED_GLOO_STEPS`` steps of a (8, 32)
-    global batch; the draws are the CPU generator's for the global
-    leaves (``uniforms=``), so the CUDA and CPU runs mask alike. Returns
-    the gathered params, losses, delivered fractions and launches of
-    each model."""
+    """One of four ranks: each of ``TP_REDUCED_RUNS`` at its REDUCED
+    config in float32 on ``spec["device"]`` (the init moved by one ulp
+    with ``spec["nudge"]``), the step (paper, the ``auto`` backend: the
+    gate's kernel on CUDA tensors; the ZeRO variant masks with the
+    multiply), SGD-momentum lr 0.1, fractions (0.7, 0.9),
+    ``SHARDED_GLOO_STEPS`` steps of a (8, 32) global batch; the draws are
+    the CPU generator's for the global leaves (``uniforms=``), so the
+    CUDA and CPU runs mask alike. Returns the gathered params, losses,
+    delivered fractions and launches of each run."""
     import numpy as np
 
     from repro_torch.configs import get_reduced
     from repro_torch.core import ltp_sync as ls
     from repro_torch.data import SyntheticLM
-    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.mesh import _mesh
     from repro_torch.models import build
     from repro_torch.models.sharding import gather_params
     from repro_torch.optim import sgd_momentum
@@ -3140,10 +3314,13 @@ def tp_reduced_rank(torch, spec: dict) -> dict:
     from repro_torch.train.trainer import model_layout
 
     device = spec["device"]
-    mesh = make_host_mesh(2, 2)
-    w = mesh.get_local_rank("data")
+    meshes = {(2, 2): _mesh((2, 2), ("data", "model")),
+              (2, 2, 1): _mesh((2, 2, 1), ("pod", "data", "model"))}
     rec = {}
-    for arch in TP_REDUCED:
+    for label, arch, variant, shape, workers in TP_REDUCED_RUNS:
+        t0 = time.perf_counter()
+        mesh = meshes[shape]
+        w = ls.worker_index(mesh, workers)
         cfg = get_reduced(arch).replace(dtype="float32")
         api = build(cfg)
         params = api.init(torch.Generator().manual_seed(0), device=device)
@@ -3154,21 +3331,22 @@ def tp_reduced_rank(torch, spec: dict) -> dict:
         batches = [corpus.train_batch(SHARDED_GLOO_BATCH, SHARDED_GLOO_SEQ,
                                       s) for s in range(SHARDED_GLOO_STEPS)]
 
-        def draws(s, state, sizes=sizes):
+        def draws(s, state, sizes=sizes, w=w):
             return [ls.device_uniforms(n, "cpu", 1 + s, w, 0, i)
                     for i, n in enumerate(sizes)]
 
         r = tp_train(torch, api, sgd_momentum(), mesh, params, "auto",
                      batches, torch.tensor(SHARDED_GLOO_FRAC), 0.1,
-                     uniforms=draws)
+                     uniforms=draws, variant=variant, worker_axes=workers)
         full = gather_params(r.pop("params"), model_layout(api, mesh), mesh)
         for i, x in enumerate(tree_leaves(full)):
-            rec[f"{arch}/params/{i}"] = x.cpu().numpy()
+            rec[f"{label}/params/{i}"] = x.cpu().numpy()
         for k in ("loss", "delivered"):
-            rec[f"{arch}/{k}"] = np.asarray(r[k])
-        rec[f"{arch}/launches"] = np.asarray(r["launches"]["dropfill"])
-        rec[f"{arch}/other_launches"] = np.asarray(
+            rec[f"{label}/{k}"] = np.asarray(r[k])
+        rec[f"{label}/launches"] = np.asarray(r["launches"]["dropfill"])
+        rec[f"{label}/other_launches"] = np.asarray(
             sum(r["launches"].values()) - r["launches"]["dropfill"])
+        rec[f"{label}/seconds"] = np.asarray(time.perf_counter() - t0)
     return rec
 
 
@@ -3247,8 +3425,11 @@ def finish_tp_ranks(procs: dict) -> dict:
 def tp_model1(torch, dev, model: dict, launches_of, profile: bool) -> tuple:
     """``model`` at (data 1, model 1) in this process: through the
     kernels (with a profiled step when ``profile``), then from the init
-    nudged by one ulp (the rounding control). Returns (its part of the
-    line, the kernel run's params, the launches of both runs)."""
+    nudged by one ulp (the rounding control); with ``model["zero"]`` the
+    ZeRO variant the same two ways (no kernel: its mask is the
+    reference's multiply). Returns (its part of the line, the kernel
+    run's params, the ZeRO run's or ``None``, the launches of every
+    run)."""
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.train import frac_schedule
     from repro_torch.models import build
@@ -3260,40 +3441,64 @@ def tp_model1(torch, dev, model: dict, launches_of, profile: bool) -> tuple:
     mesh = make_host_mesh(1, 1)
     n_leaves = len(tree_leaves(api.init(None, device="meta")))
     batches = tp_batches(model)
-    part, one, launches = {}, {}, []
-    for label, nudge in (("cuda", 0), ("cuda_nudged", 1)):
-        params = tp_init(torch, api, dev)
-        if nudge:
-            params = nudged(torch, params, 2)
-        r = tp_train(torch, api, sgd_momentum(), mesh, params, "cuda",
-                     batches, frac_schedule(0.001, 1), model["lr"],
-                     profile=profile and not nudge)
-        del params
-        if r["launches"] != launches_of(dropfill=n_leaves
-                                        * model["steps"]):
-            raise AssertionError(f"tp (1, 1) {cfg.name} {label}: launches "
-                                 f"{r['launches']}")
-        launches.append(r["launches"])
-        if "profile_step" in r:
-            prof = r["profile_step"]
-            gate = {k: v for k, v in prof["port_kernels_ms"].items()
-                    if "dropfill" in k}
-            n_gate = sum(n for k, n in prof["port_launches"].items()
-                         if "dropfill" in k)
-            if n_gate != n_leaves or len(prof["port_launches"]) != len(
-                    gate):
-                raise AssertionError(f"tp (1, 1) {cfg.name} profile: port "
-                                     f"launches {prof['port_launches']}")
-            prof["gate_device_ms"] = sum(gate.values())
-        one[label] = r.pop("params")
-        part[f"model1_{label}"] = r
-    part["rounding_control_max_abs_diff"] = distance(one["cuda"],
-                                                     one["cuda_nudged"])
-    return part, one["cuda"], launches
+    part, kept, launches = {}, {}, []
+    variants = ["psum"] + (["zero"] if model.get("zero") else [])
+    for variant in variants:
+        base = "cuda" if variant == "psum" else "zero"
+        for label, nudge in ((base, 0), (f"{base}_nudged", 1)):
+            params = tp_init(torch, api, dev)
+            if nudge:
+                params = nudged(torch, params, 2)
+            r = tp_train(torch, api, sgd_momentum(), mesh, params, "cuda",
+                         batches, frac_schedule(0.001, 1), model["lr"],
+                         profile=(profile and not nudge
+                                  and variant == "psum"),
+                         variant=variant)
+            del params
+            per_step = n_leaves if variant == "psum" else 0
+            if r["launches"] != launches_of(dropfill=per_step
+                                            * model["steps"]):
+                raise AssertionError(f"tp (1, 1) {cfg.name} {label}: "
+                                     f"launches {r['launches']}")
+            launches.append(r["launches"])
+            if "profile_step" in r:
+                prof = r["profile_step"]
+                gate = {k: v for k, v in prof["port_kernels_ms"].items()
+                        if "dropfill" in k}
+                n_gate = sum(n for k, n in prof["port_launches"].items()
+                             if "dropfill" in k)
+                if n_gate != n_leaves or len(prof["port_launches"]) != len(
+                        gate):
+                    raise AssertionError(f"tp (1, 1) {cfg.name} profile: "
+                                         f"port launches "
+                                         f"{prof['port_launches']}")
+                prof["gate_device_ms"] = sum(gate.values())
+            kept[label] = r.pop("params")
+            part[f"model1_{label}"] = r
+        sfx = "" if variant == "psum" else "_zero"
+        part[f"rounding_control_max_abs_diff{sfx}"] = distance(
+            kept[base], kept.pop(f"{base}_nudged"))
+    return part, kept["cuda"], kept.get("zero"), launches
 
 
-def run_tp_phase(torch, timer, launches_of, *, device="cuda") -> tuple:
-    """Tensor parallelism over ``model`` (the ``tp`` line).
+def check_tp_rank_run(label, a, one, expect_launches) -> None:
+    """A (1, 2) rank's run ``a`` against its (1, 1) twin ``one`` (over
+    ``a``'s steps, which may be fewer): the launches, the delivered
+    fractions equal and the losses within rtol 1e-3."""
+    if a["launches"] != expect_launches:
+        raise AssertionError(f"{label}: launches {a['launches']}, expected "
+                             f"{expect_launches}")
+    if (a["delivered"] != one["delivered"][:len(a["delivered"])] or any(
+            abs(x - y) > 1e-3 * abs(y) for x, y in zip(a["loss"],
+                                                       one["loss"]))):
+        raise AssertionError(f"{label}: losses {a['loss']} vs {one['loss']}"
+                             f", delivered {a['delivered']} vs "
+                             f"{one['delivered']}")
+
+
+def run_tp_phase(torch, timer, launches_of, ws1, *, device="cuda") -> tuple:
+    """Tensor parallelism over ``model`` and data parallelism inside a
+    worker (the ``tp`` line).
 
     Full width (``TP_MODELS``): one Mixtral-8x22b layer (bfloat16,
     2,906,720,256 parameters) and one DeepSeek-V2 layer (its dense lead
@@ -3305,28 +3510,35 @@ def run_tp_phase(torch, timer, launches_of, *, device="cuda") -> tuple:
     model 1) in this process (world size 1,
     ``launch.train.init_distributed``) through the kernels, then the
     same from the init nudged by one ulp (the rounding control), and the
-    first run's params saved (Mixtral's step profiled). Then two gloo
-    ranks on (data 1, model 2) sharing the card take the models in turn
-    (``tp_full_rank``): Mixtral and DeepSeek through the kernels, then
-    the plain route; the others through the kernels. Meanwhile four gloo
-    ranks on (data 2, model 2) run ``TP_REDUCED`` on the card, and four
-    more on the CPU twice, from the init and from it nudged
-    (``tp_reduced_rank``).
+    first run's params saved (Mixtral's step profiled); DeepSeek's ZeRO
+    variant the same two ways. Then two gloo ranks on (data 1, model 2)
+    sharing the card take the models in turn (``tp_full_rank``): each
+    through the kernels, Mixtral and DeepSeek then on the plain route (over
+    ``plain_steps``), DeepSeek with the ZeRO variant; then the same two
+    ranks on (pod 1, data 2, model 1) train the sharded phase's smollm-360m
+    (``TP_DP_MODEL``) from its init, held against that phase's world-size-1
+    run (``ws1``: its params after step 3, its losses and delivered
+    fractions to there, and its rounding control). Meanwhile four gloo
+    ranks run ``TP_REDUCED_RUNS`` on the card, and four more on the CPU
+    twice, from the init and from it nudged (``tp_reduced_rank``).
 
     Checks: the gate's kernel launched once a leaf a step on each kernel
-    rank and on the (1, 1) runs, no other kernel, none on the plain
-    route; kernels against plain and (1, 2) against (1, 1) within twice
-    the model's rounding control, the delivered fractions equal and the
-    losses within rtol 1e-3; step 1 near ``tp_expected_loss``; the ranks'
-    gathered global params equal (one digest); the ``model`` axis's
-    collectives there where a leaf is split (the SSM families' all-to-all
-    too), none for papernet; the (2, 2) CUDA ranks against the CPU ranks
-    within twice the CPU rounding control, every rank of a run holding
-    the same global params. Then the gate (``sharded_gate_rows``) at
-    Mixtral's and DeepSeek's layer's largest leaf and over its leaves,
-    held against its plain version and timed. Returns (the line, the
-    launches of the kernel runs, the gate rows by architecture, the gate
-    launches by architecture)."""
+    rank and on the (1, 1) runs, no other kernel, none on the plain route
+    or by the ZeRO variant; kernels against plain and (1, 2) against
+    (1, 1) within twice the model's rounding control (ZeRO's own), the
+    delivered fractions equal and the losses within rtol 1e-3; step 1
+    within four spreads of ``tp_expected_loss``; the ranks' gathered
+    global params equal (one digest); the ``model`` axis's collectives
+    there where a leaf is split (the SSM families' all-to-all too), none
+    for papernet; the (pod 1, data 2) run the same against ``ws1``, its
+    gate once a leaf a step a rank and its gradients all-reduced over
+    ``data``; the REDUCED
+    CUDA ranks against the CPU ranks within twice the CPU rounding
+    control, every rank of a run holding the same global params. Then
+    the gate (``sharded_gate_rows``) at Mixtral's and DeepSeek's layer's
+    largest leaf and over its leaves, held against its plain version and
+    timed. Returns (the line, the launches of the kernel runs, the gate
+    rows by architecture, the gate launches by architecture)."""
     import tempfile
 
     import numpy as np
@@ -3352,9 +3564,14 @@ def run_tp_phase(torch, timer, launches_of, *, device="cuda") -> tuple:
     with tempfile.TemporaryDirectory() as tmp:
         for m in models:
             m["one"] = f"{tmp}/one_{m['arch']}.pt"
+            if m.get("zero"):
+                m["one_zero"] = f"{tmp}/one_zero_{m['arch']}.pt"
+        dp = dict(TP_DP_MODEL, ws1=f"{tmp}/ws1.pt")
+        torch.save(ws1["params"], dp["ws1"] + ".part")
+        os.replace(dp["ws1"] + ".part", dp["ws1"])
         try:
-            # the (2, 2) ranks first: they take the CPU while this process
-            # takes the card
+            # the REDUCED ranks first: they take the CPU while this
+            # process takes the card
             t0 = time.perf_counter()
             for name, dev_r, nudge in (("reduced_cuda", device, 0),
                                        ("reduced_cpu", "cpu", 0),
@@ -3364,8 +3581,8 @@ def run_tp_phase(torch, timer, launches_of, *, device="cuda") -> tuple:
                                                  "nudge": nudge}, tmp, name)
             # and the (1, 2) ranks, which wait for the (1, 1) runs' params
             procs["full"] = start_tp_ranks(2, {
-                "kind": "full", "device": device, "models": models}, tmp,
-                "full")
+                "kind": "full", "device": device, "models": models,
+                "dp": dp}, tmp, "full")
             gc.collect()
             torch.cuda.empty_cache()
             dev, tmp_pg = init_distributed(
@@ -3373,14 +3590,16 @@ def run_tp_phase(torch, timer, launches_of, *, device="cuda") -> tuple:
             try:
                 for m in models:
                     t1 = time.perf_counter()
-                    part, one, ls_ = tp_model1(torch, dev, m, launches_of,
-                                               m is TP_MODEL)
+                    part, one, one_zero, ls_ = tp_model1(
+                        torch, dev, m, launches_of, m is TP_MODEL)
                     launches += ls_
                     by_model[m["arch"]] = sum(x["dropfill"] for x in ls_)
                     line["runs"][m["arch"]] = part
-                    torch.save([x.cpu() for x in tree_leaves(one)],
-                               m["one"] + ".part")
-                    del one
+                    for key, p in (("one", one), ("one_zero", one_zero)):
+                        if p is not None:
+                            torch.save([x.cpu() for x in tree_leaves(p)],
+                                       m[key] + ".part")
+                    del one, one_zero
                     gc.collect()
                     torch.cuda.empty_cache()
                     part["model1_seconds"] = time.perf_counter() - t1
@@ -3392,7 +3611,9 @@ def run_tp_phase(torch, timer, launches_of, *, device="cuda") -> tuple:
             torch.cuda.empty_cache()
             # the card is free: the (1, 2) ranks start training
             for m in models:
-                os.replace(m["one"] + ".part", m["one"])
+                for key in ("one", "one_zero"):
+                    if key in m:
+                        os.replace(m[key] + ".part", m[key])
             t1 = time.perf_counter()
             line["model1_seconds"] = t1 - t0
             outs = finish_tp_ranks(procs)
@@ -3403,6 +3624,7 @@ def run_tp_phase(torch, timer, launches_of, *, device="cuda") -> tuple:
             torch.backends.cudnn.deterministic = deterministic
             for m in models:
                 m.pop("one")
+                m.pop("one_zero", None)
         full = []
         for path in outs["full"]:
             with open(path) as f:
@@ -3410,136 +3632,196 @@ def run_tp_phase(torch, timer, launches_of, *, device="cuda") -> tuple:
         reduced = {name: [dict(np.load(p)) for p in outs[name]]
                    for name in outs if name != "full"}
 
-    # the full-width (1, 2) runs
-    gate_shapes = {}
-    for m in models:
-        arch, steps = m["arch"], m["steps"]
-        cfg = tp_config(m)
-        api = build(cfg)
-        shapes = api.init(None, device="meta")
-        n_pkts = [max(1, -(-x.numel() // 360)) for x in tree_leaves(shapes)]
-        gate_shapes[arch] = [(n, 360) for n in n_pkts]
-        specs = model_layout(api, {"model": 2})
-        split = any(model_dim(spec_at(specs, p)) is not None
-                    for p, _ in tree_leaves_with_path(shapes))
-        a2a = tp_splits(cfg, 2)
-        part = line["runs"][arch]
-        part.update({"config": {k: getattr(cfg, k) for k in (
-            "name", "family", "n_layers", "d_model", "n_heads", "n_kv",
-            "d_ff", "n_experts", "vocab", "dtype")},
-            "n_params": sum(x.numel() for x in tree_leaves(shapes)),
-            **{k: m[k] for k in ("steps", "batch", "seq", "lr",
-                                 "data_vocab", "routes")}})
-        one = part["model1_cuda"]
-        ctl = part["rounding_control_max_abs_diff"]
-        want = launches_of(dropfill=len(n_pkts) * steps)
-        ranks = [rk["models"][arch] for rk in full]
-        for r, rk in enumerate(ranks):
-            for route in m["routes"]:
-                a = rk[route]
-                expect = want if route == "cuda" else launches_of()
-                if a["launches"] != expect:
-                    raise AssertionError(f"tp (1, 2) {arch} rank {r} "
-                                         f"{route}: launches "
-                                         f"{a['launches']}, expected "
-                                         f"{expect}")
-                if (a["delivered"] != one["delivered"] or any(
-                        abs(x - y) > 1e-3 * abs(y)
-                        for x, y in zip(a["loss"], one["loss"]))):
-                    raise AssertionError(
-                        f"tp (1, 2) {arch} rank {r} {route}: losses "
-                        f"{a['loss']} vs (1, 1) {one['loss']}, delivered "
-                        f"{a['delivered']} vs {one['delivered']}")
-                calls = a["model_collectives"]["calls_per_step"]
-                if split:
-                    ok = (calls["all_reduce"] > 0
-                          and calls["all_gather_into_tensor"] > 0
-                          and (calls["all_to_all_single"] > 0) == a2a)
-                else:
-                    ok = not any(calls.values())
-                if not ok:
-                    raise AssertionError(f"tp (1, 2) {arch} rank {r}: "
-                                         f"model-axis collectives "
-                                         f"{a['model_collectives']}")
-            launches.append(rk["cuda"]["launches"])
-            by_model[arch] += rk["cuda"]["launches"]["dropfill"]
-        if len({rk["digest"] for rk in ranks}) != 1:
-            raise AssertionError(f"tp (1, 2) {arch}: the ranks' gathered "
-                                 f"params differ")
-        loss = one["loss"]
-        expect = tp_expected_loss(cfg)
-        if not (all(math.isfinite(x) for x in loss)
-                and abs(loss[0] - expect) < 1.0):
-            raise AssertionError(f"tp {arch}: losses {loss}, step 1 "
-                                 f"expected {expect}")
-        d_one = max(rk["d_one_rank"] for rk in ranks)
-        d_routes = max((rk["d_kernel_plain"] for rk in ranks
-                        if "d_kernel_plain" in rk), default=0.0)
-        if not (d_routes <= 2 * ctl and d_one <= 2 * ctl):
-            raise AssertionError(f"tp {arch}: kernels vs plain "
-                                 f"{d_routes:.4e}, (1, 2) vs (1, 1) "
-                                 f"{d_one:.4e}, over twice the rounding "
-                                 f"control's {ctl:.4e}")
-        part["model2"] = {"mesh": {"data": 1, "model": 2}, "world_size": 2,
-                          "backend": "gloo", "ranks": ranks}
-        part["rounding"] = {"kernel_vs_plain_max_abs_diff": d_routes,
-                            "model2_vs_model1_max_abs_diff": d_one,
-                            "rounding_control_max_abs_diff": ctl}
-        part["ln_vocab"], part["loss_step1_expected"] = \
-            math.log(cfg.vocab), expect
-    line["warm_s"] = [rk["warm_s"] for rk in full]
+    # the checks; a failure carries the line so far
+    try:
+        # the full-width (1, 2) runs
+        gate_shapes = {}
+        for m in models:
+            arch, steps = m["arch"], m["steps"]
+            cfg = tp_config(m)
+            api = build(cfg)
+            shapes = api.init(None, device="meta")
+            n_pkts = [max(1, -(-x.numel() // 360))
+                      for x in tree_leaves(shapes)]
+            gate_shapes[arch] = [(n, 360) for n in n_pkts]
+            specs = model_layout(api, {"model": 2})
+            split = any(model_dim(spec_at(specs, p)) is not None
+                        for p, _ in tree_leaves_with_path(shapes))
+            a2a = tp_splits(cfg, 2)
+            part = line["runs"][arch]
+            part.update({"config": {k: getattr(cfg, k) for k in (
+                "name", "family", "n_layers", "d_model", "n_heads", "n_kv",
+                "d_ff", "n_experts", "vocab", "dtype")},
+                "n_params": sum(x.numel() for x in tree_leaves(shapes)),
+                **{k: m[k] for k in ("steps", "batch", "seq", "lr",
+                                     "data_vocab", "routes", "plain_steps")},
+                "zero": bool(m.get("zero"))})
+            one = part["model1_cuda"]
+            ctl = part["rounding_control_max_abs_diff"]
+            want = launches_of(dropfill=len(n_pkts) * steps)
+            ranks = [rk["models"][arch] for rk in full]
+            for r, rk in enumerate(ranks):
+                runs = [(route, one,
+                         want if route == "cuda" else launches_of())
+                        for route in m["routes"]]
+                if m.get("zero"):
+                    runs.append(("zero", part["model1_zero"], launches_of()))
+                for route, twin, expect in runs:
+                    a = rk[route]
+                    check_tp_rank_run(f"tp (1, 2) {arch} rank {r} {route}", a,
+                                      twin, expect)
+                    calls = a["model_collectives"]["calls_per_step"]
+                    if split:
+                        ok = (calls["all_reduce"] > 0
+                              and calls["all_gather_into_tensor"] > 0
+                              and (calls["all_to_all_single"] > 0) == a2a)
+                    else:
+                        ok = not any(calls.values())
+                    if not ok:
+                        raise AssertionError(f"tp (1, 2) {arch} rank {r}: "
+                                             f"model-axis collectives "
+                                             f"{a['model_collectives']}")
+                launches.append(rk["cuda"]["launches"])
+                by_model[arch] += rk["cuda"]["launches"]["dropfill"]
+            for sfx in ("", "_zero") if m.get("zero") else ("",):
+                if len({rk[f"digest{sfx}"] for rk in ranks}) != 1:
+                    raise AssertionError(f"tp (1, 2) {arch}{sfx}: the ranks' "
+                                         f"gathered params differ")
+            loss = one["loss"]
+            expect, spread = tp_expected_loss(cfg, tp_batches(m)[0]["labels"])
+            if not (all(math.isfinite(x) for x in loss)
+                    and abs(loss[0] - expect) < (4 * spread or 1.0)):
+                raise AssertionError(f"tp {arch}: losses {loss}, step 1 "
+                                     f"expected {expect} within four spreads "
+                                     f"of {spread} (papernet 1.0)")
+            d_one = max(rk["d_one_rank"] for rk in ranks)
+            d_routes = max((rk["d_kernel_plain"] for rk in ranks
+                            if "d_kernel_plain" in rk), default=0.0)
+            if not (d_routes <= 2 * ctl and d_one <= 2 * ctl):
+                raise AssertionError(f"tp {arch}: kernels vs plain "
+                                     f"{d_routes:.4e}, (1, 2) vs (1, 1) "
+                                     f"{d_one:.4e}, over twice the rounding "
+                                     f"control's {ctl:.4e}")
+            part["model2"] = {"mesh": {"data": 1, "model": 2}, "world_size": 2,
+                              "backend": "gloo", "ranks": ranks}
+            part["rounding"] = {"kernel_vs_plain_max_abs_diff": d_routes,
+                                "model2_vs_model1_max_abs_diff": d_one,
+                                "rounding_control_max_abs_diff": ctl}
+            if m.get("zero"):
+                ctl_z = part["rounding_control_max_abs_diff_zero"]
+                d_zero = max(rk["d_one_rank_zero"] for rk in ranks)
+                if not d_zero <= 2 * ctl_z:
+                    raise AssertionError(f"tp {arch} ZeRO: (1, 2) vs (1, 1) "
+                                         f"{d_zero:.4e}, over twice the "
+                                         f"rounding control's {ctl_z:.4e}")
+                part["rounding"].update(
+                    zero_model2_vs_model1_max_abs_diff=d_zero,
+                    zero_rounding_control_max_abs_diff=ctl_z)
+            part["ln_vocab"], part["loss_step1_expected"] = \
+                math.log(cfg.vocab), expect
+            part["loss_step1_spread"] = spread
+            if spread:
+                part["loss_step1_gap_in_spreads"] = (loss[0] - expect) / spread
+        line["warm_s"] = [rk["warm_s"] for rk in full]
 
-    # the reduced (2, 2) runs: the card against the CPU
-    red = {"mesh": {"data": 2, "model": 2}, "world_size": 4,
-           "steps": SHARDED_GLOO_STEPS,
-           "global_batch": [SHARDED_GLOO_BATCH, SHARDED_GLOO_SEQ],
-           "frac": list(SHARDED_GLOO_FRAC), "optimizer": "sgdm lr 0.1",
-           "configs": {}}
-    for arch in TP_REDUCED:
-        n = sum(1 for k in reduced["reduced_cuda"][0]
-                if k.startswith(f"{arch}/params/"))
-        for name, ranks in reduced.items():
-            for rk in ranks[1:]:
-                for i in range(n):
-                    if not np.array_equal(rk[f"{arch}/params/{i}"],
-                                          ranks[0][f"{arch}/params/{i}"]):
-                        raise AssertionError(f"tp {name} {arch}: the "
-                                             f"ranks' params differ at "
-                                             f"leaf {i}")
-        per_rank = {name: [int(rk[f"{arch}/launches"]) for rk in ranks]
-                    for name, ranks in reduced.items()}
-        others = [int(rk[f"{arch}/other_launches"])
-                  for ranks in reduced.values() for rk in ranks]
-        want_n = launches_of(dropfill=n * SHARDED_GLOO_STEPS)["dropfill"]
-        if per_rank != {"reduced_cuda": [want_n] * 4,
-                        "reduced_cpu": [0] * 4,
-                        "reduced_cpu_nudged": [0] * 4} or any(others):
-            raise AssertionError(f"tp reduced {arch}: gate launches "
-                                 f"{per_rank}, others {others}")
-        launches.append(launches_of(dropfill=4 * want_n))
-        cuda, cpu, ctl_r = (reduced[k][0] for k in (
-            "reduced_cuda", "reduced_cpu", "reduced_cpu_nudged"))
+        # data parallelism inside a worker: (pod 1, data 2) against the
+        # world-size-1 run
+        dps = [rk["dp"] for rk in full]
+        n_dp = len(tree_leaves(build(tp_config(TP_DP_MODEL)).init(
+            None, device="meta")))
+        twin = {"loss": ws1["loss"], "delivered": ws1["delivered"]}
+        for r, a in enumerate(dps):
+            check_tp_rank_run(f"tp (pod 1, data 2) rank {r}", a, twin,
+                              launches_of(
+                                  dropfill=n_dp * TP_DP_MODEL["steps"]))
+            calls = a["data_collectives"]["calls_per_step"]
+            if not calls["all_reduce"] >= n_dp:
+                raise AssertionError(f"tp (pod 1, data 2) rank {r}: data-axis "
+                                     f"collectives {a['data_collectives']}")
+            launches.append(a["launches"])
+        if len({a["digest"] for a in dps}) != 1:
+            raise AssertionError("tp (pod 1, data 2): the ranks' params "
+                                 "differ")
+        d_dp = max(a["d_ws1"] for a in dps)
+        if not d_dp <= 2 * ws1["control"]:
+            raise AssertionError(f"tp (pod 1, data 2) vs world size 1: "
+                                 f"{d_dp:.4e}, over twice the rounding "
+                                 f"control's {ws1['control']:.4e}")
+        line["data_parallel"] = {
+            "config": f"{TP_DP_MODEL['arch']} CONFIG, float32, 32 layers",
+            "optimizer": "adamw", "variant": "psum, paper",
+            **{k: TP_DP_MODEL[k] for k in ("steps", "batch", "seq", "lr")},
+            "ranks": dps, "ws1_loss": ws1["loss"],
+            "rounding": {"vs_world_size_1_max_abs_diff": d_dp,
+                         "rounding_control_max_abs_diff": ws1["control"]}}
+        by_model["smollm_360m_data2"] = sum(a["launches"]["dropfill"]
+                                            for a in dps)
 
-        def tensors(d, arch=arch, n=n):
-            return [torch.as_tensor(d[f"{arch}/params/{i}"])
-                    for i in range(n)]
+        # the REDUCED runs: the card against the CPU
+        red = {"meshes": {"": {"data": 2, "model": 2},
+                          "zero/": {"data": 2, "model": 2},
+                          "pd/": {"pod": 2, "data": 2, "model": 1,
+                                  "worker_axes": ["pod"]}},
+               "world_size": 4, "steps": SHARDED_GLOO_STEPS,
+               "global_batch": [SHARDED_GLOO_BATCH, SHARDED_GLOO_SEQ],
+               "frac": list(SHARDED_GLOO_FRAC), "optimizer": "sgdm lr 0.1",
+               "configs": {}}
+        n_red = 0
+        for label, arch, variant, _, _ in TP_REDUCED_RUNS:
+            n = sum(1 for k in reduced["reduced_cuda"][0]
+                    if k.startswith(f"{label}/params/"))
+            for name, ranks in reduced.items():
+                for rk in ranks[1:]:
+                    for i in range(n):
+                        if not np.array_equal(rk[f"{label}/params/{i}"],
+                                              ranks[0][f"{label}/params/{i}"]):
+                            raise AssertionError(f"tp {name} {label}: the "
+                                                 f"ranks' params differ at "
+                                                 f"leaf {i}")
+            per_rank = {name: [int(rk[f"{label}/launches"]) for rk in ranks]
+                        for name, ranks in reduced.items()}
+            others = [int(rk[f"{label}/other_launches"])
+                      for ranks in reduced.values() for rk in ranks]
+            want_n = launches_of(dropfill=n * SHARDED_GLOO_STEPS
+                                 if variant == "psum" else 0)["dropfill"]
+            if per_rank != {"reduced_cuda": [want_n] * 4,
+                            "reduced_cpu": [0] * 4,
+                            "reduced_cpu_nudged": [0] * 4} or any(others):
+                raise AssertionError(f"tp reduced {label}: gate launches "
+                                     f"{per_rank}, others {others}")
+            launches.append(launches_of(dropfill=4 * want_n))
+            n_red += 4 * want_n
+            cuda, cpu, ctl_r = (reduced[k][0] for k in (
+                "reduced_cuda", "reduced_cpu", "reduced_cpu_nudged"))
 
-        held = within_rounding(f"tp reduced {arch} cuda vs cpu",
-                               tensors(cuda), tensors(cpu), tensors(ctl_r))
-        if not (np.allclose(cuda[f"{arch}/loss"], cpu[f"{arch}/loss"],
-                            rtol=1e-4) and np.array_equal(
-                    cuda[f"{arch}/delivered"], cpu[f"{arch}/delivered"])):
-            raise AssertionError(f"tp reduced {arch}: cuda "
-                                 f"{cuda[f'{arch}/loss']}, cpu "
-                                 f"{cpu[f'{arch}/loss']}")
-        red["configs"][arch] = {
-            "launches_per_rank": per_rank,
-            "loss_cuda": cuda[f"{arch}/loss"].tolist(),
-            "loss_cpu": cpu[f"{arch}/loss"].tolist(),
-            "delivered": cuda[f"{arch}/delivered"].tolist(), **held}
-    line["data2_model2_reduced"] = red
-    line["launches_by_model"] = dict(by_model, reduced=sum(
-        x["dropfill"] for x in launches[-len(TP_REDUCED):]))
+            def tensors(d, label=label, n=n):
+                return [torch.as_tensor(d[f"{label}/params/{i}"])
+                        for i in range(n)]
+
+            held = within_rounding(f"tp reduced {label} cuda vs cpu",
+                                   tensors(cuda), tensors(cpu), tensors(ctl_r))
+            if not (np.allclose(cuda[f"{label}/loss"], cpu[f"{label}/loss"],
+                                rtol=1e-4) and np.array_equal(
+                        cuda[f"{label}/delivered"],
+                        cpu[f"{label}/delivered"])):
+                raise AssertionError(f"tp reduced {label}: cuda "
+                                     f"{cuda[f'{label}/loss']} "
+                                     f"{cuda[f'{label}/delivered']}, cpu "
+                                     f"{cpu[f'{label}/loss']} "
+                                     f"{cpu[f'{label}/delivered']}")
+            red["configs"][label] = {
+                "launches_per_rank": per_rank,
+                "loss_cuda": cuda[f"{label}/loss"].tolist(),
+                "loss_cpu": cpu[f"{label}/loss"].tolist(),
+                "delivered": cuda[f"{label}/delivered"].tolist(),
+                "seconds": {name: [float(rk[f"{label}/seconds"])
+                                   for rk in ranks]
+                            for name, ranks in reduced.items()}, **held}
+        line["reduced"] = red
+        line["launches_by_model"] = dict(by_model, reduced=n_red)
+    except AssertionError as e:
+        e.add_note("tp line so far: " + json.dumps(line))
+        raise
     rows = {}
     for arch in ("mixtral_8x22b", "deepseek_v2_236b"):
         gc.collect()
@@ -3573,20 +3855,33 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}; TF32 off for convolutions "
           f"and matmuls")
-    t0 = time.perf_counter()
+    # each phase's wall seconds, in its own line and in the phases line
+    phases = {}
+    t_start = t0 = time.perf_counter()
+
+    def emit(name: str, line: dict, since: float) -> float:
+        """Prints the phase line ``name`` with its ``seconds`` since
+        ``since``; returns the clock for the next phase."""
+        now = time.perf_counter()
+        line["seconds"] = phases[name] = now - since
+        print(f"{name} " + json.dumps(line))
+        return now
+
     _build.load()
     nvcc = ("cached, no nvcc run" if _build.BUILD_SECONDS is None
             else f"nvcc {_build.BUILD_SECONDS:.2f} s")
-    print(f"kernel build: {time.perf_counter() - t0:.2f} s ({nvcc})")
+    phases["build"] = time.perf_counter() - t0
+    print(f"kernel build: {phases['build']:.2f} s ({nvcc})")
     print(_build.BUILD_LOG.strip(), file=sys.stderr)
 
     timer = Timer(torch)
+    t0 = time.perf_counter()
     checks, entries = check_kernels(torch, timer)
-    print("kernel_checks " + json.dumps(checks))
+    t0 = emit("kernel_checks", {"checks": checks}, t0)
     tree_checks, tree_timed, tree_check_launches = check_tree_reduce(
         torch, timer)
     print("tree_reduce_checks " + json.dumps(tree_checks))
-    print("tree_reduce " + json.dumps(tree_timed))
+    t0 = emit("tree_reduce", tree_timed, t0)
 
     counters = {"packet_reduce": (pr_mod, "LAUNCHES"),
                 "tree_reduce": (pr_mod, "TREE_LAUNCHES"),
@@ -3617,10 +3912,14 @@ def main() -> int:
         launches = read_counts()
         runs[label] = (tr, step_s, launches)
         steady = statistics.median(step_s[1:])
+        now = time.perf_counter()
+        phases[f"main path {label}"] = now - t0
         print(f"main path {label}: launches {json.dumps(launches)}; step "
               f"ms first {step_s[0] * 1e3:.3f}, median of the rest "
               f"{steady * 1e3:.3f}; {128 / steady:.1f} images/s; "
-              f"history {json.dumps(tr.history)}")
+              f"history {json.dumps(tr.history)}; seconds "
+              f"{now - t0:.3f}")
+        t0 = now
 
     steps = 5
     expect = {"cuda_paper": launches_of(packet_reduce=steps),
@@ -3649,7 +3948,7 @@ def main() -> int:
     batch = SyntheticCIFAR(seed=0).train_batch(128, 5)
     prof = profile_step(torch, lambda: ker.run([batch]), select="ef_gate")
     ef_gate_launches(prof, "cuda_count_ef step 6")
-    print("profile cuda_count_ef step 6 " + json.dumps(prof))
+    t0 = emit("profile cuda_count_ef step 6", prof, t0)
 
     # the Fig 5 compression path, the same way. cuDNN's default weight
     # gradient sums with atomics, so two runs differ in the last bits and
@@ -3695,31 +3994,31 @@ def main() -> int:
     worst_rk = max_abs_diff(torch, fig5_params["randomk_cuda"],
                             fig5_params["randomk_python"])
     torch.backends.cudnn.deterministic = False
-    print("fig5 " + json.dumps(fig5))
     print(f"fig5 params, randomk kernel vs plain route after {steps} steps: "
           f"max abs diff {worst_rk:.3e} (rtol 2e-4, atol 2e-5)")
+    t0 = emit("fig5", dict(fig5), t0)
     # a second Random-k step, profiled (after the counted runs)
-    print("profile fig5_randomk " + json.dumps(profile_fig5_randomk(torch)))
+    t0 = emit("profile fig5_randomk", profile_fig5_randomk(torch), t0)
 
     # the cluster runtime, PSTrainer's default engine
     rt_line, rt_launches = run_runtime_phase(torch, zero_counts, read_counts,
                                              launches_of)
-    print("runtime " + json.dumps(rt_line))
+    t0 = emit("runtime", rt_line, t0)
 
     # the packet-level transport
     des_line, des_launches = run_des_phase(torch, zero_counts, read_counts,
                                            launches_of)
-    print("des " + json.dumps(des_line))
+    t0 = emit("des", des_line, t0)
 
     # the paper's Fig 13 time-to-accuracy run
     tta_line, tta_launches = run_tta_phase(torch, zero_counts, read_counts,
                                            launches_of)
-    print("tta " + json.dumps(tta_line))
+    t0 = emit("tta", tta_line, t0)
 
     # the des16 fabric-chaos scenario: network faults and the controller
     nf_line, nf_launches = run_netfault_phase(torch, zero_counts,
                                               read_counts, launches_of)
-    print("netfault " + json.dumps(nf_line))
+    t0 = emit("netfault", nf_line, t0)
 
     # the LM path: smollm-360m at its published widths, trained over the
     # LTP PS and served by KV-cache decode
@@ -3727,30 +4026,31 @@ def main() -> int:
     torch.cuda.empty_cache()
     lm_line, lm_launches, lm_kernels, lm_cfg, lm_init = run_lm_phase(
         torch, timer, zero_counts, read_counts, launches_of)
-    print("lm " + json.dumps(lm_line))
-    print("serve " + json.dumps(run_serve_phase(torch, lm_cfg, lm_init)))
+    t0 = emit("lm", lm_line, t0)
+    t0 = emit("serve", run_serve_phase(torch, lm_cfg, lm_init), t0)
 
     # the sharded LTP path: the same model and init through the port's
     # make_ltp_train_step over torch.distributed, the plain gate on every
     # leaf; then two gloo ranks on the card against their CPU twin
     gc.collect()
     torch.cuda.empty_cache()
-    sharded_line, sharded_launches, sharded_rows = run_sharded_phase(
+    sharded_line, sharded_launches, sharded_rows, ws1 = run_sharded_phase(
         torch, timer, zero_counts, read_counts, launches_of, lm_cfg, lm_init)
-    print("sharded " + json.dumps(sharded_line))
+    t0 = emit("sharded", sharded_line, t0)
     del lm_init
 
     # tensor parallelism over the model axis: one Mixtral-8x22b layer and
-    # one DeepSeek-V2 layer at their published widths, and falcon-mamba,
-    # zamba2, whisper-small and papernet, on (data 1, model 2) as two gloo
-    # ranks on the card against (1, 1); REDUCED models on (data 2, model 2)
+    # one DeepSeek-V2 layer (and its ZeRO variant) at their published
+    # widths, and falcon-mamba, zamba2, whisper-small and papernet, on
+    # (data 1, model 2) as two gloo ranks on the card against (1, 1); the
+    # sharded phase's smollm-360m on (pod 1, data 2) against its world
+    # size 1; REDUCED models on (data 2, model 2) and (pod 2, data 2)
     gc.collect()
     torch.cuda.empty_cache()
-    t_tp = time.perf_counter()
     tp_line, tp_launches, tp_rows, tp_by_model = run_tp_phase(
-        torch, timer, launches_of)
-    tp_line["phase_seconds"] = time.perf_counter() - t_tp
-    print("tp " + json.dumps(tp_line))
+        torch, timer, launches_of, ws1)
+    del ws1
+    t0 = emit("tp", tp_line, t0)
 
     # the MoE family: mixtral-8x22b at its published widths trained over
     # the LTP PS in bfloat16, then its packet_reduce stream checked and
@@ -3759,12 +4059,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_line, moe_launches, moe_shape = run_moe_phase(
         torch, zero_counts, read_counts, launches_of)
-    print("moe " + json.dumps(moe_line))
     moe_kernel = check_lm_kernels(torch, timer, *moe_shape,
                                   ef=False)["packet_reduce"]
+    t0 = emit("moe", moe_line, t0)
     gc.collect()
     torch.cuda.empty_cache()
-    print("moe_serve " + json.dumps(run_moe_serve_phase(torch)))
+    t0 = emit("moe_serve", run_moe_serve_phase(torch), t0)
 
     # the SSM family: falcon-mamba-7b and the zamba2-7b hybrid at their
     # published widths trained over the LTP PS in bfloat16, each stream
@@ -3775,12 +4075,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         ssm_line, ssm_launches[name], ssm_shape = run_ssm_phase(
             torch, zero_counts, read_counts, launches_of, name)
-        print(f"{name} " + json.dumps(ssm_line))
         ssm_kernels[name] = check_lm_kernels(torch, timer, *ssm_shape,
                                              ef=False)["packet_reduce"]
+        t0 = emit(name, ssm_line, t0)
         gc.collect()
         torch.cuda.empty_cache()
-    print("ssm_serve " + json.dumps(run_ssm_serve_phase(torch)))
+    t0 = emit("ssm_serve", run_ssm_serve_phase(torch), t0)
 
     # the enc-dec family: whisper-small at its full published config
     # trained over the LTP PS in bfloat16, its stream then checked and
@@ -3789,12 +4089,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     encdec_line, encdec_launches, encdec_shape = run_encdec_phase(
         torch, zero_counts, read_counts, launches_of)
-    print("encdec " + json.dumps(encdec_line))
     encdec_kernel = check_lm_kernels(torch, timer, *encdec_shape,
                                      ef=False)["packet_reduce"]
+    t0 = emit("encdec", encdec_line, t0)
     gc.collect()
     torch.cuda.empty_cache()
-    print("encdec_serve " + json.dumps(run_encdec_serve_phase(torch)))
+    t0 = emit("encdec_serve", run_encdec_serve_phase(torch), t0)
 
     # tree_reduce is on no training path: its count is the check calls'
     by_path = {
@@ -3955,6 +4255,9 @@ def main() -> int:
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms", "library_call")}}
     print(json.dumps({"kernels": line}))
+    phases["kernels line"] = time.perf_counter() - t0
+    print("phases " + json.dumps({"seconds": phases,
+                                  "total": time.perf_counter() - t_start}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

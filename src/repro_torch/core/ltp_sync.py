@@ -214,9 +214,12 @@ def psum_scatter(t: torch.Tensor, mesh,
                  axes: Sequence[str]) -> torch.Tensor:
     """``psum_scatter(t, axes, scatter_dimension=0, tiled=True)``: the sum
     over ``axes``, of which this rank keeps block ``worker_index`` of dim
-    0 (one ``reduce_scatter_tensor`` an axis, the first axis outermost)."""
+    0 (one ``reduce_scatter_tensor`` an axis of size > 1, the first axis
+    outermost)."""
     for a in axes:
         n = axis_size(mesh, a)
+        if n == 1:
+            continue
         out = t.new_empty((t.shape[0] // n,) + tuple(t.shape[1:]))
         with warnings.catch_warnings():
             # torch 2.13 deprecates the name for reduce_scatter_single,
@@ -230,9 +233,12 @@ def psum_scatter(t: torch.Tensor, mesh,
 
 def all_gather(t: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
     """The inverse of ``psum_scatter``'s split: the blocks of every rank
-    over ``axes``, concatenated on dim 0 in worker-index order."""
+    over ``axes``, concatenated on dim 0 in worker-index order (one
+    ``all_gather_into_tensor`` an axis of size > 1)."""
     for a in reversed(tuple(axes)):
         n = axis_size(mesh, a)
+        if n == 1:
+            continue
         out = t.new_empty((t.shape[0] * n,) + tuple(t.shape[1:]))
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", FutureWarning)
@@ -267,6 +273,15 @@ def _frac_of(frac, widx: int, device) -> torch.Tensor:
 def _n_pkts(shape, p: int) -> int:
     size = int(np.prod(shape)) if len(shape) else 1
     return max(1, -(-size // p))
+
+
+def _share(mask: torch.Tensor) -> torch.Tensor:
+    """The share of a {0,1} float32 mask's packets that are kept, as
+    float32: its exact sum over its length in float64, which rounds to
+    the correctly rounded float32 quotient on every device. A float32
+    ``mean`` (or a division by a Python number) on CUDA multiplies by the
+    reciprocal and can differ from the CPU's in the last bit."""
+    return (mask.sum(dtype=torch.float64) / mask.numel()).to(torch.float32)
 
 
 def _leaf_packet_mask(leaf_shape, u: torch.Tensor, frac: torch.Tensor,
@@ -340,6 +355,17 @@ def leafwise_packet_masks(grads, seed: int, frac, ltp: LTPConfig, *,
     return tree_unflatten(grads, masks), pkt_masks
 
 
+def _global_leaf(leaf: torch.Tensor, path, specs, mesh):
+    """``leaf`` all-gathered over ``model`` where ``specs``
+    (``sharding.model_specs``) shards it, and the dim it was split on
+    (``None``: the leaf as it is)."""
+    dim = None if specs is None else model_dim(spec_at(specs, path))
+    if dim is not None:
+        leaf = all_gather_dim(leaf, mesh.get_group("model"),
+                              axis_size(mesh, "model"), dim)
+    return leaf, dim
+
+
 def masked_psum_leafwise(grads, seed: int, frac, ltp: LTPConfig, mesh,
                          worker_axes: Sequence[str], n_workers: int, *,
                          uniforms=None, specs=None):
@@ -381,9 +407,7 @@ def masked_psum_leafwise(grads, seed: int, frac, ltp: LTPConfig, mesh,
     out = []
     realized = None
     for i, (path, leaf) in enumerate(paths):
-        dim = None if specs is None else model_dim(spec_at(specs, path))
-        if dim is not None:
-            leaf = all_gather_dim(leaf, mesh.get_group("model"), nm, dim)
+        leaf, dim = _global_leaf(leaf, path, specs, mesh)
         u = _leaf_uniforms(uniforms, i, leaf.shape, ltp, dev, seed, widx)
         m = _leaf_packet_mask(leaf.shape, u, fw, ltp)
         shape, dtype = leaf.shape, leaf.dtype
@@ -408,14 +432,15 @@ def masked_psum_leafwise(grads, seed: int, frac, ltp: LTPConfig, mesh,
                              mesh.get_local_rank("model")).contiguous()
         out.append(synced)
         if realized is None:
-            realized = psum(m.mean(), mesh, worker_axes) / n_workers
+            realized = psum(_share(m), mesh, worker_axes) / n_workers
     return tree_unflatten(grads, out), realized
 
 
 def masked_rs_update_leafwise(grads, params, m_states: List[torch.Tensor],
                               seed: int, frac, ltp: LTPConfig, mesh,
                               worker_axes: Sequence[str], n_workers: int,
-                              lr, momentum: float = 0.9, *, uniforms=None):
+                              lr, momentum: float = 0.9, *, uniforms=None,
+                              specs=None):
     """ZeRO-style LTP sync (beyond-paper): per-worker packet masking,
     then ``psum_scatter`` in packet space (each worker owns 1/W of each
     leaf's packet stream, a sharded PS), SGD-momentum on the local
@@ -427,24 +452,36 @@ def masked_rs_update_leafwise(grads, params, m_states: List[torch.Tensor],
     one a leaf. Returns (delta shards in each param's dtype, new
     momentum shards, realized); the caller all-gathers the deltas
     (``all_gather``) and adds them. ``realized`` comes from the first
-    leaf alone, as in the reference."""
+    leaf alone, as in the reference.
+
+    ``specs`` (``sharding.model_specs``): with tensor parallelism, the
+    layout of this rank's gradient blocks. As in
+    ``masked_psum_leafwise``, each sharded leaf is all-gathered over
+    ``model`` and its packets are the GLOBAL leaf's (one gathered leaf
+    alive at a time), so ``m_states`` and the deltas are the global
+    leaves' packet shards, the same on every model rank of a worker,
+    and ``uniforms`` holds the global leaves' draws."""
     widx = worker_index(mesh, worker_axes)
     p = ltp.packet_floats
-    g_leaves = tree_leaves(grads)
+    paths = tree_leaves_with_path(grads)
     p_leaves = tree_leaves(params)
-    dev = g_leaves[0].device
+    dev = paths[0][1].device
     fw = _frac_of(frac, widx, dev)
     deltas, new_m = [], []
     realized = None
-    for i, (gleaf, pleaf) in enumerate(zip(g_leaves, p_leaves, strict=True)):
+    for i, ((path, gleaf), pleaf) in enumerate(zip(paths, p_leaves,
+                                                   strict=True)):
+        gleaf, _ = _global_leaf(gleaf, path, specs, mesh)
         u = _leaf_uniforms(uniforms, i, gleaf.shape, ltp, dev, seed, widx)
         m = _leaf_packet_mask(gleaf.shape, u, fw, ltp)
         view = _as_packets(gleaf, p)
+        del gleaf
         padw = (-view.shape[0]) % n_workers
         if padw:
             view = torch.cat([view, view.new_zeros((padw, p))])
             m = torch.cat([m, m.new_zeros((padw,))])
         shard = psum_scatter(view * m[:, None], mesh, worker_axes)
+        del view
         if ltp.compensation == "count":
             cnt = psum_scatter(m, mesh, worker_axes)
             shard = shard / torch.clamp(cnt, min=1.0)[:, None]
@@ -454,7 +491,7 @@ def masked_rs_update_leafwise(grads, params, m_states: List[torch.Tensor],
         deltas.append((-lr * m_new).to(pleaf.dtype))
         new_m.append(m_new)
         if realized is None:
-            realized = psum(m.mean(), mesh, worker_axes) / n_workers
+            realized = psum(_share(m), mesh, worker_axes) / n_workers
     return deltas, new_m, realized
 
 
@@ -557,7 +594,7 @@ class LTPSync:
             out = tot / (W * mean_frac)
         else:  # paper
             out = tot / W
-        realized = psum(mask.mean(), mesh, dp) / W
+        realized = psum(_share(mask), mesh, dp) / W
         return (pk.unflatten(plan, out, leaf_dtypes), new_res,
                 {"delivered_frac": realized})
 

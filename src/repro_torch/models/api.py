@@ -33,7 +33,7 @@ from repro_torch.tree import tree_map_with_path
 class ModelApi:
     cfg: ModelConfig
     init: Callable           # (generator, *, device) -> params
-    loss_fn: Callable        # (params, batch, *, remat) -> scalar
+    loss_fn: Callable        # (params, batch, *, ctx, ce_weight) -> scalar
     forward: Optional[Callable]
     prefill: Optional[Callable]      # (params, inputs) -> (logits, cache)
     decode_step: Optional[Callable]  # (params, cache, token, pos)

@@ -18,9 +18,9 @@ under a ``ShardCtx`` (``ctx=``) whose axis both ``n_heads`` and
 ``wk`` / ``wv`` (its query heads and their KV heads, so GQA groups
 stay whole), attends over them (sliding window, QK-norm, RoPE and
 M-RoPE act per head) and applies its row block of ``wo``, whose
-partial output is all-reduced. Where the heads do not divide, the
-attention runs replicated on every rank: the same numbers as the
-reference's fallback to sequence sharding.
+partial output is all-reduced in float32 (``row_parallel``). Where the
+heads do not divide, the attention runs replicated on every rank: the
+same numbers as the reference's fallback to sequence sharding.
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ from repro_torch.models.layers import (
     dense_init,
     rms_norm,
 )
-from repro_torch.models.sharding import copy_in, reduce_out, split
+from repro_torch.models.sharding import copy_in, row_parallel, split
 
 NEG_INF = -1e30
 
@@ -185,9 +185,9 @@ def _project_qkv(cfg: ModelConfig, p: Params, x, tp=None):
 
 def _out_proj(out, p: Params, tp=None):
     """(B, S, H, hd) heads through ``wo``; under ``tp`` this rank's heads
-    through its row block, the partial sums all-reduced."""
+    through its row block, the partial sums all-reduced in float32."""
     b, s = out.shape[:2]
-    return reduce_out(out.reshape(b, s, -1) @ p["wo"], tp)
+    return row_parallel(out.reshape(b, s, -1), p["wo"], tp)
 
 
 def _apply_pos(cfg: ModelConfig, q, k, positions):

@@ -119,15 +119,17 @@ def forward(cfg: ModelConfig, params: Params, images: torch.Tensor):
 
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
-            ctx=None):
-    """Mean cross-entropy. ``ctx`` (a ``sharding.ShardCtx``) is taken and
-    ignored: the layout splits nothing of the CNN over ``model``, so
-    every model rank computes it whole."""
+            ctx=None, ce_weight=None):
+    """Mean cross-entropy, times ``ce_weight`` where one is given (a
+    data-parallel step's share of the labels). ``ctx`` (a
+    ``sharding.ShardCtx``) is taken and ignored: the layout splits
+    nothing of the CNN over ``model``, so every model rank computes it
+    whole."""
     logits = forward(cfg, params, batch["images"]).to(torch.float32)
     labels = batch["labels"].to(torch.int64)
     logp = F.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels[:, None])[:, 0]
-    return nll.mean()
+    return nll.mean() if ce_weight is None else nll.mean() * ce_weight
 
 
 def accuracy(cfg: ModelConfig, params: Params, batch: Dict[str, Any]):

@@ -227,12 +227,15 @@ def decode_train(cfg: ModelConfig, params: Params, tokens, enc_out, *,
 
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
-            remat: bool = True, ctx=None):
+            remat: bool = True, ctx=None, ce_weight=None):
+    """The decoder's mean cross-entropy, times ``ce_weight`` where one is
+    given (a data-parallel step's share of the label tokens)."""
     enc_out = encode(cfg, params, batch["frames"], remat=remat, ctx=ctx)
     logits = decode_train(cfg, params, batch["tokens"], enc_out,
                           remat=remat, ctx=ctx)
-    return cross_entropy(logits, batch["labels"], cfg.vocab,
+    loss = cross_entropy(logits, batch["labels"], cfg.vocab,
                          split(ctx, cfg.vocab_padded))
+    return loss if ce_weight is None else loss * ce_weight
 
 
 # ----------------------------------------------------------------------------

@@ -35,6 +35,7 @@ from repro_torch.models.sharding import (
     gather,
     reduce_both,
     reduce_out,
+    row_parallel,
     rows_of,
     split,
 )
@@ -134,12 +135,11 @@ def apply_mlp(cfg: ModelConfig, p: Params, x, ctx=None):
     tp = split(ctx, cfg.d_ff)
     x = copy_in(x, tp)
     if cfg.mlp_type == "swiglu":
-        g = F.silu(x @ p["w_gate"])
-        y = (g * (x @ p["w_up"])) @ p["w_down"]
+        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     else:
         # jax.nn.gelu defaults to the tanh approximation
-        y = F.gelu(x @ p["w_up"], approximate="tanh") @ p["w_down"]
-    return reduce_out(y, tp)
+        h = F.gelu(x @ p["w_up"], approximate="tanh")
+    return row_parallel(h, p["w_down"], tp)
 
 
 # ----------------------------------------------------------------------------

@@ -15,9 +15,8 @@ enter the parallel block (``copy_in``) where this rank's column blocks
 of ``w_uq`` (or ``wq``), ``w_uk`` and ``w_uv``, whole heads, take them.
 Each rank's heads see only part of the latents' gradient, which
 ``copy_in`` sums, so ``w_dq``, ``w_dkv`` and the norms get their whole
-gradient on every rank. ``wo`` is a row block, followed by
-``reduce_out``. Elsewhere the attention runs replicated. Decode takes
-no ``ctx``.
+gradient on every rank. ``wo`` is a row block (``row_parallel``).
+Elsewhere the attention runs replicated. Decode takes no ``ctx``.
 """
 from __future__ import annotations
 
@@ -32,7 +31,7 @@ from repro_torch.models.attention import (
     pos_tensor,
 )
 from repro_torch.models.layers import Params, apply_rope, dense_init, rms_norm
-from repro_torch.models.sharding import copy_in, reduce_out
+from repro_torch.models.sharding import copy_in, row_parallel
 
 
 def mla_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
@@ -98,7 +97,7 @@ def mla_attention(cfg: ModelConfig, p: Params, x, positions, tp=None):
     pad = q.shape[-1] - cfg.v_head_dim
     vp = torch.nn.functional.pad(v, (0, pad)) if pad > 0 else v
     out = multi_head_attention(q, k, vp, causal=True)[..., : cfg.v_head_dim]
-    return reduce_out(out.reshape(b, s, h * cfg.v_head_dim) @ p["wo"], tp)
+    return row_parallel(out.reshape(b, s, h * cfg.v_head_dim), p["wo"], tp)
 
 
 def mla_decode(cfg: ModelConfig, p: Params, x1, cache_ckv, cache_krope,

@@ -6,14 +6,17 @@ token dropping at capacity, not a one-hot einsum: an assignment whose
 slot in its expert's buffer lies at or past ``capacity`` is dropped, and
 that is part of the result. Expert FLOPs are ~6 * N_active * D.
 
-The reference routes one group per data-parallel shard; without a mesh,
-and inside the LTP step, whose ctx excludes the worker axes, it takes
-one group (``g_count = 1``), which is what this port computes. The
-port's sharded steps (``train/trainer.py``) give each rank its shard of
-the batch, which it routes as one group: the reference's grouping on a
-mesh (``tests/test_torch_trainer_sharded.py``). So the group axis is
-left out. Under a ``ShardCtx`` (``ctx=``) the router and the dispatch
-stay replicated (the groups come from the data axes alone) and the
+The reference routes one group per data-parallel shard: without a mesh
+one group (``g_count = 1``), which is what this port computes; inside
+the LTP step, whose ctx excludes the worker axes, one group a shard of
+the non-worker ``pod`` / ``data`` axes (``g_count = ndp``), and one
+when there are none. The port's sharded steps (``train/trainer.py``)
+give each rank its shard of the batch (in the LTP step, its block of
+its worker's block), which it routes as one group: the reference's
+grouping on a mesh (``tests/test_torch_trainer_sharded.py``,
+``tests/test_torch_trainer_13e.py``). So the group axis is left out.
+Under a ``ShardCtx`` (``ctx=``) the router and the dispatch stay
+replicated (the groups come from the data axes alone) and the
 expert einsums run on the ``model`` axis, as the reference's constraints
 place them: expert-parallel when ``n_experts`` divides the axis (a rank
 runs its experts on its slice of the routed buffer), otherwise
@@ -45,7 +48,8 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.models.layers import Params, dense_init, normal
-from repro_torch.models.sharding import copy_in, reduce_out, split
+from repro_torch.models.sharding import copy_in, reduce_out, row_parallel, \
+    split
 
 
 def _round_up(x: int, m: int) -> int:
@@ -172,5 +176,5 @@ def apply_moe(cfg: ModelConfig, p: Params, x, *,
         stp = split(ctx, cfg.n_shared_experts * moe_ff(cfg))
         xs = copy_in(xf, stp)
         sg = F.silu(xs @ sp["w_gate"])
-        y = y + reduce_out((sg * (xs @ sp["w_up"])) @ sp["w_down"], stp)
+        y = y + row_parallel(sg * (xs @ sp["w_up"]), sp["w_down"], stp)
     return y.reshape(b, s, d), aux

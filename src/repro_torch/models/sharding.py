@@ -28,8 +28,10 @@ code (``layers``, ``attention``, ``mla``, ``moe``, ``ssm``,
 through the differentiable collectives below on the ``model`` process
 group: ``copy_in`` (identity forward, all-reduce backward) at the entry
 of a column-parallel block, ``reduce_out`` (all-reduce forward, identity
-backward) after a row-parallel one, ``reduce_both`` (all-reduce both
-ways), ``gather`` (all-gather forward, this rank's block backward),
+backward) after a row-parallel one, ``row_parallel`` (a row-parallel
+product through ``reduce_out``, its partial products summed in float32
+and rounded once), ``reduce_both`` (all-reduce both ways), ``gather``
+(all-gather forward, this rank's block backward),
 ``reblock`` (a column-parallel output regrouped by all-to-all),
 ``cols_to_rows`` (the tied table's reshard), and ``rows_of`` /
 ``cols_of`` (this rank's block of a replicated leaf). Activations
@@ -558,6 +560,24 @@ def reduce_both(x: torch.Tensor, ctx: Optional[ShardCtx]) -> torch.Tensor:
     ``model``, and their gradient summed too, for a sum that feeds code
     split over ``model`` (module docstring)."""
     return copy_in(reduce_out(x, ctx), ctx)
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor, ctx: Optional[ShardCtx],
+                 reduce=None) -> torch.Tensor:
+    """``x @ w`` of a row-parallel block: under ``ctx`` ``x`` holds this
+    rank's block of the contracted dim and ``w`` its rows. The partial
+    products are taken in float32, summed over ``model`` and rounded
+    once to ``x``'s dtype, as the whole product is, and as the
+    reference's partitioned product reads on a (2, 2) mesh: bfloat16
+    partial sums rounded before the sum round twice, which moves a
+    bfloat16 model off its unsharded result by enough to flip a MoE
+    router's near-ties (``tests/test_torch_trainer_13e.py``). A float32
+    block computes as before. ``reduce``: the sum, ``reduce_out`` unless
+    given (``reduce_both`` where the sum feeds code split over
+    ``model``)."""
+    if ctx is None:
+        return x @ w
+    return (reduce or reduce_out)(x.float() @ w.float(), ctx).to(x.dtype)
 
 
 def reblock(x: torch.Tensor, ctx: Optional[ShardCtx],

@@ -41,9 +41,10 @@ Under a ``ShardCtx`` (``ctx=``, tensor parallelism over ``model``, where
   replicated per-channel leaves (``conv_w``, ``conv_b``, ``A_log``,
   ``D``, ``dt_bias``) are sliced to this rank's channels after
   ``copy_in``, and so are the rows of ``x_proj``, whose partial
-  product ``xdbl`` is summed both ways (``reduce_both``) before ``dt``,
+  product ``xdbl`` is summed both ways (``row_parallel`` with
+  ``reduce_both``) before ``dt``,
   ``B`` and ``C`` feed the channel-split ``dt_proj`` block and scan.
-  ``out_proj`` is a row block, followed by ``reduce_out``.
+  ``out_proj`` is a row block (``row_parallel``).
 - Mamba-2 runs head-parallel over ``ssm_heads``: the reblock gives this
   rank's ``z``, ``x`` and ``dt`` heads and the whole of ``B`` and ``C``
   (one group, shared by every head; their gradient is summed over the
@@ -70,7 +71,7 @@ from repro_torch.models.sharding import (
     copy_in,
     reblock,
     reduce_both,
-    reduce_out,
+    row_parallel,
     rows_of,
     segments_split,
 )
@@ -179,7 +180,7 @@ def _mamba1_inputs(cfg: ModelConfig, p: Params, u, tp=None):
     conv_w, conv_b, x_proj, dt_bias = _channels(
         p, ("conv_w", "conv_b", "x_proj", "dt_bias"), tp)
     x = F.silu(_causal_conv(x, conv_w, conv_b))
-    xdbl = reduce_both(x @ x_proj, tp)
+    xdbl = row_parallel(x, x_proj, tp, reduce_both)
     dt = softplus((xdbl[..., :r] @ p["dt_proj"]).to(torch.float32)
                   + dt_bias)
     Bc = xdbl[..., r:r + n].to(torch.float32)
@@ -207,7 +208,7 @@ def mamba1_forward(cfg: ModelConfig, p: Params, u, ctx=None):
             ys.append(torch.einsum("bdn,bn->bd", h, Cc[:, t]))
     y = torch.stack(ys, dim=1) + xf * D
     y = y.to(u.dtype) * F.silu(z)
-    return reduce_out(y @ p["out_proj"], tp)
+    return row_parallel(y, p["out_proj"], tp)
 
 
 def mamba1_decode(cfg: ModelConfig, p: Params, u1, state):
@@ -355,7 +356,7 @@ def mamba2_forward(cfg: ModelConfig, p: Params, u, *, chunk: int = 128,
     y = y + xf * D[:, None]
     y = y.reshape(b, s, di).to(u.dtype)
     y = rms_norm(y * F.silu(z), gamma - 1.0, cfg.norm_eps, tp)
-    return reduce_out(y @ p["out_proj"], tp)
+    return row_parallel(y, p["out_proj"], tp)
 
 
 def mamba2_decode(cfg: ModelConfig, p: Params, u1, state):

@@ -473,10 +473,15 @@ def forward(
 
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
-            *, remat: bool = True, ctx=None):
+            *, remat: bool = True, ctx=None, ce_weight=None):
+    """The mean cross-entropy, times ``ce_weight`` where one is given (a
+    data-parallel step's share of the label tokens), plus 0.01 times the
+    MoE balance loss, which ``ce_weight`` leaves alone."""
     logits, aux, _ = forward(cfg, params, batch, remat=remat, ctx=ctx)
     loss = cross_entropy(logits, batch["labels"], cfg.vocab,
                          split(ctx, cfg.vocab_padded))
+    if ce_weight is not None:
+        loss = loss * ce_weight
     if cfg.n_experts > 0:
         loss = loss + 0.01 * aux
     return loss

@@ -24,8 +24,19 @@ that ``sharding.model_specs`` shards (``init_state(..., mesh=)``,
 ``model`` (``models.sharding.ShardCtx``: GSPMD's work in JAX), and the
 optimizer updates the blocks. That covers every family of the repo
 (dense, VLM, MoE with MLA, SSM, hybrid, enc-dec; the CNN computes whole
-on every model rank). The ZeRO variant and a non-worker ``data`` or
-``pod`` axis are refused at ``model`` > 1 (ROADMAP.md queue 1 item 13e).
+on every model rank), in both variants of the LTP step.
+
+A ``pod`` or ``data`` axis that is no worker axis is data parallelism
+inside a worker (the reference's ``ctx.dp``, which GSPMD splits the
+worker's batch over): each rank takes its block of the worker's block
+of the batch, and the losses and gradients are summed over those axes
+before the masking (``_mean_loss_and_grads``): each rank's
+cross-entropy weighted by its share of the worker's label tokens, its
+MoE balance loss by one over the ranks, which is the reference's one
+token-weighted mean over the worker's block and its mean over the
+routing groups, however unevenly the labels are masked. Every data
+rank of a worker then masks and syncs the same gradient, and holds the
+same result.
 """
 from __future__ import annotations
 
@@ -40,11 +51,11 @@ from repro_torch.config import LTPConfig
 from repro_torch.core import ltp_sync as ls
 from repro_torch.device import DeviceLike
 from repro_torch.models.api import ModelApi
-from repro_torch.models.sharding import axis_size, dp_axes, mesh_shape, \
-    model_specs, shard_params, spec_at, tp_ctx
+from repro_torch.models.sharding import axis_size, block_of, dp_axes, \
+    mesh_shape, model_dim, model_specs, shard_params, spec_at, tp_ctx
 from repro_torch.optim import Optimizer
-from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path, \
-    tree_unflatten
+from repro_torch.tree import tree_leaves, tree_leaves_with_path, tree_map, \
+    tree_map_with_path, tree_unflatten
 
 
 @dataclasses.dataclass
@@ -83,11 +94,14 @@ def init_state(api: ModelApi, opt: Optimizer, seed: int = 0, *,
 
 def zero_opt_state(params: Any, ltp: LTPConfig, mesh,
                    worker_axes: Sequence[str]) -> Dict[str, Any]:
-    """The ZeRO variant's optimizer state: this rank's zero shard of each
-    leaf's packet-space momentum (``ls.zero_momentum_shapes`` rows over
-    W), as ``{"m_pkts": [...]}``, which selects that variant. Refused at
-    ``model`` > 1 (item 13e): its packet space is the global leaf's."""
-    _refuse_zero(mesh)
+    """The ZeRO variant's optimizer state: this rank's worker's rows of
+    each leaf's packet-space momentum (``ls.zero_momentum_shapes`` rows
+    over W), as ``{"m_pkts": [...]}``, which selects that variant.
+    ``params``: the GLOBAL params (``init_state``'s ``params=``, before
+    it shards them over ``model``): the packets are the global leaves',
+    so every model rank and every data rank of a worker holds that
+    worker's rows whole, as the reference's ``P(worker_axes, None)``
+    places them."""
     w = ls.worker_count(mesh, worker_axes)
     dev = tree_leaves(params)[0].device
     return {"m_pkts": [torch.zeros((n // w, p), dtype=torch.float32,
@@ -95,23 +109,17 @@ def zero_opt_state(params: Any, ltp: LTPConfig, mesh,
                        for n, p in ls.zero_momentum_shapes(params, ltp, w)]}
 
 
-def _refuse_zero(mesh) -> None:
-    if axis_size(mesh, "model") > 1:
-        raise NotImplementedError(
-            "the ZeRO variant of make_ltp_train_step on a mesh whose "
-            "'model' axis is larger than 1 is not ported: ROADMAP.md "
-            "queue 1 item 13e; give the axis size 1")
-
-
 def _check_mesh(mesh, worker_axes: Sequence[str]) -> None:
-    """Every axis of size > 1 is a worker axis or ``model``."""
+    """Every axis of size > 1 is a worker axis, a batch axis
+    (``sharding.dp_axes``) or ``model``."""
     for name, size in mesh_shape(mesh).items():
-        if name in worker_axes or size == 1 or name == "model":
+        if size == 1 or name in worker_axes or name in dp_axes(mesh) + (
+                "model",):
             continue
         raise NotImplementedError(
-            f"mesh axis {name!r} of size {size} is neither a worker axis "
-            f"nor 'model': data parallelism inside a worker is not ported "
-            f"(ROADMAP.md queue 1 item 13e); give it size 1")
+            f"mesh axis {name!r} of size {size} is neither a worker axis, "
+            f"'pod', 'data' nor 'model': the port shards over no other "
+            f"axis; give it size 1")
 
 
 def _to(x, device) -> torch.Tensor:
@@ -135,11 +143,38 @@ def _block(x, spec, mesh, device) -> torch.Tensor:
     return x
 
 
-def _loss_and_grads(api: ModelApi, params, batch, ctx=None):
-    kw = {} if ctx is None else {"ctx": ctx}
+def _loss_and_grads(api: ModelApi, params, batch, ctx=None, **kw):
+    if ctx is not None:
+        kw["ctx"] = ctx
     grads, loss = grad_and_value(
         lambda p: api.loss_fn(p, batch, **kw))(params)
     return loss.detach(), grads
+
+
+def _label_count(batch) -> torch.Tensor:
+    """The labels a batch block counts: those >= 0, as ``cross_entropy``
+    masks the rest (every class label of the CNN's)."""
+    return (batch["labels"] >= 0).sum().to(torch.float32)
+
+
+def _mean_loss_and_grads(api: ModelApi, params, batch, ctx, mesh,
+                         axes: Tuple[str, ...]):
+    """The loss and its gradient over the batch whose blocks the ranks of
+    ``axes`` hold, each rank holding one: each rank's cross-entropy
+    weighted by n times its share of the label tokens (``ce_weight``),
+    then the mean over the ranks. That is GSPMD's token-weighted mean
+    over the whole batch, and the mean of the MoE balance loss over the
+    groups, one a rank (``moe.py``)."""
+    n = ls.worker_count(mesh, axes)
+    if n == 1:
+        return _loss_and_grads(api, params, batch, ctx)
+    count = _label_count(batch)
+    total = ls.psum(count.clone(), mesh, axes)
+    loss, grads = _loss_and_grads(
+        api, params, batch, ctx,
+        ce_weight=count * n / torch.clamp(total, min=1.0))
+    grads = tree_map(lambda g: ls.psum(g, mesh, axes) / n, grads)
+    return ls.psum(loss.clone(), mesh, axes) / n, grads
 
 
 def _apply(params, updates):
@@ -151,28 +186,27 @@ def make_plain_train_step(api: ModelApi, opt: Optimizer,
     """Lossless sync: ``step(state, batch, lr) -> (state, {"loss"})``.
     Without a mesh, one process takes the whole batch. With one, each
     rank takes its block of dim 0 of the global batch over the mesh's
-    data axes (pod, data), and the gradients and the loss are averaged
-    over them by ``all_reduce``; over a ``model`` axis the model runs
-    tensor-parallel on the state's blocks."""
+    data axes (pod, data), and the loss and the gradients are the mean
+    over the whole batch (``_mean_loss_and_grads``, ``all_reduce``);
+    over a ``model`` axis the model runs tensor-parallel on the state's
+    blocks."""
     axes = dp_axes(mesh) if mesh is not None else ()
     ctx = None
     if mesh is not None:
         _check_mesh(mesh, axes)
         ctx = tp_ctx(mesh)
-    n = ls.worker_count(mesh, axes) if mesh is not None else 1
     split = (axes if len(axes) > 1 else axes[0],) if axes else ()
 
     def step(state: TrainState, batch, lr):
         dev = tree_leaves(state.params)[0].device
         if mesh is None:
             batch = tree_map(lambda x: _to(x, dev), batch)
+            loss, grads = _loss_and_grads(api, state.params, batch)
         else:
             batch = tree_map_with_path(
                 lambda path, x: _block(x, split, mesh, dev), batch)
-        loss, grads = _loss_and_grads(api, state.params, batch, ctx)
-        if mesh is not None:
-            grads = tree_map(lambda g: ls.psum(g, mesh, axes) / n, grads)
-            loss = ls.psum(loss.clone(), mesh, axes) / n
+            loss, grads = _mean_loss_and_grads(api, state.params, batch,
+                                               ctx, mesh, axes)
         updates, opt_state = opt.update(grads, state.opt_state,
                                         state.params, lr)
         return (TrainState(_apply(state.params, updates), opt_state,
@@ -182,9 +216,13 @@ def make_plain_train_step(api: ModelApi, opt: Optimizer,
     return step
 
 
-def _restrict(spec, worker_axes: Tuple[str, ...]):
+def _restrict(spec, worker_axes: Tuple[str, ...],
+              inner: Tuple[str, ...]):
     """A batch spec cut to the worker axes (the others are auto in the
-    reference's ``shard_map``)."""
+    reference's ``shard_map``), then each dim that names a batch axis (a
+    worker axis or one of ``inner``, the non-worker batch axes) split
+    over ``inner``, as GSPMD splits a worker's block over the
+    reference's ``ctx.dp``."""
     out = []
     for entry in spec:
         if entry is None:
@@ -192,8 +230,22 @@ def _restrict(spec, worker_axes: Tuple[str, ...]):
             continue
         names = (entry,) if isinstance(entry, str) else tuple(entry)
         keep = tuple(n for n in names if n in worker_axes)
+        if any(n in worker_axes + inner for n in names):
+            keep += inner
         out.append(keep[0] if len(keep) == 1 else (keep or None))
     return tuple(out)
+
+
+def _add_delta(p: torch.Tensor, d: torch.Tensor, dim, nm: int,
+               idx: int) -> torch.Tensor:
+    """``p`` (this rank's block, split over ``model`` on ``dim``, or
+    whole) plus its block of the global leaf rebuilt from the gathered
+    packet deltas ``d``."""
+    shape = list(p.shape)
+    if dim is not None:
+        shape[dim] *= nm
+    full = ls._from_packets(d.to(torch.float32), shape, p.dtype)
+    return p + (full if dim is None else block_of(full, dim, nm, idx))
 
 
 def make_ltp_train_step(api: ModelApi, opt: Optimizer, mesh,
@@ -204,50 +256,58 @@ def make_ltp_train_step(api: ModelApi, opt: Optimizer, mesh,
     {"loss", "delivered_frac"})``.
 
     worker_axes: the mesh axes whose members act as the paper's workers,
-    ('data',), ('pod',) or ('pod', 'data'); every other axis but
-    ``model`` must have size 1, and over ``model`` the model runs
-    tensor-parallel on the state's blocks (``init_state(..., mesh=)``),
-    each sharded leaf gated on its global view
-    (``ls.masked_psum_leafwise``'s ``specs``). batch_specs: a tree of
-    specs for the GLOBAL batch, which every rank passes whole; each takes
-    its block along the worker axes (the other axes of a spec are
-    dropped, as the reference restricts them). frac: (W,) delivered fraction a worker; seed: the step's seed
-    for the delivery draws, or ``uniforms``, this rank's per-leaf draws.
+    ('data',), ('pod',) or ('pod', 'data'). A ``pod`` or ``data`` axis
+    that is no worker axis splits each worker's batch (module
+    docstring); over ``model`` the model runs tensor-parallel on the
+    state's blocks (``init_state(..., mesh=)``), each sharded leaf gated
+    on its global view (``specs`` of ``ls.masked_psum_leafwise`` and
+    ``ls.masked_rs_update_leafwise``); any other axis must have size 1.
+    batch_specs: a tree of specs for the GLOBAL batch, which every rank
+    passes whole; each takes its block along the worker axes (the other
+    axes of a spec are dropped, as the reference restricts them), then
+    along the non-worker batch axes. frac: (W,) delivered fraction a
+    worker; seed: the step's seed for the delivery draws, or
+    ``uniforms``, this rank's worker's per-leaf draws.
 
     Two variants, chosen as in the reference: the psum variant
     (``ls.masked_psum_leafwise``, then ``opt``), and, when
     ``state.opt_state`` is ``{"m_pkts": [...]}`` (``zero_opt_state``),
     the ZeRO variant (``ls.masked_rs_update_leafwise``: SGD-momentum on
-    this rank's packet shard, then the deltas all-gathered in the
-    params' dtype and added). The loss is the mean over workers of each
+    this worker's packet shard of each global leaf, then the deltas
+    all-gathered over the workers in the params' dtype, and this rank's
+    block of each added). The loss is the mean over workers of each
     worker's loss on its block."""
     worker_axes = tuple(worker_axes)
     _check_mesh(mesh, worker_axes)
     n_workers = ls.worker_count(mesh, worker_axes)
+    inner = tuple(a for a in dp_axes(mesh) if a not in worker_axes)
     ctx = tp_ctx(mesh)
     specs = model_layout(api, mesh)
+    nm = axis_size(mesh, "model")
 
     def local(state: TrainState, batch):
         dev = tree_leaves(state.params)[0].device
         batch = tree_map_with_path(lambda path, x: _block(
-            x, _restrict(spec_at(batch_specs, path), worker_axes), mesh,
-            dev), batch)
-        loss, grads = _loss_and_grads(api, state.params, batch, ctx)
-        loss = ls.psum(loss.clone(), mesh, worker_axes) / n_workers
-        return loss, grads
+            x, _restrict(spec_at(batch_specs, path), worker_axes, inner),
+            mesh, dev), batch)
+        loss, grads = _mean_loss_and_grads(api, state.params, batch, ctx,
+                                           mesh, inner)
+        return ls.psum(loss.clone(), mesh, worker_axes) / n_workers, grads
 
     def zero_step(state: TrainState, batch, frac, seed, lr, uniforms):
-        _refuse_zero(mesh)
         loss, grads = local(state, batch)
         deltas, m_pkts, realized = ls.masked_rs_update_leafwise(
             grads, state.params, state.opt_state["m_pkts"], seed, frac, ltp,
-            mesh, worker_axes, n_workers, lr, uniforms=uniforms)
-        p_leaves = tree_leaves(state.params)
-        new_leaves = [
-            p + ls._from_packets(
-                ls.all_gather(d, mesh, worker_axes).to(torch.float32),
-                p.shape, p.dtype)
-            for p, d in zip(p_leaves, deltas, strict=True)]
+            mesh, worker_axes, n_workers, lr, uniforms=uniforms,
+            specs=specs)
+        del grads
+        idx = mesh.get_local_rank("model") if nm > 1 else 0
+        new_leaves = []
+        for i, (path, p) in enumerate(tree_leaves_with_path(state.params)):
+            dim = None if specs is None else model_dim(spec_at(specs, path))
+            d, deltas[i] = deltas[i], None
+            new_leaves.append(_add_delta(
+                p, ls.all_gather(d, mesh, worker_axes), dim, nm, idx))
         return (TrainState(tree_unflatten(state.params, new_leaves),
                            {"m_pkts": m_pkts}, state.step + 1),
                 {"loss": loss, "delivered_frac": realized})

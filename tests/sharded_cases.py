@@ -94,6 +94,37 @@ TPF_MESH = {"tpf": (2, 2), "tpf12": (1, 2), "tpf14": (1, 4)}
 # the planted fault of the tpf tasks: falcon's Mamba-1 in_proj, each rank
 # starting from its mirror's block
 TPF_PLANT = ("falcon", "in_proj")
+# the ZeRO variant at model > 1 and data parallelism inside a worker
+# (tests/test_torch_trainer_13e.py): each task's mesh (shape, axis names,
+# worker axes) and cases (model, variant, compensation). ``z22`` and
+# ``pd22`` run against the JAX step, whose three processes (``Z_JAX``)
+# split the models; the others against the port's own one-rank step.
+# ``mixtral_masked``: REDUCED mixtral on a batch whose labels are masked
+# unevenly over its rows (``masked_batch``).
+Z_MESH = {"z22": ((2, 2), ("data", "model"), ("data",)),
+          "pd22": ((2, 2, 1), ("pod", "data", "model"), ("pod",)),
+          "z12": ((1, 2), ("data", "model"), ("data",)),
+          "z14": ((1, 4), ("data", "model"), ("data",)),
+          "z122": ((1, 2, 2), ("pod", "data", "model"), ("pod",))}
+Z_CASES = {
+    "z22": [(name, "zero", comp) for name in ("smollm", "deepseek")
+            for comp in TP_COMPS]
+    + [("mixtral", "zero", "paper"), ("mixtral_bf16", "zero", "count")],
+    "pd22": [("smollm", "psum", "paper"), ("smollm", "zero", "paper"),
+             ("mixtral", "psum", "paper"), ("mixtral_masked", "psum",
+                                            "paper")],
+    "z12": [(name, "zero", comp) for name in ("smollm", "mixtral",
+                                              "deepseek")
+            for comp in TP_COMPS],
+    "z14": [("smollm", "zero", comp) for comp in TP_COMPS],
+    "z122": [(name, variant, "paper") for name in ("smollm", "qwen2vl")
+             for variant in ("psum", "zero")]}
+Z_JAX = {"z13_a": ("smollm", "mixtral_masked"),
+         "z13_b": ("mixtral_bf16", "mixtral"), "z13_c": ("deepseek",)}
+# the bfloat16 case's witnesses of the reference's own rounding
+# (tests/test_torch_trainer_13e.py): its step on (data 2, model 1), and
+# on (2, 2) from its init moved by one ulp (``nudged``)
+Z_WITNESS = ("mixtral_bf16", "zero", "count")
 
 
 def env() -> dict:
@@ -206,7 +237,7 @@ def block(x: np.ndarray, spec, coords: dict) -> np.ndarray:
 # ----------------------------------------------------------------------------
 
 
-def _jax_mesh(shape):
+def _jax_mesh(shape, names=("data", "model")):
     import jax
     from jax.sharding import Mesh
 
@@ -214,8 +245,7 @@ def _jax_mesh(shape):
     kw = {}
     if hasattr(jax.sharding, "AxisType"):
         kw["axis_types"] = (jax.sharding.AxisType.Auto,) * len(shape)
-    return Mesh(np.array(jax.devices()[:n]).reshape(shape),
-                ("data", "model"), **kw)
+    return Mesh(np.array(jax.devices()[:n]).reshape(shape), names, **kw)
 
 
 def _P(spec):
@@ -429,11 +459,16 @@ def moe_cfg(get_reduced):
 
 
 def tp_cfg(get_reduced, name: str):
-    """A tp case's config: ``TP_MODELS``, ``TPF_MODELS``, and
+    """A tp case's config: ``TP_MODELS``, ``TPF_MODELS``,
     ``mixtral_e3``, REDUCED mixtral with 3 experts (which 2 does not
-    divide)."""
+    divide), ``mixtral_bf16``, REDUCED mixtral in its own bfloat16, and
+    ``<name>_masked``, ``name``'s."""
     if name == "mixtral_e3":
         return tp_cfg(get_reduced, "mixtral").replace(n_experts=3)
+    if name == "mixtral_bf16":
+        return get_reduced("mixtral_8x22b")
+    if name.endswith("_masked"):
+        return tp_cfg(get_reduced, name[:-len("_masked")])
     arch, over = {**TP_MODELS, **TPF_MODELS}[name]
     return get_reduced(arch).replace(dtype="float32", **over)
 
@@ -470,10 +505,30 @@ def tp_batch(cfg, seed: int) -> dict:
     return b
 
 
-def tp_batch_specs(batch: dict) -> dict:
-    """Every batch leaf split over ``data`` on its batch dim."""
-    return {k: (None, "data") if k == "positions3" else ("data",)
-            for k in batch}
+def masked_batch(batch: dict) -> dict:
+    """``batch`` with each row's labels past its first S, S / 4, 3 S / 4
+    and 0 (in turn) masked (-1): on (pod 2, data 2) each data rank of a
+    worker counts a different number of label tokens, and one none."""
+    labels = batch["labels"].copy()
+    s = labels.shape[1]
+    for i in range(labels.shape[0]):
+        labels[i, (s, s // 4, 3 * s // 4, 0)[i % 4]:] = -1
+    return dict(batch, labels=labels)
+
+
+def nudged(x, rng) -> np.ndarray:
+    """``x`` with every element moved by one unit in its last place, up
+    or down at random: the init of a rounding control."""
+    a = np.asarray(x)
+    return np.nextafter(a, np.where(rng.random(a.shape) < 0.5, -np.inf,
+                                    np.inf).astype(a.dtype))
+
+
+def tp_batch_specs(batch: dict, axes=("data",)) -> dict:
+    """Every batch leaf split over ``axes`` (the mesh's batch axes) on
+    its batch dim."""
+    e = axes[0] if len(axes) == 1 else tuple(axes)
+    return {k: (None, e) if k == "positions3" else (e,) for k in batch}
 
 
 def jax_plain_moe(rec: dict) -> None:
@@ -604,6 +659,107 @@ def jax_tp(out: str, names=tuple(TP_MODELS)) -> None:
                     for i, x in enumerate(jax.tree.leaves(new.params)):
                         rec[f"out/{name}/plain/params/{i}"] = np.asarray(x)
                     rec[f"out/{name}/plain/loss"] = np.asarray(m["loss"])
+    finally:
+        compat.shard_map = checked
+    np.savez(out, **rec)
+
+
+def _f32(x) -> np.ndarray:
+    """A JAX array as float32 numpy (bfloat16 exactly; npz keeps no
+    bfloat16)."""
+    return np.asarray(x, np.float32)
+
+
+def jax_13e(out: str, names) -> None:
+    """The JAX step on ``Z_MESH``'s ``z22`` (data 2, model 2: the ZeRO
+    variant, the batch over ``data``) and ``pd22`` (pod 2, data 2, model
+    1, ``worker_axes=("pod",)``: the batch over (pod, data), GSPMD
+    splitting each worker's block over ``data``) meshes, for the models
+    ``names`` of ``Z_CASES``, its ``shard_map`` check off as in
+    ``jax_tp``; for ``Z_WITNESS``'s model, also its witnesses (``wit/``:
+    the step on (data 2, model 1), and on (2, 2) from the ``nudged``
+    init). The inputs (params as float32, batches, every worker's draws)
+    go to ``tp_inputs(out)`` first."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro import compat
+    from repro.config import LTPConfig
+    from repro.configs import get_reduced
+    from repro.core import ltp_sync as ls
+    from repro.models import build
+    from repro.optim import sgd_momentum
+    from repro.train.trainer import TrainState, init_state, \
+        make_ltp_train_step
+
+    rec = {}
+    key = jax.random.PRNGKey(TP_SEED)
+    frac = jnp.asarray(TRAIN_FRAC, jnp.float32)
+    models = {}
+    for name in names:
+        api, opt = build(tp_cfg(get_reduced, name)), sgd_momentum()
+        state = init_state(api, opt, jax.random.PRNGKey(0))
+        leaves = jax.tree.leaves(state.params)
+        batch = tp_batch(api.cfg, 1)
+        if name.endswith("_masked"):
+            batch = masked_batch(batch)
+        models[name] = (api, opt, state, batch)
+        for i, x in enumerate(leaves):
+            rec[f"in/{name}/params/{i}"] = _f32(x)
+        rec.update({f"in/{name}/batch/{k}": v for k, v in batch.items()})
+        for w in range(W):
+            kw_ = jax.random.fold_in(key, w)
+            for i, x in enumerate(leaves):
+                n = max(1, -(-x.size // LTPConfig().packet_floats))
+                rec[f"u/{name}/{w}/{i}"] = np.asarray(jax.random.uniform(
+                    jax.random.fold_in(kw_, i), (n,)))
+    np.savez(out + ".tmp.npz", **rec)
+    os.replace(out + ".tmp.npz", tp_inputs(out))
+    def run(base, mesh_of, name, variant, comp, params=None):
+        shape, axes, workers = mesh_of
+        mesh = _jax_mesh(shape, axes)
+        dp = tuple(a for a in axes if a != "model")
+        api, opt, state, batch = models[name]
+        if params is not None:
+            state = TrainState(params, opt.init(params), state.step)
+        specs = {k: _P(v) for k, v in tp_batch_specs(batch, dp).items()}
+        ltp = LTPConfig(compensation=comp)
+        if variant == "zero":
+            m_sds = ls.zero_momentum_shapes(
+                jax.eval_shape(lambda: state.params), ltp, W)
+            state = TrainState(state.params, {"m_pkts": [
+                jnp.zeros(x.shape, x.dtype) for x in m_sds]}, state.step)
+        with compat.set_mesh(mesh):
+            step = jax.jit(make_ltp_train_step(api, opt, mesh, ltp, workers,
+                                               specs))
+            new, m = step(state, {k: jnp.asarray(v)
+                                  for k, v in batch.items()},
+                          frac, key, jnp.float32(LR))
+        for i, x in enumerate(jax.tree.leaves(new.params)):
+            rec[f"{base}/params/{i}"] = _f32(x)
+        if variant == "zero":
+            for i, x in enumerate(new.opt_state["m_pkts"]):
+                rec[f"{base}/m/{i}"] = np.asarray(x)
+        rec[f"{base}/loss"] = _f32(m["loss"])
+        rec[f"{base}/realized"] = _f32(m["delivered_frac"])
+
+    checked = compat.shard_map
+    compat.shard_map = lambda f, **kw: checked(f, **dict(kw, check=False))
+    try:
+        for task in ("z22", "pd22"):
+            for name, variant, comp in Z_CASES[task]:
+                if name in models:
+                    run(f"out/{task}/{name}/{variant}/{comp}", Z_MESH[task],
+                        name, variant, comp)
+        name, variant, comp = Z_WITNESS
+        if name in models:
+            case = f"{name}/{variant}/{comp}"
+            run(f"wit/z21/{case}", ((2, 1),) + Z_MESH["z22"][1:], name,
+                variant, comp)
+            rng = np.random.default_rng(TP_SEED)
+            run(f"wit/ctl/{case}", Z_MESH["z22"], name, variant, comp,
+                jax.tree.map(lambda x: jnp.asarray(nudged(x, rng)),
+                             models[name][2].params))
     finally:
         compat.shard_map = checked
     np.savez(out, **rec)
@@ -781,21 +937,24 @@ def rank_train(z: dict, world: int) -> dict:
 
 
 def tp_run(api, mesh, params, batch, comp, *, uniforms=None,
-           blocks=None) -> dict:
-    """One step of the port on ``mesh`` from GLOBAL ``params``: the psum
-    LTP step under ``comp``, or the plain step (``comp == "plain"``),
-    fractions ``TRAIN_FRAC``, the port's own draws from ``TP_SEED`` or
+           blocks=None, variant="psum", worker_axes=("data",)) -> dict:
+    """One step of the port on ``mesh`` from GLOBAL ``params``: the LTP
+    step's ``variant`` (``psum``, or ``zero`` from ``zero_opt_state``)
+    under ``comp`` over ``worker_axes``, the batch split over the mesh's
+    batch axes, or the plain step (``comp == "plain"``), fractions
+    ``TRAIN_FRAC``, the port's own draws from ``TP_SEED`` or
     ``uniforms``. ``blocks``: this rank's blocks to start from instead
-    of its share of ``params``. Returns the gathered global params, the
-    loss and the delivered fraction."""
+    of its share of ``params``. Returns the gathered global params (as
+    float32), the loss, the delivered fraction and, for ``zero``, this
+    rank's momentum rows."""
     import torch
 
     from repro_torch.config import LTPConfig
-    from repro_torch.models.sharding import gather_params
+    from repro_torch.models.sharding import dp_axes, gather_params
     from repro_torch.optim import sgd_momentum
     from repro_torch.tree import tree_leaves
     from repro_torch.train.trainer import init_state, make_ltp_train_step, \
-        make_plain_train_step, model_layout
+        make_plain_train_step, model_layout, zero_opt_state
 
     opt = sgd_momentum()
     st = (init_state(api, opt, params=params, mesh=mesh) if blocks is None
@@ -803,16 +962,22 @@ def tp_run(api, mesh, params, batch, comp, *, uniforms=None,
     if comp == "plain":
         new, m = make_plain_train_step(api, opt, mesh)(st, batch, LR)
     else:
-        step = make_ltp_train_step(api, opt, mesh,
-                                   LTPConfig(compensation=comp), ("data",),
-                                   tp_batch_specs(batch))
+        ltp = LTPConfig(compensation=comp)
+        if variant == "zero":
+            st.opt_state = zero_opt_state(params, ltp, mesh, worker_axes)
+        step = make_ltp_train_step(api, opt, mesh, ltp, worker_axes,
+                                   tp_batch_specs(batch, dp_axes(mesh)))
         new, m = step(st, batch, torch.as_tensor(TRAIN_FRAC), TP_SEED, LR,
                       uniforms=uniforms)
     specs = model_layout(api, mesh)
     full = new.params if specs is None else gather_params(new.params,
                                                           specs, mesh)
-    rec = {f"params/{i}": x.numpy() for i, x in enumerate(tree_leaves(full))}
-    rec["loss"] = m["loss"].numpy()
+    rec = {f"params/{i}": x.float().numpy()
+           for i, x in enumerate(tree_leaves(full))}
+    if variant == "zero":
+        rec.update({f"m/{i}": x.numpy()
+                    for i, x in enumerate(new.opt_state["m_pkts"])})
+    rec["loss"] = m["loss"].float().numpy()
     if "delivered_frac" in m:
         rec["realized"] = m["delivered_frac"].numpy()
     return rec
@@ -829,8 +994,8 @@ def tp_params(api, z=None, name=None):
     if z is None:
         return template
     return tree_unflatten(template, [
-        torch.as_tensor(z[f"in/{name}/params/{i}"])
-        for i in range(len(tree_leaves(template)))])
+        torch.as_tensor(z[f"in/{name}/params/{i}"]).to(x.dtype)
+        for i, x in enumerate(tree_leaves(template))])
 
 
 def _mirrored_blocks(params, specs, mesh, leaf=None):
@@ -905,6 +1070,79 @@ def rank_tp(z: dict, world: int, task: str) -> dict:
             put(f"plant/{name}/paper", tp_run(
                 api, mesh, params, batch, "paper", uniforms=u,
                 blocks=_mirrored_blocks(params, specs, mesh, TPF_PLANT[1])))
+    return rec
+
+
+def rank_13e(z: dict, task: str) -> dict:
+    """The ranks of ``Z_MESH[task]``: each case of ``Z_CASES[task]``
+    (``tp_run``), from the JAX init and the reference's draws of this
+    rank's worker (``z22``, ``pd22``) or from the port's init and draws.
+    Then planted faults: on ``z22`` the ZeRO step on smollm from each
+    rank's mirror's blocks on ``model`` (``plant``), and the bfloat16
+    mixtral case with the attention's row-parallel partial sums rounded
+    to bfloat16 before their sum (``plant_bf16``); on ``pd22`` the psum
+    step on mixtral with every data rank taking its worker's whole block
+    (one MoE group a worker where the reference routes two, ``plant``),
+    and on the masked batch with every data rank's mean weighted alike,
+    whatever its label count (``plant_mask``)."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.core import ltp_sync as ls
+    from repro_torch.models import attention, build, sharding
+    from repro_torch.train import trainer
+    from repro_torch.train.trainer import model_layout
+    from repro_torch.tree import tree_leaves
+
+    shape, axes, workers = Z_MESH[task]
+    mesh = init_device_mesh("cpu", shape, mesh_dim_names=axes)
+    w = ls.worker_index(mesh, workers)
+    rec = {}
+
+    def case(name, variant, comp, **kw):
+        api = build(tp_cfg(get_reduced, name))
+        if task in ("z22", "pd22"):
+            params = tp_params(api, z, name)
+            batch = {k[len(f"in/{name}/batch/"):]: v for k, v in z.items()
+                     if k.startswith(f"in/{name}/batch/")}
+            u = [z[f"u/{name}/{w}/{i}"]
+                 for i in range(len(tree_leaves(params)))]
+        else:
+            params, batch, u = tp_params(api), tp_batch(api.cfg, 1), None
+        if kw.pop("mirrored", False):
+            kw["blocks"] = _mirrored_blocks(params, model_layout(api, mesh),
+                                            mesh)
+        return tp_run(api, mesh, params, batch, comp, uniforms=u,
+                      variant=variant, worker_axes=workers, **kw)
+
+    def planted(key, module, attr, fault, *args):
+        real = getattr(module, attr)
+        setattr(module, attr, fault(real))
+        try:
+            r = case(*args)
+        finally:
+            setattr(module, attr, real)
+        rec.update({f"{key}/{k}": v for k, v in r.items()})
+
+    for name, variant, comp in Z_CASES[task]:
+        r = case(name, variant, comp)
+        rec.update({f"{name}/{variant}/{comp}/{k}": v for k, v in r.items()})
+    if task == "z22":
+        r = case("smollm", "zero", "paper", mirrored=True)
+        rec.update({f"plant/{k}": v for k, v in r.items()})
+        planted("plant_bf16", attention, "row_parallel",
+                lambda real: lambda x, w, ctx: sharding.reduce_out(x @ w,
+                                                                   ctx),
+                *Z_WITNESS)
+    elif task == "pd22":
+        planted("plant", trainer, "_restrict",
+                lambda real: lambda spec, w_, inner: real(spec, w_, ()),
+                "mixtral", "psum", "paper")
+        planted("plant_mask", trainer, "_label_count",
+                lambda real: lambda b: torch.tensor(
+                    float(b["labels"].numel())),
+                "mixtral_masked", "psum", "paper")
     return rec
 
 
@@ -1037,6 +1275,8 @@ def rank_main(task, rank, world, init, ref, out) -> None:
                 z.update(np.load(path))
         if task in TP_MESH or task in TPF_MESH:
             rec = rank_tp(z, int(world), task)
+        elif task in Z_MESH:
+            rec = rank_13e(z, task)
         elif task == "tpcoll":
             rec = rank_collectives()
         else:
@@ -1050,6 +1290,8 @@ def rank_main(task, rank, world, init, ref, out) -> None:
 if __name__ == "__main__":
     if sys.argv[1] == "jax" and sys.argv[2] in TPF_JAX:
         jax_tp(sys.argv[3], TPF_JAX[sys.argv[2]])
+    elif sys.argv[1] == "jax" and sys.argv[2] in Z_JAX:
+        jax_13e(sys.argv[3], Z_JAX[sys.argv[2]])
     elif sys.argv[1] == "jax":
         {"sync": jax_sync, "train": jax_train, "tp": jax_tp}[sys.argv[2]](
             sys.argv[3])

@@ -371,3 +371,38 @@ def test_ssm_plans_at_the_card_depths_match_jax(arch, n_layers, n_floats,
     np.testing.assert_array_equal(plan.critical, jplan.critical)
     if n_critical is not None:
         assert plan.n_critical == n_critical
+
+
+def test_zamba2_step1_loss_at_the_tp_depth_matches_jax():
+    """Zamba2 at REDUCED widths and the depth of ``chip_smoke.py``'s
+    ``tp`` phase (7 layers: one period of 6 Mamba-2 layers, the shared
+    block, one more), float32, from the JAX init, on a (8, 128) batch of
+    ``SyntheticLM`` text: the loss within rtol 1e-5 of the JAX package's.
+    Its mean logsumexp is ln V + s^2 / 2 (s^2 the logits' variance, the
+    0.02^2 d of ``chip_smoke.tp_expected_loss``) within 0.02, so the
+    loss's gap to that value is the label tokens' mean logit, which
+    ``tp_expected_loss`` counts as a spread around it."""
+    import math
+
+    from repro.models import build as jbuild
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build
+    from repro_torch.models import transformer
+
+    jcfg, cfg = _cfgs("zamba2_7b", n_layers=7, shared_attn_every=6)
+    japi, api = jbuild(jcfg), build(cfg)
+    jp = japi.init(jax.random.PRNGKey(0))
+    params = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    batch = SyntheticLM(vocab=cfg.vocab, seed=0).train_batch(8, 128, 0)
+    jloss = float(jax.jit(japi.loss_fn)(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()}))
+    tb = {k: torch.as_tensor(v) for k, v in batch.items()}
+    with torch.no_grad():
+        loss = float(api.loss_fn(params, tb))
+        logits = transformer.forward(cfg, params, tb)[0][..., :cfg.vocab]
+    np.testing.assert_allclose(loss, jloss, rtol=1e-5)
+    lse = torch.logsumexp(logits, -1).mean().item()
+    s2 = logits.var(-1).mean().item()
+    assert abs(lse - math.log(cfg.vocab) - s2 / 2) < 0.02
+    label = torch.gather(logits, -1, tb["labels"].long()[..., None]).mean()
+    np.testing.assert_allclose(loss, lse - label.item(), rtol=1e-5)

@@ -194,24 +194,47 @@ def test_non_worker_axis_needs_tensor_parallelism(setup):
     """A ``model`` axis > 1 runs tensor-parallel for every family
     (``tests/test_torch_tensor_parallel.py``,
     ``tests/test_torch_tp_families.py``): no family is refused any more.
-    The ZeRO variant at ``model`` > 1 and a non-worker data axis are
-    refused, naming ROADMAP item 13e."""
+    Nor are the two former refusals: the ZeRO variant at ``model`` > 1
+    (its state holds the global leaves' packet rows) and a non-worker
+    ``pod`` / ``data`` axis (data parallelism inside a worker) build a
+    step (``tests/test_torch_trainer_13e.py`` runs both). An axis that
+    is neither a worker axis, ``pod``, ``data`` nor ``model`` is
+    refused."""
     _, api, _, params, _ = setup
-    assert not hasattr(tr, "TP_FAMILIES") and not hasattr(tr, "_check_tp")
+    for name in ("TP_FAMILIES", "_check_tp", "_refuse_zero"):
+        assert not hasattr(tr, name)
     for mesh in ({"data": 2, "model": 2}, {"pod": 2, "data": 1,
-                                            "model": 4}):
+                                            "model": 4},
+                 {"pod": 2, "data": 2, "model": 2}):
         tr._check_mesh(mesh, ("pod", "data"))
-    with pytest.raises(NotImplementedError, match="item 13e") as e:
-        tr.zero_opt_state(params, LTPConfig(), {"data": 1, "model": 2},
-                          ("data",))
-    assert "ZeRO" in str(e.value)
-    with pytest.raises(NotImplementedError, match="item 13e") as e:
-        tr.make_ltp_train_step(api, sgd_momentum(), {"pod": 2, "data": 2},
-                               LTPConfig(), ("pod",), _specs()[1])
-    assert "'data'" in str(e.value)
-    with pytest.raises(NotImplementedError, match="item 13e"):
+        tr._check_mesh(mesh, ("pod",))
+    ltp = LTPConfig()
+    st = tr.zero_opt_state(params, ltp, {"data": 1, "model": 2}, ("data",))
+    assert [tuple(m.shape) for m in st["m_pkts"]] == \
+        jls_shapes(params, ltp, 1)
+    st = tr.zero_opt_state(params, ltp, {"pod": 2, "data": 2, "model": 2},
+                           ("pod",))
+    assert [tuple(m.shape) for m in st["m_pkts"]] == [
+        (n // 2, p) for n, p in jls_shapes(params, ltp, 2)]
+    for mesh, axes in (({"pod": 2, "data": 2}, ("pod",)),
+                       ({"pod": 2, "data": 2, "model": 1}, ("pod",)),
+                       ({"pod": 1, "data": 4}, ("pod",))):
+        assert callable(tr.make_ltp_train_step(
+            api, sgd_momentum(), mesh, ltp, axes, _specs()[1]))
+    with pytest.raises(NotImplementedError, match="'seq'"):
         tr.make_plain_train_step(api, sgd_momentum(),
                                  {"data": 2, "seq": 2, "model": 1})
+    with pytest.raises(NotImplementedError, match="'seq'"):
+        tr.make_ltp_train_step(api, sgd_momentum(), {"data": 2, "seq": 2},
+                               ltp, ("data",), _specs()[1])
+
+
+def jls_shapes(params, ltp, w):
+    """The JAX package's momentum shapes over the same leaves."""
+    shapes = [jax.ShapeDtypeStruct(tuple(x.shape), jnp.float32)
+              for x in tree_leaves(params)]
+    return [tuple(s.shape) for s in jls.zero_momentum_shapes(
+        shapes, JLTPConfig(packet_floats=ltp.packet_floats), w)]
 
 
 def test_init_state_runs_on_the_card_unless_told(setup, monkeypatch):
