@@ -89,7 +89,8 @@ From the root of a checkout it:
    seed);
 9. drives the des16 fabric-chaos scenario (``train.netfault``,
    ``run_netfault_phase``) at the same width: 16 workers in 4 racks, two
-   PS shards, 40 steps a run, clean, faulted with the loss-budget
+   PS shards, 30 steps a run (cut for time, PERF.md §4), clean, faulted
+   with the loss-budget
    controller and faulted without it; checks completion, the
    conservation of gradients, that faults and controller moves happened
    and one packet_reduce launch at (16, 1934, 360) a commit; holds an
@@ -143,20 +144,21 @@ From the root of a checkout it:
 12b. drives tensor parallelism over ``model`` and data parallelism
     inside a worker (``run_tp_phase``), each config at its published
     widths in its own dtype, cut in depth, through
-    ``make_ltp_train_step`` (psum, paper, SGD-momentum, 3 steps): one
+    ``make_ltp_train_step`` (psum, paper, SGD-momentum, 2 steps, cut for
+    time): one
     ``mixtral_8x22b`` layer and one ``deepseek_v2_236b`` layer (its
     dense lead layer: MLA), batch 32 x seq 128; ``falcon_mamba_7b`` at
     2 layers, ``zamba2_7b`` at 7 (its shared block included),
-    ``whisper_small`` and ``papernet`` whole, batch 8 (papernet 128
-    images). Each at (data 1, model 1) in this process through the
-    kernels (Mixtral with a profiled step) and from a one-ulp-nudged
-    init (the rounding control), DeepSeek's ZeRO variant the same two
-    ways; then at (data 1, model 2) as one pair of gloo ranks sharing
+    ``whisper_small`` at 6 + 6 layers and ``papernet`` whole, batch 8
+    (papernet 128 images). Each at (data 1, model 1) in this process
+    through the kernels (Mixtral with a profiled step) and from a
+    one-ulp-nudged init (the rounding control), DeepSeek's ZeRO variant
+    the same two ways; then at (data 1, model 2) as one pair of gloo ranks sharing
     the card, subprocesses of ``chip_smoke.py --tp-rank`` that take the
     models in turn, each rank holding its block of the heads, experts,
     channels or SSM heads and vocab: each through the kernels, Mixtral
-    also on the plain route for one step, DeepSeek for all three and
-    with the ZeRO variant; one gate launch a leaf a step a rank, none on
+    and DeepSeek also on the plain route for one step, DeepSeek with the
+    ZeRO variant; one gate launch a leaf a step a rank, none on
     the plain route or by ZeRO, params within twice the model's rounding
     control of the plain route's (at its last step) and of the (1, 1)
     run's, the ranks' gathered params equal; host ms a
@@ -164,14 +166,33 @@ From the root of a checkout it:
     bytes a step; then the same two ranks on (pod 1, data 2, model 1)
     train the sharded phase's smollm-360m (AdamW, psum paper through
     the kernels, each rank on half the batch) against that phase's
-    world-size-1 run at step 3, the data axis's collectives counted;
+    world-size-1 run at step 2, the data axis's collectives counted;
     meanwhile REDUCED smollm, mixtral, deepseek-v2, falcon-mamba and
     zamba2 on (data 2, model 2), psum and ZeRO, and smollm on (pod 2,
     data 2, model 1), four gloo ranks on the card against four on the
-    CPU (and four from a nudged init); then the gate at Mixtral's
-    layer's largest leaf (2236963, 360) and DeepSeek's (1456356, 360)
-    and over each layer's leaves against its plain version and timed
-    (the ``tp`` line);
+    CPU (and four from a nudged init); the (1, 1) process and the (1, 2)
+    ranks then serve the Mixtral and DeepSeek layers from the init
+    (``tp_serve``: an (8, 128) prefill, then 16 decode steps from a
+    cache holding the prefill's), (1, 2) within twice the (1, 1)
+    logits' one-ulp rounding control, and in each of the prefill and
+    the decode at least 90 % of the rows (a token's logits) within twice
+    its median row, host ms a decode token, the model
+    axis's collectives of the prefill and a token, peak memory; then the
+    gate at Mixtral's layer's largest leaf (2236963, 360) and DeepSeek's
+    (1456356, 360) and over each layer's leaves against its plain
+    version and timed (the ``tp`` line);
+12c. dry-runs the same configurations (``run_dryrun_phase``,
+    ``launch.dryrun`` on ``meta`` tensors under a fake process group in
+    this process): Mixtral's and DeepSeek's psum steps, DeepSeek's ZeRO
+    step, the prefill and a decode token at (1, 2), their ``model``
+    collectives' calls and bytes equal to the ranks' counts, their gate
+    operator calls equal to the ranks' launches, their predicted peaks
+    within 15 % of the measured ones (less what the card held beside the
+    run), the (1, 1) steps' FLOPs within 0.1 % of ``FlopCounterMode``'s
+    around one real step; then the single-pod ``train_4k`` (``--ltp``)
+    and ``decode_32k`` rows of one architecture a family, which two
+    background processes dry-run from the ``tp`` phase's start, when no
+    host-timed phase but ``tp`` runs beside them (the ``dryrun`` line);
 13. drives the MoE path, trained (``run_moe_phase``):
     ``mixtral_8x22b``'s CONFIG at its published widths in bfloat16, its
     own dtype, cut to 1 layer (2,906,720,256 parameters, 8,074,223
@@ -261,8 +282,6 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
-F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 L2_BYTES = 50 * 2**20          # H100 SXM L2 cache
 SM_HZ = 1.98e9                 # H100 SXM boost clock, to size the spin
 N_TIMED = 40                   # back-to-back calls a timed run
@@ -333,22 +352,19 @@ class Timer:
                            "the card")
 
 
+def cost():
+    """``repro_torch.launch.cost``: the kernels' byte and operation
+    formulas and ``bound``, the least time the card could take (the
+    larger of the bytes over the memory rate and the float32 operations
+    over the float32 rate, ``launch/mesh.py``'s H100 figures), which the
+    dry-run's counts use too."""
+    from repro_torch.launch import cost as mod
+
+    return mod
+
+
 def bound(n_bytes: int, n_ops: int):
-    """The least time (ms) the card could take: the larger of the bytes
-    moved over the memory rate and the float32 operations over the
-    float32 rate; and which of the two it is."""
-    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = n_ops / F32_FLOPS_PER_S * 1e3
-    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
-                                   else "operations")
-
-
-def reduce_cost(w: int, n: int, p: int):
-    """Bytes and float32 operations of a masked W-worker reduction of
-    (W, n, p) packets: each packet and mask element read once, each
-    output written once; a multiply and an add per packet element and a
-    divide per output."""
-    return 4 * (w * n * p + w * n + n * p), 2 * w * n * p + n * p
+    return cost().bound(n_bytes, n_ops)
 
 
 def check_kernels(torch, timer):
@@ -432,7 +448,7 @@ def check_kernels(torch, timer):
                 "packet_reduce", (w, n, p), comp, path, err, 1e-5, (x, m),
                 lambda a, b: ops.ltp_packet_reduce(a, b, compensation=comp),
                 lambda a, b: ref.packet_reduce_ref(a, b, compensation=comp),
-                lib, *reduce_cost(w, n, p), timed and comp == "paper")
+                lib, *cost().reduce_cost(w, n, p), timed and comp == "paper")
             if main and comp == "paper":
                 entries["packet_reduce" if w == 8 else
                         f"packet_reduce_w{w}"] = row
@@ -477,7 +493,7 @@ def check_kernels(torch, timer):
             lambda a, b, c, _: ops.ltp_dropfill(a, b, c),
             lambda a, b, _, d: ref.dropfill_ref(a, b, d),
             lambda a, b, c, _: torch.mul(a, b[:, None]),
-            2 * n * p * es + n * 4 * (1 if s is None else 2), n * p, timed)
+            *cost().dropfill_cost(n, p, es, s is not None), timed)
         if main:
             entries["dropfill"] = row
     if {r["branch"] for r in checks[n_before:]} != {"x4", "scalar"}:
@@ -504,8 +520,7 @@ def check_kernels(torch, timer):
         row = record(
             "dropfill_ef", (n, p), "float32", branch(p, f, r), err, 0.0,
             (f, r, m), ops.ltp_dropfill_ef, ref.dropfill_ef_ref,
-            ref.dropfill_ef_ref,
-            4 * (4 * n * p + n), 3 * n * p, timed)
+            ref.dropfill_ef_ref, *cost().dropfill_ef_cost(n, p), timed)
         if timed:
             row["library_calls"] = "3: torch.add, torch.mul, torch.sub"
             entries.setdefault("dropfill_ef", []).append(row)
@@ -548,7 +563,7 @@ def check_kernels(torch, timer):
                 lambda a, b: ops.randomk_sparsify(a, b, 0.1),
                 lambda a, b: ref.randomk_ref(a, b, 0.1),
                 lambda a, b: torch.where(b < 0.1, a, 0.0),
-                n * (2 * es + 4), n, main and k == 0.1)
+                *cost().randomk_cost(n, es), main and k == 0.1)
             if main and k == 0.1:
                 entries["randomk"] = row
     if {r["branch"] for r in checks[n_before:]} != {"x4", "scalar"}:
@@ -613,7 +628,7 @@ def check_tree_reduce(torch, timer):
     rack_of = cases[0][1]
     members, rack_ptr = pr_mod.rack_groups(rack_of, w)
     mem_t, ptr_t = torch.tensor(members), torch.tensor(rack_ptr)
-    bound_ms, bound_by = bound(*reduce_cost(w, n, p))
+    bound_ms, bound_by = bound(*cost().reduce_cost(w, n, p))
     inputs = timer.copies(x, m)
     timed = {"name": "tree_reduce", "shape": [w, n, p], "racks": "4x2",
              "mode": "paper", "launches_per_call": 1,
@@ -1400,7 +1415,7 @@ def run_tta_phase(torch, zero_counts, read_counts, launches_of, *,
 
 
 def run_netfault_phase(torch, zero_counts, read_counts, launches_of, *,
-                       device="cuda", cfg=None, steps=40, check_steps=8):
+                       device="cuda", cfg=None, steps=30, check_steps=8):
     """The des16 fabric-chaos scenario (``train.netfault``) at papernet's
     full width: 16 workers in 4 racks of 4, two PS shards, batch 64,
     ``compute_time=0.01``, staleness_comp 0.5, ``steps`` steps a run, three
@@ -1585,7 +1600,7 @@ def check_lm_kernels(torch, timer, w: int, n: int, p: int,
             return torch.linalg.vecdot(a, b[..., None], dim=0) / w
     rows["packet_reduce"] = lm_kernel_row(
         timer, (w, n, p), err, 1e-5, [(x, m)], ops.ltp_packet_reduce,
-        ref.packet_reduce_ref, library, *reduce_cost(w, n, p))
+        ref.packet_reduce_ref, library, *cost().reduce_cost(w, n, p))
     rows["packet_reduce"]["library_call"] = call
     del x, m
     if not ef:
@@ -1605,7 +1620,7 @@ def check_lm_kernels(torch, timer, w: int, n: int, p: int,
     rows["dropfill_ef"] = lm_kernel_row(
         timer, (n_rows, p), err, 0.0, [(f, r, mk)], ops.ltp_dropfill_ef,
         ref.dropfill_ef_ref, ref.dropfill_ef_ref,
-        4 * (4 * n_rows * p + n_rows), 3 * n_rows * p)
+        *cost().dropfill_ef_cost(n_rows, p))
     rows["dropfill_ef"]["library_calls"] = "3: torch.add, torch.mul, torch.sub"
     return rows
 
@@ -2418,15 +2433,16 @@ def sharded_gate_rows(torch, timer, shapes) -> dict:
     err = (ops.ltp_dropfill(x, m) - plain(x, m)).abs().max().item()
     rows = {"leaf": lm_kernel_row(
         timer, (n, p), err, 0.0, [(x, m)], ops.ltp_dropfill, plain,
-        library, 4 * (2 * n * p + n), n * p)}
+        library, *cost().dropfill_cost(n, p))}
     rows["leaf"]["library_call"] = "torch.mul(packets, mask[:, None])"
     err = max((ops.ltp_dropfill(a, b) - plain(a, b)).abs().max().item()
               for a, b in leaves)
     if err != 0.0:
         raise AssertionError(f"sharded gate over the step's leaves: max "
                              f"abs err {err}")
-    n_bytes = sum(4 * (2 * a.numel() + b.numel()) for a, b in leaves)
-    bound_ms, bound_by = bound(n_bytes, sum(a.numel() for a, _ in leaves))
+    per_leaf = [cost().dropfill_cost(*a.shape) for a, _ in leaves]
+    n_bytes = sum(b for b, _ in per_leaf)
+    bound_ms, bound_by = bound(n_bytes, sum(o for _, o in per_leaf))
 
     def over_leaves(fn):
         return lambda: [fn(a, b) for a, b in leaves]
@@ -2885,33 +2901,53 @@ def run_sharded_phase(torch, timer, zero_counts, read_counts, launches_of,
 # its ranks. Mixtral-8x22b at 1 layer (as on the MoE path) and
 # DeepSeek-V2 at 1 layer (its dense lead layer: MLA, d_ff 12,288) run
 # batch 32 x seq 128 at (1, 2) through the kernels, then the plain
-# route (Mixtral's over its first step, DeepSeek's over all three), and
-# DeepSeek's ZeRO variant; falcon-mamba (2 layers), zamba2
-# (7: six Mamba-2 layers, the shared block, one more), whisper-small
-# (whole) and papernet (whole) through the kernels, at batch 8 (papernet
-# 128 images)
+# route over its first step, and DeepSeek's ZeRO variant; every run 2
+# steps (cut for time from 3, PERF.md §4); falcon-mamba (2 layers),
+# zamba2 (7: six Mamba-2 layers, the shared block, one more),
+# whisper-small at 6 encoder and 6 decoder layers of 12 (cut for time)
+# and papernet (whole) through the kernels, at batch 8 (papernet 128
+# images)
 TP_MODEL = {"arch": "mixtral_8x22b", "reduced": False, "n_layers": 1,
-            "steps": 3, "batch": 32, "seq": 128, "lr": 3e-4,
+            "steps": 2, "batch": 32, "seq": 128, "lr": 3e-4,
             "data_vocab": LM_DATA_VOCAB, "routes": ["cuda", "python"],
             "plain_steps": 1}
 TP_FAMILY_RUN = dict(TP_MODEL, batch=8, routes=["cuda"])
 TP_MODELS = [TP_MODEL,
-             dict(TP_MODEL, arch="deepseek_v2_236b", plain_steps=3,
-                  zero=True),
+             dict(TP_MODEL, arch="deepseek_v2_236b", zero=True),
              dict(TP_FAMILY_RUN, arch="falcon_mamba_7b", n_layers=2),
              dict(TP_FAMILY_RUN, arch="zamba2_7b", n_layers=7),
-             dict(TP_FAMILY_RUN, arch="whisper_small", n_layers=12),
+             dict(TP_FAMILY_RUN, arch="whisper_small", n_layers=6,
+                  encoder_layers=6),
              dict(TP_FAMILY_RUN, arch="papernet", n_layers=6, batch=128)]
 # data parallelism inside a worker: the sharded phase's smollm-360m (the
 # LM phase's CONFIG at float32, 32 layers, its init and batches, AdamW,
 # psum paper) on (pod 1, data 2, model 1), worker_axes ("pod",), the same
-# two ranks, held against that phase's world-size-1 run at step 3
+# two ranks, held against that phase's world-size-1 run at step 2 (3
+# before the cut for time, PERF.md §4)
 TP_DP_MODEL = {"arch": "smollm_360m", "reduced": False, "n_layers": 32,
-               "dtype": "float32", "steps": 3, "batch": LM_BATCH,
+               "dtype": "float32", "steps": 2, "batch": LM_BATCH,
                "seq": LM_SEQ, "lr": SHARDED_LR, "data_vocab": LM_DATA_VOCAB}
 TP_REDUCED = ("smollm_360m", "mixtral_8x22b", "deepseek_v2_236b",
               "falcon_mamba_7b", "zamba2_7b")
 TP_CHILD_TIMEOUT_S = 900
+# the tp phase's serve: after training, the (1, 1) process and the (1, 2)
+# ranks serve these models from the init (bfloat16): a (batch, prompt)
+# prefill, then ``new`` decode steps
+TP_SERVE = {"batch": 8, "prompt": 128, "new": 16}
+TP_SERVE_ARCHS = ("mixtral_8x22b", "deepseek_v2_236b")
+# a row is one token's logits (the prefill's last token, or one decode
+# step's) of one sequence. A one-ulp nudge of the init moves some MoE
+# routes, and a moved route moves its row's logits by about their own
+# size, so the control's largest row bounds little; its median row is
+# rounding. In each of the prefill and the decode at least this share
+# of the (1, 2) rows must lie within twice the control's median row
+SERVE_ROW_SHARE = 0.9
+
+
+def serve_rows(a, b):
+    """The largest |a - b| of each row of two served logits tensors
+    ((steps, batch, vocab) -> (steps, batch))."""
+    return (a - b).abs().amax(-1)
 
 
 def tp_config(model: dict):
@@ -2920,6 +2956,8 @@ def tp_config(model: dict):
 
     get = get_reduced if model["reduced"] else get_config
     cfg = get(model["arch"]).replace(n_layers=model["n_layers"])
+    if "encoder_layers" in model:
+        cfg = cfg.replace(encoder_layers=model["encoder_layers"])
     return cfg.replace(dtype=model["dtype"]) if "dtype" in model else cfg
 
 
@@ -3025,7 +3063,7 @@ class CollectiveCounter:
 
 def tp_train(torch, api, opt, mesh, params, backend, batches, frac, lr, *,
              uniforms=None, counter=None, profile=False, variant="psum",
-             worker_axes=("data",), keep_at=None) -> dict:
+             worker_axes=("data",), keep_at=None, flops=False) -> dict:
     """``make_ltp_train_step`` (paper) from the GLOBAL ``params`` on
     ``mesh`` through ``backend``, over ``worker_axes`` (the batch split
     over the mesh's batch axes), the psum variant with ``opt`` or the
@@ -3033,12 +3071,15 @@ def tp_train(torch, api, opt, mesh, params, backend, batches, frac, lr, *,
     batch, the draws from seed 1 + step (or ``uniforms(step, state)``).
     Every kernel's launch count is set to 0 just before the run and read
     just after. Returns the state's blocks, host ms a step, losses,
-    delivered fractions, those launches, the peak memory and, with
+    delivered fractions, those launches, the peak memory (and what else
+    the card held when the run began), and, with
     ``counter``, its axes' collectives a step; with ``profile``, one more
     step profiled after the counts are read (its params are not
     returned); with ``keep_at``, a copy on the host of the state's
     blocks after that many steps (``params_at``), taken outside the
-    steps' times."""
+    steps' times; with ``flops``, the FLOPs that ``FlopCounterMode``
+    counts around one more step after the counts are read
+    (``flops_step``; its params are not returned)."""
     import statistics as st
 
     from repro_torch.config import LTPConfig
@@ -3060,10 +3101,16 @@ def tp_train(torch, api, opt, mesh, params, backend, batches, frac, lr, *,
     step = make_ltp_train_step(
         api, opt, mesh, ltp, worker_axes,
         {k: (dp[0] if len(dp) == 1 else dp,) for k in batches[0]})
+    other = 0.0
     if cuda:
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        # what the card holds beside the state (the caller's global
+        # params, earlier runs' blocks): under the peak, not the step's
+        other = (torch.cuda.memory_allocated() - sum(
+            x.numel() * x.element_size() for x in tree_leaves(
+                (state.params, state.opt_state, state.step)))) / 1e9
     for mod, attr in ((pr_mod, "LAUNCHES"), (pr_mod, "TREE_LAUNCHES"),
                       (df_mod, "LAUNCHES"), (rk_mod, "LAUNCHES")):
         setattr(mod, attr, 0)
@@ -3094,13 +3141,98 @@ def tp_train(torch, api, opt, mesh, params, backend, batches, frac, lr, *,
            "loss": losses, "delivered": delivered}
     if cuda:
         out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["other_allocated_gb"] = other
     if counter is not None:
         out.update(counter.read(len(batches)))
+    if flops:
+        from torch.utils.flop_counter import FlopCounterMode
+
+        with FlopCounterMode(display=False) as fc:
+            step(state, batches[0], frac, 1 + len(batches), lr)
+        out["flops_step"] = fc.get_total_flops()
     if profile:
         gc.collect()
         torch.cuda.empty_cache()
         out["profile_step"] = profile_step(torch, lambda: step(
             state, batches[0], frac, 1 + len(batches), lr))
+    return out
+
+
+def tp_serve(torch, api, mesh, make_params, dev, counter=None) -> dict:
+    """Serve ``TP_SERVE`` with the GLOBAL params that ``make_params()``
+    gives on ``mesh`` (this rank's blocks under its ``ShardCtx``, the
+    global tree freed; none at (1, 1)): the prefill of
+    a (batch, prompt) prompt, then ``new`` decode steps from a cache
+    holding the prefill's (``transformer.cache_from_prefill``), fed
+    tokens drawn with the prompt from a CPU generator seeded 5, so every
+    run decodes the same tokens. Returns the logits (the prefill's, then
+    each step's, float32 on the host), the host ms of the prefill and a
+    decode token, the peak memory from the prefill on (and what the card
+    held before the params were made) and, with
+    ``counter``, its axes' collectives of the prefill and a decode
+    token."""
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.models.sharding import shard_params, tp_ctx
+    from repro_torch.models.transformer import cache_from_prefill
+    from repro_torch.train.trainer import model_layout
+
+    b, s, new = TP_SERVE["batch"], TP_SERVE["prompt"], TP_SERVE["new"]
+    cfg, ctx = api.cfg, tp_ctx(mesh)
+    cuda = torch.device(dev).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    gc.collect()
+    out = {}
+    if cuda:
+        torch.cuda.empty_cache()
+        out["other_allocated_gb"] = torch.cuda.memory_allocated() / 1e9
+    params = make_params()
+    if ctx is not None:
+        params = shard_params(params, model_layout(api, mesh), mesh)
+    gen = torch.Generator().manual_seed(5)
+    prompt = torch.randint(0, cfg.vocab, (b, s), generator=gen).to(dev)
+    toks = torch.randint(0, cfg.vocab, (b, new), generator=gen).to(dev)
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        if counter is not None:
+            counter.zero()
+        sync()
+        t0 = time.perf_counter()
+        logits, pc = api.prefill(params, {"tokens": prompt}, ctx=ctx)
+        sync()
+        out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        if counter is not None:
+            out["prefill_collectives"] = counter.read(1)
+        cache = cache_from_prefill(cfg, pc, b, s + new, dtype_of(cfg.dtype),
+                                   device=dev, ctx=ctx)
+        del pc
+        rows = [logits.float()]
+        if counter is not None:
+            counter.zero()
+        sync()
+        t0 = time.perf_counter()
+        for t in range(new):
+            logits, cache = api.decode_step(params, cache, toks[:, t], s + t,
+                                            ctx=ctx)
+            rows.append(logits.float())
+        sync()
+        out["decode_ms_per_token"] = (time.perf_counter() - t0) * 1e3 / new
+        if counter is not None:
+            out["decode_collectives_per_token"] = counter.read(new)
+    if cuda:
+        out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["logits"] = torch.stack(rows).cpu()
+    if not (out["logits"].shape == (new + 1, b, cfg.vocab_padded)
+            and bool(torch.isfinite(out["logits"]).all())):
+        raise AssertionError(f"tp serve {cfg.name}: logits "
+                             f"{tuple(out['logits'].shape)}, finite "
+                             f"{bool(torch.isfinite(out['logits']).all())}")
     return out
 
 
@@ -3160,7 +3292,9 @@ def tp_full_model(torch, dist, mesh, counter, model: dict, dev,
     there). With ``model["zero"]``, then
     the ZeRO variant through the kernels' backend (its mask is the
     reference's multiply), its gathered params against the (1, 1) ZeRO
-    run's (``model["one_zero"]``)."""
+    run's (``model["one_zero"]``). With ``model["serve_one"]``, then
+    served (``tp_serve``) from the init, its logits held against the
+    (1, 1) process's, which it saved there."""
     from repro_torch.launch.train import frac_schedule
     from repro_torch.models import build
     from repro_torch.models.sharding import gather_params
@@ -3212,6 +3346,14 @@ def tp_full_model(torch, dist, mesh, counter, model: dict, dev,
         gc.collect()
         if dev != "cpu":
             torch.cuda.empty_cache()
+    if "serve_one" in model:
+        served = tp_serve(torch, api, mesh, lambda: tp_init(torch, api, dev),
+                          dev, counter)
+        one = torch.load(model["serve_one"], weights_only=True)
+        rows = serve_rows(served.pop("logits"), one)
+        served["vs_model1_max_abs_diff"] = rows.max().item()
+        served["vs_model1_rows"] = rows.tolist()
+        rec["serve"] = served
     return rec
 
 
@@ -3427,9 +3569,12 @@ def tp_model1(torch, dev, model: dict, launches_of, profile: bool) -> tuple:
     kernels (with a profiled step when ``profile``), then from the init
     nudged by one ulp (the rounding control); with ``model["zero"]`` the
     ZeRO variant the same two ways (no kernel: its mask is the
-    reference's multiply). Returns (its part of the line, the kernel
-    run's params, the ZeRO run's or ``None``, the launches of every
-    run)."""
+    reference's multiply); the kernel run's FLOPs of one more step
+    (``FlopCounterMode``) for the dry-run. A ``TP_SERVE_ARCHS`` model is
+    then served (``tp_serve``) from the init and from the nudged init.
+    Returns (its part of the line, the kernel run's params, the ZeRO
+    run's or ``None``, the launches of every run, the served logits or
+    ``None``)."""
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.train import frac_schedule
     from repro_torch.models import build
@@ -3453,7 +3598,7 @@ def tp_model1(torch, dev, model: dict, launches_of, profile: bool) -> tuple:
                          batches, frac_schedule(0.001, 1), model["lr"],
                          profile=(profile and not nudge
                                   and variant == "psum"),
-                         variant=variant)
+                         variant=variant, flops=label == "cuda")
             del params
             per_step = n_leaves if variant == "psum" else 0
             if r["launches"] != launches_of(dropfill=per_step
@@ -3478,7 +3623,18 @@ def tp_model1(torch, dev, model: dict, launches_of, profile: bool) -> tuple:
         sfx = "" if variant == "psum" else "_zero"
         part[f"rounding_control_max_abs_diff{sfx}"] = distance(
             kept[base], kept.pop(f"{base}_nudged"))
-    return part, kept["cuda"], kept.get("zero"), launches
+    served = None
+    if model["arch"] in TP_SERVE_ARCHS:
+        runs = {nudge: tp_serve(torch, api, mesh, lambda nudge=nudge: (
+            nudged(torch, tp_init(torch, api, dev), 2) if nudge
+            else tp_init(torch, api, dev)), dev) for nudge in (0, 1)}
+        served = runs[0].pop("logits")
+        part["serve_model1"] = runs[0]
+        rows = serve_rows(served, runs[1].pop("logits"))
+        part["serve_rounding_control"] = {
+            "max_abs_diff": rows.max().item(),
+            "median_row_max_abs_diff": rows.median().item()}
+    return part, kept["cuda"], kept.get("zero"), launches, served
 
 
 def check_tp_rank_run(label, a, one, expect_launches) -> None:
@@ -3503,9 +3659,10 @@ def run_tp_phase(torch, timer, launches_of, ws1, *, device="cuda") -> tuple:
     Full width (``TP_MODELS``): one Mixtral-8x22b layer (bfloat16,
     2,906,720,256 parameters) and one DeepSeek-V2 layer (its dense lead
     layer, MLA, 1,386,562,560), batch 32 x seq 128; falcon-mamba at 2
-    layers, zamba2 at 7, whisper-small and papernet whole, batch 8
-    (papernet 128 images). SGD-momentum at lr 3e-4, the launcher's
-    delivered fraction at loss rate 0.001 (0.99), psum paper, 3 steps,
+    layers, zamba2 at 7, whisper-small at 6 encoder and 6 decoder
+    layers, papernet whole, batch 8 (papernet 128 images). SGD-momentum
+    at lr 3e-4, the launcher's delivered fraction at loss rate 0.001
+    (0.99), psum paper, 2 steps,
     init from a generator on the card seeded 0. First each at (data 1,
     model 1) in this process (world size 1,
     ``launch.train.init_distributed``) through the kernels, then the
@@ -3517,7 +3674,7 @@ def run_tp_phase(torch, timer, launches_of, ws1, *, device="cuda") -> tuple:
     ``plain_steps``), DeepSeek with the ZeRO variant; then the same two
     ranks on (pod 1, data 2, model 1) train the sharded phase's smollm-360m
     (``TP_DP_MODEL``) from its init, held against that phase's world-size-1
-    run (``ws1``: its params after step 3, its losses and delivered
+    run (``ws1``: its params after step 2, its losses and delivered
     fractions to there, and its rounding control). Meanwhile four gloo
     ranks run ``TP_REDUCED_RUNS`` on the card, and four more on the CPU
     twice, from the init and from it nudged (``tp_reduced_rank``).
@@ -3566,6 +3723,8 @@ def run_tp_phase(torch, timer, launches_of, ws1, *, device="cuda") -> tuple:
             m["one"] = f"{tmp}/one_{m['arch']}.pt"
             if m.get("zero"):
                 m["one_zero"] = f"{tmp}/one_zero_{m['arch']}.pt"
+            if m["arch"] in TP_SERVE_ARCHS:
+                m["serve_one"] = f"{tmp}/serve_one_{m['arch']}.pt"
         dp = dict(TP_DP_MODEL, ws1=f"{tmp}/ws1.pt")
         torch.save(ws1["params"], dp["ws1"] + ".part")
         os.replace(dp["ws1"] + ".part", dp["ws1"])
@@ -3590,7 +3749,7 @@ def run_tp_phase(torch, timer, launches_of, ws1, *, device="cuda") -> tuple:
             try:
                 for m in models:
                     t1 = time.perf_counter()
-                    part, one, one_zero, ls_ = tp_model1(
+                    part, one, one_zero, ls_, served = tp_model1(
                         torch, dev, m, launches_of, m is TP_MODEL)
                     launches += ls_
                     by_model[m["arch"]] = sum(x["dropfill"] for x in ls_)
@@ -3599,7 +3758,9 @@ def run_tp_phase(torch, timer, launches_of, ws1, *, device="cuda") -> tuple:
                         if p is not None:
                             torch.save([x.cpu() for x in tree_leaves(p)],
                                        m[key] + ".part")
-                    del one, one_zero
+                    if served is not None:
+                        torch.save(served, m["serve_one"] + ".part")
+                    del one, one_zero, served
                     gc.collect()
                     torch.cuda.empty_cache()
                     part["model1_seconds"] = time.perf_counter() - t1
@@ -3611,7 +3772,7 @@ def run_tp_phase(torch, timer, launches_of, ws1, *, device="cuda") -> tuple:
             torch.cuda.empty_cache()
             # the card is free: the (1, 2) ranks start training
             for m in models:
-                for key in ("one", "one_zero"):
+                for key in ("one", "one_zero", "serve_one"):
                     if key in m:
                         os.replace(m[key] + ".part", m[key])
             t1 = time.perf_counter()
@@ -3625,6 +3786,7 @@ def run_tp_phase(torch, timer, launches_of, ws1, *, device="cuda") -> tuple:
             for m in models:
                 m.pop("one")
                 m.pop("one_zero", None)
+                m.pop("serve_one", None)
         full = []
         for path in outs["full"]:
             with open(path) as f:
@@ -3717,6 +3879,36 @@ def run_tp_phase(torch, timer, launches_of, ws1, *, device="cuda") -> tuple:
                 part["rounding"].update(
                     zero_model2_vs_model1_max_abs_diff=d_zero,
                     zero_rounding_control_max_abs_diff=ctl_z)
+            if arch in TP_SERVE_ARCHS:
+                ctl_s = part.pop("serve_rounding_control")
+                served = [rk["serve"] for rk in ranks]
+                d_serve = max(x["vs_model1_max_abs_diff"] for x in served)
+                rows = torch.tensor([x.pop("vs_model1_rows")
+                                     for x in served]).amax(0)
+                within = rows <= 2 * ctl_s["median_row_max_abs_diff"]
+                share = {"prefill": within[0].float().mean().item(),
+                         "decode": within[1:].float().mean().item()}
+                calls = [x["decode_collectives_per_token"][
+                    "model_collectives"]["calls_per_step"] for x in served]
+                if not (d_serve <= 2 * ctl_s["max_abs_diff"]
+                        and min(share.values()) >= SERVE_ROW_SHARE
+                        and all(c["all_reduce"] > 0 for c in calls)):
+                    raise AssertionError(
+                        f"tp serve {arch}: (1, 2) vs (1, 1) logits "
+                        f"{d_serve:.4e} (twice the rounding control's "
+                        f"{ctl_s['max_abs_diff']:.4e}), rows within twice "
+                        f"its median row's {share} (at least "
+                        f"{SERVE_ROW_SHARE}); decode collectives {calls}")
+                part["serve"] = {
+                    **TP_SERVE, "model1": part.pop("serve_model1"),
+                    "model2_ranks": served,
+                    "logits_model2_vs_model1_max_abs_diff": d_serve,
+                    "logits_rounding_control_max_abs_diff":
+                        ctl_s["max_abs_diff"],
+                    "logits_rounding_control_median_row":
+                        ctl_s["median_row_max_abs_diff"],
+                    "rows_within_twice_median_row": share,
+                    "model2_vs_model1_median_row": rows.median().item()}
             part["ln_vocab"], part["loss_step1_expected"] = \
                 math.log(cfg.vocab), expect
             part["loss_step1_spread"] = spread
@@ -3831,6 +4023,186 @@ def run_tp_phase(torch, timer, launches_of, ws1, *, device="cuda") -> tuple:
     return line, launches, rows, by_model
 
 
+# the dry-run's single-pod production rows: one architecture a family,
+# its train_4k LTP step (psum) and its decode_32k step; falcon-mamba's
+# train row traces 4,096 scan steps a layer, so it runs in a process of
+# its own, and both run in the background from the tp phase's start
+DRYRUN_ARCHS = {"dense": "smollm_360m", "vlm": "qwen2_vl_72b",
+                "moe": "deepseek_v2_236b", "ssm": "falcon_mamba_7b",
+                "hybrid": "zamba2_7b", "audio": "whisper_small"}
+DRYRUN_ROWS = [(arch, shape, shape == "train_4k")
+               for arch in DRYRUN_ARCHS.values()
+               for shape in ("train_4k", "decode_32k")]
+DRYRUN_TOL = {"flops": 1e-3, "peak": 0.15}
+
+
+def dryrun_rows_child(argv) -> int:
+    """``chip_smoke.py --dryrun-rows OUT ARCH...``: the dry-run's
+    ``DRYRUN_ROWS`` of each ARCH on the single-pod mesh, one JSON record
+    a line to OUT (on ``meta`` tensors: the card is not touched)."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch.launch import dryrun
+
+    out, archs = argv[0], argv[1:]
+    with open(out, "w") as f:
+        for arch, shape, ltp in DRYRUN_ROWS:
+            if arch in archs:
+                rec = dryrun.run_one(arch, shape, ltp=ltp)
+                f.write(json.dumps(rec, default=str) + "\n")
+                f.flush()
+    return 0
+
+
+def start_dryrun_rows(tmp: str) -> list:
+    """The production rows' two background processes (falcon-mamba's
+    alone); [(process, out path)]."""
+    groups = [["falcon_mamba_7b"],
+              [a for a in DRYRUN_ARCHS.values() if a != "falcon_mamba_7b"]]
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    procs = []
+    for i, archs in enumerate(groups):
+        path = os.path.join(tmp, f"dryrun_rows{i}.jsonl")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dryrun-rows",
+             path, *archs], stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True, env=env), path))
+    return procs
+
+
+def _model_axis(rec: dict) -> dict:
+    """A dry-run record's ``model``-axis collectives as
+    ``{"calls_per_step", "bytes_per_step"}`` over ``CollectiveCounter``'s
+    kinds (any other kind counted there fails the comparison)."""
+    by = rec["cost"]["by_axis"].get("model", {})
+    extra = set(by) - set(CollectiveCounter.INPUT_ARG)
+    if extra:
+        raise AssertionError(f"dryrun: model-axis collectives {extra} that "
+                             f"the ranks do not count")
+    return {"calls_per_step": {k: by.get(k, {}).get("calls", 0)
+                               for k in CollectiveCounter.INPUT_ARG},
+            "bytes_per_step": {k: by.get(k, {}).get("bytes", 0)
+                               for k in CollectiveCounter.INPUT_ARG}}
+
+
+def run_dryrun_phase(torch, tp_line: dict, rows_procs: list) -> dict:
+    """The dry-run (``launch.dryrun``, ``meta`` tensors under a fake
+    process group in this process) of the configurations the ``tp`` phase
+    ran, held against what its processes counted: for Mixtral's and
+    DeepSeek's layers on (1, 2), the psum LTP step (and DeepSeek's ZeRO
+    step), the prefill and a decode token; the model axis's collective
+    calls and bytes per step per rank equal to the ranks'
+    ``CollectiveCounter``, the gate's operator calls equal to the ranks'
+    launches a step, the predicted peak within 15 % of the measured
+    ``peak_memory_gb`` less what the card held beside the run
+    (``other_allocated_gb``); and the (1, 1) step's FLOPs within 0.1 % of what
+    ``FlopCounterMode`` counted around one real (1, 1) step. Then the
+    production rows (``DRYRUN_ROWS``) from the background processes,
+    every one OK."""
+    from repro_torch.launch import dryrun
+    from repro_torch.shapes import InputShape
+
+    line = {"device": dryrun.DEVICE, "tolerance": DRYRUN_TOL, "configs": {}}
+    mesh12 = ((1, 2), ("data", "model"))
+    t0 = time.perf_counter()
+    for m in TP_MODELS:
+        arch = m["arch"]
+        if arch not in TP_SERVE_ARCHS:
+            continue
+        cfg = tp_config(m)
+        part = tp_line["runs"][arch]
+        rank0 = part["model2"]["ranks"][0]
+        train = InputShape("tp_train", m["seq"], m["batch"], "train")
+        n, ns = TP_SERVE["prompt"], TP_SERVE["new"]
+        shapes = {"train": train,
+                  "prefill": InputShape("tp_prefill", n, TP_SERVE["batch"],
+                                        "prefill"),
+                  "decode": InputShape("tp_decode", n + ns,
+                                       TP_SERVE["batch"], "decode")}
+        cases = [("psum", "train", rank0["cuda"], False),
+                 ("prefill", "prefill", rank0["serve"], False),
+                 ("decode", "decode", rank0["serve"], False)]
+        if m.get("zero"):
+            cases.insert(1, ("zero", "train", rank0["zero"], True))
+        out = {}
+        for label, kind, got, zero in cases:
+            rec = dryrun.run_one(arch, shapes[kind].name, cfg=cfg,
+                                 shape=shapes[kind], mesh_shape=mesh12,
+                                 ltp=kind == "train", zero=zero)
+            if not rec["ok"]:
+                raise AssertionError(f"dryrun {arch} {label}: "
+                                     f"{rec['error']}\n{rec['traceback']}")
+            pred = _model_axis(rec)
+            # the measured peak less what the card held beside the run
+            peak = got["peak_memory_gb"] - got["other_allocated_gb"]
+            if kind == "train":
+                meas = got["model_collectives"]
+                launches = got["launches"]["dropfill"] / m["steps"]
+            elif kind == "prefill":
+                meas = got["prefill_collectives"]["model_collectives"]
+                launches = 0
+            else:
+                meas = got["decode_collectives_per_token"][
+                    "model_collectives"]
+                launches = 0
+            gate = rec["cost"]["kernels"].get("dropfill_into", {}).get(
+                "calls", 0)
+            pred_peak = rec["memory"]["peak"] / 1e9
+            row = {"predicted_collectives": pred,
+                   "measured_collectives": meas,
+                   "predicted_gate_calls_per_step": gate,
+                   "measured_gate_launches_per_step": launches,
+                   "predicted_peak_gb": pred_peak, "measured_peak_gb": peak,
+                   "flops": rec["cost"]["flops"],
+                   "bytes": rec["cost"]["bytes"],
+                   "roofline": rec["roofline"], "lower_s": rec["lower_s"]}
+            out[label] = row
+            if pred != meas or gate != launches:
+                raise AssertionError(f"dryrun {arch} {label}: {row}")
+            # the serve's measured peak covers the prefill, the cache's
+            # copy into the decode cache and the decode steps: the larger
+            # of the prefill's and a decode step's predicted peaks
+            if kind == "prefill":
+                continue
+            if kind == "decode":
+                pred_peak = max(pred_peak, out["prefill"]["predicted_peak_gb"])
+                row["predicted_peak_gb_serve"] = pred_peak
+            if abs(pred_peak - peak) > DRYRUN_TOL["peak"] * peak:
+                raise AssertionError(f"dryrun {arch} {label}: peak "
+                                     f"{pred_peak:.3f} GB predicted, "
+                                     f"{peak:.3f} measured")
+        rec = dryrun.run_one(arch, "tp_train", cfg=cfg, shape=train,
+                             mesh_shape=((1, 1), ("data", "model")),
+                             ltp=True)
+        meas = part["model1_cuda"]["flops_step"]
+        out["model1_flops"] = {"predicted": rec["cost"]["flops"],
+                               "measured": meas}
+        if abs(rec["cost"]["flops"] - meas) > DRYRUN_TOL["flops"] * meas:
+            raise AssertionError(f"dryrun {arch} (1, 1) FLOPs: "
+                                 f"{out['model1_flops']}")
+        line["configs"][arch] = out
+    line["configs_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = []
+    for p, path in rows_procs:
+        _, err = p.communicate(timeout=TP_CHILD_TIMEOUT_S)
+        if p.returncode != 0:
+            raise AssertionError(f"dryrun rows: {err[-3000:]}")
+        with open(path) as f:
+            rows += [json.loads(x) for x in f]
+    line["rows_wait_seconds"] = time.perf_counter() - t0
+    line["rows"] = [{k: r.get(k) for k in (
+        "arch", "shape", "mesh", "step", "ltp", "ok", "skipped", "error",
+        "lower_s", "roofline")} | {
+        "flops": r.get("cost", {}).get("flops"),
+        "collective_bytes": r.get("cost", {}).get("collective_bytes"),
+        "peak_gb": r.get("memory", {}).get("peak", 0) / 1e9} for r in rows]
+    bad = [r for r in rows if not r["ok"] or "skipped" in r]
+    if bad or len(rows) != len(DRYRUN_ROWS):
+        raise AssertionError(f"dryrun rows: {len(rows)} of "
+                             f"{len(DRYRUN_ROWS)}, failed {bad}")
+    return line
+
+
 def main() -> int:
     import torch
 
@@ -3840,10 +4212,6 @@ def main() -> int:
     if not os.path.isdir(os.path.join(src, "repro_torch")):
         return fail(f"the port's package is not at {src}/repro_torch")
     sys.path.insert(0, src)
-    from repro_torch.kernels import _build
-    from repro_torch.kernels import dropfill as df_mod
-    from repro_torch.kernels import packet_reduce as pr_mod
-    from repro_torch.kernels import randomk as rk_mod
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3857,7 +4225,34 @@ def main() -> int:
           f"and matmuls")
     # each phase's wall seconds, in its own line and in the phases line
     phases = {}
-    t_start = t0 = time.perf_counter()
+    t_start = time.perf_counter()
+    # the dry-run's production rows, on the host in the background from
+    # the tp phase's start (run_phases)
+    import tempfile
+
+    rows_tmp = tempfile.TemporaryDirectory()
+    rows_procs = []
+    try:
+        return run_phases(torch, phases, t_start, rows_tmp.name, rows_procs)
+    finally:
+        for p, _ in rows_procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        rows_tmp.cleanup()
+
+
+def run_phases(torch, phases: dict, t_start: float, rows_dir: str,
+               rows_procs: list) -> int:
+    """Every phase in turn, then the kernels, phases and result lines;
+    the dry-run's production rows start with the ``tp`` phase, writing
+    to ``rows_dir``, their processes appended to ``rows_procs``."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import dropfill as df_mod
+    from repro_torch.kernels import packet_reduce as pr_mod
+    from repro_torch.kernels import randomk as rk_mod
+
+    t0 = t_start
 
     def emit(name: str, line: dict, since: float) -> float:
         """Prints the phase line ``name`` with its ``seconds`` since
@@ -4045,12 +4440,20 @@ def main() -> int:
     # (data 1, model 2) as two gloo ranks on the card against (1, 1); the
     # sharded phase's smollm-360m on (pod 1, data 2) against its world
     # size 1; REDUCED models on (data 2, model 2) and (pod 2, data 2)
+    # the dry-run's production rows start here, in the background: the
+    # phases before are host-timed and run alone, while tp's ranks share
+    # the host with its REDUCED ranks already
+    rows_procs.extend(start_dryrun_rows(rows_dir))
     gc.collect()
     torch.cuda.empty_cache()
     tp_line, tp_launches, tp_rows, tp_by_model = run_tp_phase(
         torch, timer, launches_of, ws1)
     del ws1
     t0 = emit("tp", tp_line, t0)
+
+    # the dry-run of the tp phase's configurations against its counts,
+    # and the production rows
+    t0 = emit("dryrun", run_dryrun_phase(torch, tp_line, rows_procs), t0)
 
     # the MoE family: mixtral-8x22b at its published widths trained over
     # the LTP PS in bfloat16, then its packet_reduce stream checked and
@@ -4269,4 +4672,6 @@ if __name__ == "__main__":
         sys.exit(sharded_gloo_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--tp-rank"]:
         sys.exit(tp_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--dryrun-rows"]:
+        sys.exit(dryrun_rows_child(sys.argv[2:]))
     sys.exit(main())

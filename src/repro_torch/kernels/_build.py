@@ -12,6 +12,7 @@ launch calls ``load()``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -23,6 +24,7 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "ltp_kernels.cu",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -30,6 +32,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 BUILD_ROOT = Path(__file__).resolve().parent / "build"
 
 _LIB: Optional[ctypes.CDLL] = None
+_SHAPE_ONLY = False
+#: the kernels' operators, ``repro_torch::<name>`` (``operator``)
+OPS = torch.library.Library("repro_torch", "DEF")
 #: what the last build printed (ptxas: registers, spills) and its
 #: seconds; None while no build has run in this process (cached library)
 BUILD_LOG = ""
@@ -126,3 +131,48 @@ def check(lib: ctypes.CDLL, code: int, kernel: str) -> None:
 def stream_of(x: torch.Tensor) -> int:
     """The raw handle of the current stream on ``x``'s device."""
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+@contextlib.contextmanager
+def shape_only():
+    """Within it a ``meta`` tensor passes through the kernels' operators,
+    whose fake forms give outputs of the right shape and dtype and launch
+    nothing (a shape-only run: ``launch/dryrun.py``). Outside it a kernel
+    takes a CPU tensor (its plain version) or a CUDA one, and refuses
+    any other."""
+    global _SHAPE_ONLY
+    prev, _SHAPE_ONLY = _SHAPE_ONLY, True
+    try:
+        yield
+    finally:
+        _SHAPE_ONLY = prev
+
+
+def on_device(t: torch.Tensor) -> bool:
+    """Whether ``t`` lies where a kernel's operator takes it: on a CUDA
+    device (a fake CUDA tensor too), or on ``meta`` inside
+    ``shape_only``."""
+    return t.device.type == "cuda" or (_SHAPE_ONLY
+                                       and t.device.type == "meta")
+
+
+def launching(t: torch.Tensor) -> bool:
+    """Whether a call on ``t`` launches the kernel directly: a CUDA
+    tensor with storage. A fake CUDA tensor goes through the kernel's
+    operator instead, whose fake form launches nothing and which a
+    dispatch mode sees by name."""
+    return t.device.type == "cuda" and not isinstance(t, FakeTensor)
+
+
+def operator(schema: str, launch, fake) -> None:
+    """Define the operator ``repro_torch::<schema>``: ``launch`` its CUDA
+    kernel, ``fake`` its fake form (for fake and ``meta`` tensors). Each
+    writes into outputs its caller allocates (``Tensor(a!)``), so no
+    output aliases an input. Registered with ``torch.library`` directly:
+    ``torch.library.custom_op`` would add its Python autograd wrappers,
+    some 30 us of host time a call. A wrapper calls ``launch`` itself on
+    a real CUDA tensor (``launching``), past the dispatcher."""
+    name = schema.split("(")[0]
+    OPS.define(schema)
+    OPS.impl(name, launch, "CUDA")
+    torch.library.register_fake(f"repro_torch::{name}", fake, lib=OPS)

@@ -24,6 +24,14 @@ safe because the op is elementwise; the EF form's outputs are fresh.
 
 A CPU tensor takes the plain version (``ref.dropfill_ref``,
 ``ref.dropfill_ef_ref``); a CUDA tensor launches the kernel or raises.
+Each launch is also a PyTorch operator that writes into outputs the
+wrapper allocates (``repro_torch::dropfill_into``, whose ``out`` is
+``packets`` itself under ``donate=True``, and
+``repro_torch::dropfill_ef_into``), with a fake form. A real CUDA
+tensor launches directly; any other (a fake CUDA tensor, or a ``meta``
+one inside ``_build.shape_only``) goes through the operator, which a
+dispatch mode sees by name (``launch/cost.py``) and whose fake form
+launches nothing.
 """
 from __future__ import annotations
 
@@ -39,6 +47,54 @@ from repro_torch.kernels.ref import dropfill_ef_ref, dropfill_ref
 LAUNCHES = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _dropfill_into(packets, mask, scale, out) -> None:
+    """The gate's launch: ``out = packets * (mask * scale)[:, None]``;
+    ``out`` may be ``packets`` itself."""
+    n, p = packets.shape
+    lib = _build.load()
+    with torch.cuda.device(packets.device):
+        code = lib.ltp_dropfill(
+            packets.data_ptr(), mask.data_ptr(),
+            None if scale is None else scale.data_ptr(), out.data_ptr(),
+            n, p, _DTYPE_CODE[packets.dtype], _build.stream_of(packets))
+    _build.check(lib, code, "dropfill")
+    global LAUNCHES
+    LAUNCHES += 1
+
+
+def _dropfill_ef_into(flat, residual, mask, sent, new_res) -> None:
+    """The EF form's launch, into ``sent`` and ``new_res``."""
+    n, p = flat.shape
+    lib = _build.load()
+    with torch.cuda.device(flat.device):
+        code = lib.ltp_dropfill_ef(
+            flat.data_ptr(), residual.data_ptr(), mask.data_ptr(),
+            sent.data_ptr(), new_res.data_ptr(), n, p,
+            _build.stream_of(flat))
+    _build.check(lib, code, "dropfill_ef")
+    global LAUNCHES
+    LAUNCHES += 1
+
+
+_build.operator("dropfill_into(Tensor packets, Tensor mask, Tensor? scale, "
+                "Tensor(a!) out) -> ()", _dropfill_into,
+                lambda packets, mask, scale, out: None)
+_build.operator("dropfill_ef_into(Tensor flat, Tensor residual, Tensor mask, "
+                "Tensor(a!) sent, Tensor(b!) new_res) -> ()",
+                _dropfill_ef_into,
+                lambda flat, residual, mask, sent, new_res: None)
+
+
+def _on_device(name: str, tensors) -> None:
+    """Raise unless every tensor lies on one device that the operator
+    takes (``_build.on_device``)."""
+    dev = tensors[0].device
+    if not _build.on_device(tensors[0]) or any(t.device != dev
+                                               for t in tensors):
+        raise ValueError(f"{name} runs on one CUDA device or on the CPU; "
+                         f"got {', '.join(str(t.device) for t in tensors)}")
 
 
 def dropfill(packets: torch.Tensor, mask: torch.Tensor,
@@ -62,29 +118,20 @@ def dropfill(packets: torch.Tensor, mask: torch.Tensor,
             packets.copy_(out)
             return packets
         return out
-    if packets.device.type != "cuda" or any(
-            v.device != packets.device for v in vecs):
-        raise ValueError(f"dropfill runs on one CUDA device or on the CPU; "
-                         f"got packets on {packets.device}")
+    _on_device("dropfill", (packets, *vecs))
     if packets.dtype not in _DTYPE_CODE or any(
             v.dtype != torch.float32 for v in vecs):
         raise TypeError(f"dropfill takes float32/bfloat16 packets and a "
                         f"float32 mask/scale, got {packets.dtype}")
     if not (packets.is_contiguous() and all(v.is_contiguous() for v in vecs)):
         raise ValueError("dropfill takes contiguous tensors")
-    n, p = packets.shape
     out = packets if donate else torch.empty_like(packets)
     if out.numel() == 0:
         return out
-    lib = _build.load()
-    with torch.cuda.device(packets.device):
-        code = lib.ltp_dropfill(
-            packets.data_ptr(), mask.data_ptr(),
-            None if scale is None else scale.data_ptr(), out.data_ptr(),
-            n, p, _DTYPE_CODE[packets.dtype], _build.stream_of(packets))
-    _build.check(lib, code, "dropfill")
-    global LAUNCHES
-    LAUNCHES += 1
+    if _build.launching(packets):
+        _dropfill_into(packets, mask, scale, out)
+    else:
+        torch.ops.repro_torch.dropfill_into(packets, mask, scale, out)
     return out
 
 
@@ -102,27 +149,18 @@ def dropfill_ef(flat: torch.Tensor, residual: torch.Tensor,
     ts = (flat, residual, mask)
     if all(t.device.type == "cpu" for t in ts):
         return dropfill_ef_ref(flat, residual, mask)
-    if flat.device.type != "cuda" or any(t.device != flat.device
-                                         for t in ts):
-        raise ValueError(f"dropfill_ef runs on one CUDA device or on the "
-                         f"CPU; got flat on {flat.device}, residual on "
-                         f"{residual.device}, mask on {mask.device}")
+    _on_device("dropfill_ef", ts)
     if any(t.dtype != torch.float32 for t in ts):
         raise TypeError(f"dropfill_ef takes float32 tensors, got "
                         f"{flat.dtype}, {residual.dtype}, {mask.dtype}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("dropfill_ef takes contiguous tensors")
-    n, p = flat.shape
     sent, new_res = torch.empty_like(flat), torch.empty_like(flat)
-    if flat.numel() == 0:
+    if sent.numel() == 0:
         return sent, new_res
-    lib = _build.load()
-    with torch.cuda.device(flat.device):
-        code = lib.ltp_dropfill_ef(
-            flat.data_ptr(), residual.data_ptr(), mask.data_ptr(),
-            sent.data_ptr(), new_res.data_ptr(), n, p,
-            _build.stream_of(flat))
-    _build.check(lib, code, "dropfill_ef")
-    global LAUNCHES
-    LAUNCHES += 1
+    if _build.launching(flat):
+        _dropfill_ef_into(flat, residual, mask, sent, new_res)
+    else:
+        torch.ops.repro_torch.dropfill_ef_into(flat, residual, mask, sent,
+                                               new_res)
     return sent, new_res

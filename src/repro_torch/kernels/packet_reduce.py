@@ -29,6 +29,12 @@ output written once.
 
 A CPU tensor takes the plain version (``ref.packet_reduce_ref``,
 ``ref.tree_reduce_ref``); a CUDA tensor launches the kernel or raises.
+Each launch is also a PyTorch operator that writes into the wrapper's
+output (``repro_torch::packet_reduce_into``,
+``repro_torch::tree_reduce_into``), with a fake form. A real CUDA
+tensor launches directly; any other (a fake CUDA tensor, or a ``meta``
+one inside ``_build.shape_only``) goes through the operator, whose fake
+form launches nothing.
 """
 from __future__ import annotations
 
@@ -48,10 +54,47 @@ TREE_LAUNCHES = 0
 COMPENSATIONS = ("paper", "count")
 
 
+def _packet_reduce_into(packets, mask, count, out) -> None:
+    """The flat reduction's launch, into ``out``."""
+    w, n, p = packets.shape
+    lib = _build.load()
+    with torch.cuda.device(packets.device):
+        code = lib.ltp_packet_reduce(
+            packets.data_ptr(), mask.data_ptr(), out.data_ptr(), w, n, p,
+            int(count), _build.stream_of(packets))
+    _build.check(lib, code, "packet_reduce")
+    global LAUNCHES
+    LAUNCHES += 1
+
+
+def _tree_reduce_into(packets, mask, members, rack_ptr, count, out) -> None:
+    """The rack -> root reduction's launch, into ``out``."""
+    w, n, p = packets.shape
+    lib = _build.load()
+    with torch.cuda.device(packets.device):
+        code = lib.ltp_tree_reduce(
+            packets.data_ptr(), mask.data_ptr(), members.data_ptr(),
+            rack_ptr.data_ptr(), out.data_ptr(), w, rack_ptr.numel() - 1,
+            n, p, int(count), _build.stream_of(packets))
+    _build.check(lib, code, "tree_reduce")
+    global TREE_LAUNCHES
+    TREE_LAUNCHES += 1
+
+
+_build.operator("packet_reduce_into(Tensor packets, Tensor mask, bool count, "
+                "Tensor(a!) out) -> ()", _packet_reduce_into,
+                lambda packets, mask, count, out: None)
+_build.operator("tree_reduce_into(Tensor packets, Tensor mask, "
+                "Tensor members, Tensor rack_ptr, bool count, "
+                "Tensor(a!) out) -> ()", _tree_reduce_into,
+                lambda packets, mask, members, rack_ptr, count, out: None)
+
+
 def _on_cpu(name: str, packets: torch.Tensor, mask: torch.Tensor,
             compensation: str) -> bool:
     """Check the arguments; True when both tensors lie on the CPU (the
-    plain route), False when both lie on one CUDA device; raise else."""
+    plain route), False when both lie on one device the operator takes
+    (``_build.on_device``); raise else."""
     if compensation not in COMPENSATIONS:
         raise ValueError(f"compensation must be one of {COMPENSATIONS}, "
                          f"got {compensation!r}")
@@ -60,7 +103,7 @@ def _on_cpu(name: str, packets: torch.Tensor, mask: torch.Tensor,
                          f"{tuple(packets.shape)} and {tuple(mask.shape)}")
     if packets.device.type == "cpu" and mask.device.type == "cpu":
         return True
-    if packets.device.type != "cuda" or mask.device != packets.device:
+    if not _build.on_device(packets) or mask.device != packets.device:
         raise ValueError(f"{name} runs on one CUDA device or on the CPU; "
                          f"got packets on {packets.device} and mask on "
                          f"{mask.device}")
@@ -82,14 +125,11 @@ def packet_reduce(packets: torch.Tensor, mask: torch.Tensor, *,
     out = torch.empty((n, p), dtype=torch.float32, device=packets.device)
     if out.numel() == 0:
         return out
-    lib = _build.load()
-    with torch.cuda.device(packets.device):
-        code = lib.ltp_packet_reduce(
-            packets.data_ptr(), mask.data_ptr(), out.data_ptr(), w, n, p,
-            int(compensation == "count"), _build.stream_of(packets))
-    _build.check(lib, code, "packet_reduce")
-    global LAUNCHES
-    LAUNCHES += 1
+    count = compensation == "count"
+    if _build.launching(packets):
+        _packet_reduce_into(packets, mask, count, out)
+    else:
+        torch.ops.repro_torch.packet_reduce_into(packets, mask, count, out)
     return out
 
 
@@ -147,15 +187,14 @@ def tree_reduce(packets: torch.Tensor, mask: torch.Tensor,
     out = torch.empty((n, p), dtype=torch.float32, device=packets.device)
     if out.numel() == 0:
         return out
-    lib = _build.load()
+    if _build.launching(packets):
+        # the library first: without a card it raises before the
+        # grouping is copied to the device
+        _build.load()
+        launch = _tree_reduce_into
+    else:
+        launch = torch.ops.repro_torch.tree_reduce_into
     mem_t, ptr_t = _groups_on(tuple(members), tuple(rack_ptr),
                               packets.device)
-    with torch.cuda.device(packets.device):
-        code = lib.ltp_tree_reduce(
-            packets.data_ptr(), mask.data_ptr(), mem_t.data_ptr(),
-            ptr_t.data_ptr(), out.data_ptr(), w, len(rack_ptr) - 1, n, p,
-            int(compensation == "count"), _build.stream_of(packets))
-    _build.check(lib, code, "tree_reduce")
-    global TREE_LAUNCHES
-    TREE_LAUNCHES += 1
+    launch(packets, mask, mem_t, ptr_t, compensation == "count", out)
     return out

@@ -18,7 +18,12 @@ one by one), else one element a thread; bfloat16 x always one element a
 thread.
 
 A CPU tensor takes the plain version (``ref.randomk_ref``); a CUDA
-tensor launches the kernel or raises.
+tensor launches the kernel or raises. The launch is also a PyTorch
+operator that writes into the wrapper's output
+(``repro_torch::randomk_into``), with a fake form. A real CUDA tensor
+launches directly; any other (a fake CUDA tensor, or a ``meta`` one
+inside ``_build.shape_only``) goes through the operator, whose fake form
+launches nothing.
 """
 from __future__ import annotations
 
@@ -33,6 +38,23 @@ LAUNCHES = 0
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _randomk_into(x, u, k_frac, out) -> None:
+    """The select's launch, into ``out``."""
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        code = lib.ltp_randomk(x.data_ptr(), u.data_ptr(), float(k_frac),
+                               out.data_ptr(), x.numel(),
+                               _DTYPE_CODE[x.dtype], _build.stream_of(x))
+    _build.check(lib, code, "randomk")
+    global LAUNCHES
+    LAUNCHES += 1
+
+
+_build.operator("randomk_into(Tensor x, Tensor u, float k_frac, "
+                "Tensor(a!) out) -> ()", _randomk_into,
+                lambda x, u, k_frac, out: None)
+
+
 def randomk(x: torch.Tensor, u: torch.Tensor, k_frac: float) -> torch.Tensor:
     """x: f32 or bf16, any shape; u: float32 of x's shape; k_frac: the
     keep fraction in [0, 1]. Returns x with the elements where
@@ -42,7 +64,7 @@ def randomk(x: torch.Tensor, u: torch.Tensor, k_frac: float) -> torch.Tensor:
                          f"{tuple(x.shape)} and {tuple(u.shape)}")
     if x.device.type == "cpu" and u.device.type == "cpu":
         return randomk_ref(x, u, k_frac)
-    if x.device.type != "cuda" or u.device != x.device:
+    if not _build.on_device(x) or u.device != x.device:
         raise ValueError(f"randomk runs on one CUDA device or on the CPU; "
                          f"got x on {x.device} and u on {u.device}")
     if x.dtype not in _DTYPE_CODE or u.dtype != torch.float32:
@@ -53,12 +75,8 @@ def randomk(x: torch.Tensor, u: torch.Tensor, k_frac: float) -> torch.Tensor:
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
-    lib = _build.load()
-    with torch.cuda.device(x.device):
-        code = lib.ltp_randomk(x.data_ptr(), u.data_ptr(), float(k_frac),
-                               out.data_ptr(), x.numel(),
-                               _DTYPE_CODE[x.dtype], _build.stream_of(x))
-    _build.check(lib, code, "randomk")
-    global LAUNCHES
-    LAUNCHES += 1
+    if _build.launching(x):
+        _randomk_into(x, u, float(k_frac), out)
+    else:
+        torch.ops.repro_torch.randomk_into(x, u, float(k_frac), out)
     return out

@@ -12,8 +12,12 @@ link LTP targets (DESIGN.md §2).
 The production shapes are kept as shapes (``PRODUCTION_SHAPES``): their
 specs and local plans need no process group (``models.sharding`` takes a
 ``{name: size}`` dict). A ``DeviceMesh`` is built only when the world
-size matches. The reference's TPU v5e roofline constants are not carried
-over.
+size matches.
+
+The roofline constants (``launch/dryrun.py``'s three terms) are one
+card's, an NVIDIA H100 SXM5 80GB HBM3 at its 700 W limit, from NVIDIA's
+H100 Tensor Core GPU datasheet; a card set below 700 W runs slower under
+load.
 """
 from __future__ import annotations
 
@@ -63,3 +67,11 @@ def make_host_mesh(n_data: int = 1, n_model: int = 1):
     """A (data, model) ``DeviceMesh`` over the current process group
     (tests, examples, one card)."""
     return _mesh((n_data, n_model), ("data", "model"))
+
+
+# NVIDIA H100 SXM5 80GB HBM3 (700 W), per card, from NVIDIA's H100 Tensor
+# Core GPU datasheet
+PEAK_FLOPS_BF16 = 989e12     # FLOP/s, bf16 dense Tensor Core (no sparsity)
+PEAK_FLOPS_F32 = 67e12       # FLOP/s, f32 (CUDA cores)
+HBM_BW = 3.35e12             # B/s, HBM3
+NVLINK_BW = 450e9            # B/s a direction, NVLink 4 (900 GB/s total)

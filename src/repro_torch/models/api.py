@@ -11,6 +11,11 @@ and dtypes, nothing allocated) for each step kind:
   train   -> loss_fn(params, batch)
   prefill -> prefill(params, inputs)          (last-token logits + cache)
   decode  -> decode_step(params, cache, token, pos)   (ONE token)
+
+Serving takes ``ctx`` (a ``sharding.ShardCtx``) as the reference's does:
+``prefill``, ``decode_step`` and ``init_cache`` then run on this rank's
+blocks of the params and the cache, tensor-parallel over ``model``, and
+give the whole vocab's logits on every rank.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import cnn, encdec, transformer
-from repro_torch.models.layers import dtype_of
+from repro_torch.models.layers import dtype_of, gather_vocab
 from repro_torch.shapes import InputShape
 from repro_torch.tree import tree_map_with_path
 
@@ -35,9 +40,9 @@ class ModelApi:
     init: Callable           # (generator, *, device) -> params
     loss_fn: Callable        # (params, batch, *, ctx, ce_weight) -> scalar
     forward: Optional[Callable]
-    prefill: Optional[Callable]      # (params, inputs) -> (logits, cache)
-    decode_step: Optional[Callable]  # (params, cache, token, pos)
-    init_cache: Optional[Callable]   # (batch, max_seq, dtype, *, device)
+    prefill: Optional[Callable]      # (params, inputs, *, ctx)
+    decode_step: Optional[Callable]  # (params, cache, token, pos, *, ctx)
+    init_cache: Optional[Callable]   # (batch, max_seq, dtype, *, device, ctx)
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -49,11 +54,11 @@ def _check_family(cfg: ModelConfig) -> None:
 
 
 def _tf_prefill(cfg):
-    def prefill(params, inputs):
+    def prefill(params, inputs, *, ctx=None):
         logits, _, caches = transformer.forward(
             cfg, params, inputs, collect_cache=True, remat=False,
-            last_only=True)
-        return logits[:, 0], caches
+            last_only=True, ctx=ctx)
+        return gather_vocab(logits[:, 0], cfg.vocab_padded, ctx), caches
 
     return prefill
 

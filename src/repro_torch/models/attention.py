@@ -255,18 +255,21 @@ def pos_tensor(pos, device) -> torch.Tensor:
 
 
 def self_attention_decode(cfg, p, x1, cache_k, cache_v, pos, *,
-                          window: int = 0):
+                          window: int = 0, ctx=None):
     """One-token self attention with functional cache update.
 
     Returns (out, new_k, new_v). Cache layout: (B, Smax, KV, hd); for
     windowed layers Smax == window and the write index wraps (ring
     buffer). ``pos`` is an int or a 0-d integer tensor. A write index past
     the cache raises (``index_copy``), where the reference's
-    ``dynamic_update_slice`` clamps it onto the last slot.
+    ``dynamic_update_slice`` clamps it onto the last slot. Under ``ctx``,
+    where the heads split (``heads_ctx``), this rank's heads against its
+    KV heads of the cache (``sharding.cache_spec``), ``wo`` a row block.
     """
     b = x1.shape[0]
+    tp = heads_ctx(cfg, ctx)
     pos_t = pos_tensor(pos, x1.device)
-    q, k, v = _project_qkv(cfg, p, x1)  # (B,1,...)
+    q, k, v = _project_qkv(cfg, p, x1, tp)  # (B,1,...)
     if cfg.pos_type == "mrope":
         q, k = _apply_pos(cfg, q, k, pos_t.reshape(1, 1, 1).expand(3, b, 1))
     else:
@@ -278,8 +281,7 @@ def self_attention_decode(cfg, p, x1, cache_k, cache_v, pos, *,
     new_k = cache_k.index_copy(1, widx, k.to(cache_k.dtype))
     new_v = cache_v.index_copy(1, widx, v.to(cache_v.dtype))
     out = decode_attention(q, new_k, new_v, pos_t, window=window)
-    out = out.reshape(b, 1, cfg.n_heads * cfg.hd) @ p["wo"]
-    return out, new_k, new_v
+    return _out_proj(out, p, tp), new_k, new_v
 
 
 def cross_attention(cfg: ModelConfig, p: Params, x, enc_kv, tp=None):

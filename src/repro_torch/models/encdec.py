@@ -35,7 +35,8 @@ enters the parallel block (``copy_in``) before each cross-attention's
 ``wk`` / ``wv`` blocks, so its gradient back into the encoder is summed
 over ``model``. Each remat body carries ``ctx``, so a recompute issues
 the forward's collectives again (the layer is bound to ``ctx``).
-Serving takes no ``ctx``.
+Serving (``prefill``, ``init_cache``, ``decode_step``) takes the same
+``ctx``: the cross and self K/V hold this rank's heads.
 
 Serving: ``prefill`` runs the encoder and fills the cross K/V of every
 decoder layer, in a cache as long as the prompt whose self K/V it leaves
@@ -62,11 +63,12 @@ from repro_torch.models.layers import (
     dtype_of,
     embed_params,
     embed_tokens,
+    gather_vocab,
     mlp_params,
     norm_params,
     unembed,
 )
-from repro_torch.models.sharding import copy_in, split
+from repro_torch.models.sharding import cache_zeros, copy_in, split
 from repro_torch.models.transformer import _Remat, _unstack
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -244,48 +246,56 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               dtype=torch.bfloat16, *, device: DeviceLike = None):
+               dtype=torch.bfloat16, *, device: DeviceLike = None, ctx=None):
     """Self K/V per decoder layer + precomputed cross K/V per layer.
     ``device`` ``None`` means ``cuda``; ``"meta"`` gives shapes and
-    dtypes alone."""
+    dtypes alone. Under ``ctx`` this rank's KV heads where the heads
+    split (``sharding.cache_spec``, code ``"X"``)."""
     dev = resolve_device(device)
     if isinstance(dtype, str):
         dtype = dtype_of(dtype)
+    nm = 1 if ctx is None else ctx.nm
     nl = cfg.n_layers
-    self_shp = (nl, batch, max_seq, cfg.n_kv, cfg.hd)
-    cross_shp = (nl, batch, cfg.encoder_frames, cfg.n_kv, cfg.hd)
-    return {
-        "self_k": torch.zeros(self_shp, dtype=dtype, device=dev),
-        "self_v": torch.zeros(self_shp, dtype=dtype, device=dev),
-        "cross_k": torch.zeros(cross_shp, dtype=dtype, device=dev),
-        "cross_v": torch.zeros(cross_shp, dtype=dtype, device=dev),
-    }
+    shapes = {"self": (nl, batch, max_seq, cfg.n_kv, cfg.hd),
+              "cross": (nl, batch, cfg.encoder_frames, cfg.n_kv, cfg.hd)}
+    return {f"{kind}_{kv}": cache_zeros(cfg, "X", f"{kind}_{kv}",
+                                        shapes[kind], dtype, dev, nm)
+            for kind in ("self", "cross") for kv in ("k", "v")}
 
 
-def prefill(cfg: ModelConfig, params: Params, inputs):
+def prefill(cfg: ModelConfig, params: Params, inputs, *, ctx=None):
     """Runs the encoder and fills cross K/V; returns (last-token logits,
-    cache). The cache is as long as the prompt, its self K/V zero."""
+    cache). The cache is as long as the prompt, its self K/V zero. Under
+    ``ctx`` both stacks run split over ``model`` as in ``loss_fn``, the
+    cross K/V are this rank's heads and the logits whole on every
+    rank."""
     frames, tokens = inputs["frames"], inputs["tokens"]
-    enc_out = encode(cfg, params, frames, remat=False)
+    enc_out = encode(cfg, params, frames, remat=False, ctx=ctx)
     logits = decode_train(cfg, params, tokens, enc_out, remat=False,
-                          last_only=True)
+                          last_only=True, ctx=ctx)
     b, s = tokens.shape
-    cache = init_cache(cfg, b, s, dtype_of(cfg.dtype), device=tokens.device)
+    cache = init_cache(cfg, b, s, dtype_of(cfg.dtype), device=tokens.device,
+                       ctx=ctx)
+    tp = attn.heads_ctx(cfg, ctx)
     ks, vs = [], []
     for p in _unstack(params["dec_stack"]["cross_attn"], cfg.n_layers):
-        k, v = _cross_kv(cfg, p, enc_out)
+        k, v = _cross_kv(cfg, p, enc_out, tp)
         ks.append(k.to(cache["cross_k"].dtype))
         vs.append(v.to(cache["cross_v"].dtype))
     cache["cross_k"] = torch.stack(ks)
     cache["cross_v"] = torch.stack(vs)
-    return logits[:, 0], cache
+    return gather_vocab(logits[:, 0], cfg.vocab_padded, ctx), cache
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, Any],
-                token, pos):
+                token, pos, *, ctx=None):
     """One decoder token. token: (B,) integer; pos: int or 0-d integer
-    tensor. Returns (logits (B, vocab_padded), new_cache)."""
-    x = embed_tokens(params["embed"], token[:, None]).to(dtype_of(cfg.dtype))
+    tensor. Returns (logits (B, vocab_padded), new_cache). Under ``ctx``
+    this rank's heads against its cache, the MLP split over ``d_ff``,
+    the logits whole on every rank."""
+    tp = attn.heads_ctx(cfg, ctx)
+    x = embed_tokens(params["embed"], token[:, None],
+                     split(ctx, cfg.d_model)).to(dtype_of(cfg.dtype))
     pos = attn.pos_tensor(pos, x.device)
     x = x + sinusoid(pos.reshape(1), cfg.d_model, x.dtype)
     nk, nv = [], []
@@ -293,17 +303,18 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, Any],
         h = apply_norm(cfg, p["norm1"], x)
         out, k_i, v_i = attn.self_attention_decode(
             cfg, p["self_attn"], h, cache["self_k"][i], cache["self_v"][i],
-            pos)
+            pos, ctx=ctx)
         nk.append(k_i)
         nv.append(v_i)
         x = x + out
         h = apply_norm(cfg, p["norm_x"], x)
         x = x + attn.cross_attention(
             cfg, p["cross_attn"], h, (cache["cross_k"][i],
-                                      cache["cross_v"][i]))
-        x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+                                      cache["cross_v"][i]), tp)
+        x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x), ctx)
     x = apply_norm(cfg, params["final_norm"], x)
-    logits = unembed(params["embed"], x)[:, 0]
+    logits = gather_vocab(unembed(params["embed"], x, ctx)[:, 0],
+                          cfg.vocab_padded, ctx)
     new_cache = dict(cache)
     new_cache["self_k"] = torch.stack(nk)
     new_cache["self_v"] = torch.stack(nv)

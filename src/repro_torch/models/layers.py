@@ -225,6 +225,14 @@ def unembed(p: Params, x, ctx=None):
     return copy_in(x, ctx) @ e.T
 
 
+def gather_vocab(logits, vocab_padded: int, ctx=None):
+    """``unembed``'s logits made whole on every rank: under ``ctx``, where
+    they are this rank's vocab block (``vocab_padded`` divides
+    ``model``), every rank's blocks gathered in vocab order (the serve
+    path's vocab-parallel logits); as they are otherwise."""
+    return gather(logits, split(ctx, vocab_padded), -1)
+
+
 def cross_entropy(logits, labels, vocab: int, ctx=None):
     """Mean next-token CE in float32; labels < 0 are masked out.
 

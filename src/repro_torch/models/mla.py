@@ -16,7 +16,9 @@ of ``w_uq`` (or ``wq``), ``w_uk`` and ``w_uv``, whole heads, take them.
 Each rank's heads see only part of the latents' gradient, which
 ``copy_in`` sums, so ``w_dq``, ``w_dkv`` and the norms get their whole
 gradient on every rank. ``wo`` is a row block (``row_parallel``).
-Elsewhere the attention runs replicated. Decode takes no ``ctx``.
+Elsewhere the attention runs replicated. The absorbed decode
+(``mla_decode``) splits the same heads against the latent cache, which
+every rank holds whole.
 """
 from __future__ import annotations
 
@@ -101,22 +103,24 @@ def mla_attention(cfg: ModelConfig, p: Params, x, positions, tp=None):
 
 
 def mla_decode(cfg: ModelConfig, p: Params, x1, cache_ckv, cache_krope,
-               pos):
+               pos, tp=None):
     """Absorbed one-token MLA decode.
 
     cache_ckv: (B, Smax, kv_lora); cache_krope: (B, Smax, qk_rope_dim);
     ``pos`` an int or a 0-d integer tensor. Returns (out, new_ckv,
     new_krope). A write index past the cache raises (``index_copy``),
     where the reference's ``dynamic_update_slice`` clamps it onto the
-    last slot.
+    last slot. ``tp`` (``attention.heads_ctx``): this rank's heads of
+    ``w_uq`` (or ``wq``), ``w_uk`` and ``w_uv`` against the replicated
+    latent cache, ``wo`` a row block.
     """
     b = x1.shape[0]
-    h = cfg.n_heads
     scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
     pos_t = pos_tensor(pos, x1.device)
     positions = pos_t.reshape(1, 1).expand(b, 1)
 
-    q_nope, q_rope = _queries(cfg, p, x1)  # (B,1,h,*)
+    q_nope, q_rope = _queries(cfg, p, x1, tp)  # (B,1,h,*)
+    h = q_nope.shape[2]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     c_kv1, k_rope1 = _latents(cfg, p, x1, positions)
 
@@ -141,5 +145,5 @@ def mla_decode(cfg: ModelConfig, p: Params, x1, cache_ckv, cache_krope,
     out_lat = torch.einsum("bhqs,bsl->bqhl", pr, new_ckv)  # (B,1,h,kv_lora)
     w_uv = p["w_uv"].reshape(cfg.kv_lora, h, cfg.v_head_dim)
     out = torch.einsum("bqhl,lhv->bqhv", out_lat, w_uv)
-    out = out.reshape(b, 1, h * cfg.v_head_dim) @ p["wo"]
+    out = row_parallel(out.reshape(b, 1, h * cfg.v_head_dim), p["wo"], tp)
     return out, new_ckv, new_krope

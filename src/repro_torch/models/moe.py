@@ -36,8 +36,8 @@ Where the torch ops differ from JAX's:
   appended, where the reference's ``.get(mode="fill")`` fills zeros.
 
 Every op is out of place, so the functions run under
-``torch.func.vmap`` / ``grad`` (``bincount`` has no batching rule and
-runs once a vmapped sample there).
+``torch.func.vmap`` / ``grad``; the experts' counts are a ``scatter_add``
+into zeros of a fixed shape, which runs on ``meta`` tensors as well.
 """
 from __future__ import annotations
 
@@ -118,7 +118,10 @@ def _route_group(cfg: ModelConfig, p: Params, xf, cap: int):
     s_tok = tok_idx[order]
     s_w = flat_w[order]
 
-    counts = torch.bincount(flat_ids, minlength=e)
+    # a static-shape count (``bincount``'s output shape depends on the
+    # data, which a shape-only run cannot give); integer counts are exact
+    counts = torch.zeros(e, dtype=torch.int64, device=xf.device) \
+        .scatter_add(0, flat_ids, torch.ones_like(flat_ids))
     starts = torch.cumsum(counts, dim=0) - counts
     pos = torch.arange(a, device=xf.device) - starts[s_ids]
     pos_c = torch.where(pos < cap, pos, cap)  # cap -> the dropped slot

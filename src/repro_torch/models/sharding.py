@@ -307,6 +307,78 @@ def model_specs(cfg: Any, params_shape: Any, mesh: Any) -> Any:
     return tree_map_with_path(spec, params_shape)
 
 
+def cache_spec(cfg: Any, code: str, name: str, ndim: int, nm: int) -> Spec:
+    """The ``model``-axis spec of a decode cache leaf: leaf ``name`` (of
+    ``ndim`` dims) of a layer with mixer ``code`` (``"A"``, ``"W"``,
+    ``"L"``, ``"M"``, ``"M2"``; ``"X"`` for the enc-dec's self and cross
+    K/V, stacked over the layers), on ``nm`` model ranks; a leaf stacked
+    over the periods (a prefill's ``stack``) has the same spec with one
+    more leading dim. The cache follows the heads and channels its layer's
+    projections split (Megatron-style):
+
+    - K/V (``(B, S, KV, hd)``): the KV heads split where
+      ``attention.heads_ctx`` splits the heads, else replicated;
+    - MLA's ``ckv`` and ``krope``: replicated (the latents are computed
+      whole on every rank);
+    - Mamba-1's ``h`` ``(B, d_inner, n)`` and ``conv`` ``(B, k-1,
+      d_inner)``: the channels split where ``ssm.ssm_ctx`` splits the
+      mixer; Mamba-2's ``h`` ``(B, nh, hp, n)`` on its heads, and its
+      ``conv`` ``(B, k-1, d_inner + 2n)`` on its last dim as ``reblock``
+      lays it out: this rank's block of ``x``'s channels, then the whole
+      of ``B`` and ``C`` (``cache_segments``).
+
+    The reference shards a cache by a shape heuristic instead (the
+    batch over the data axes, the largest dim that divides ``model``
+    over ``model``: a KV cache's sequence dim), which GSPMD makes
+    correct there."""
+    spec = [None] * ndim
+    if nm == 1 or code == "L":
+        return ()
+    if code in ("A", "W", "X"):   # the KV heads: the dim before ``hd``
+        if cfg.n_heads % nm or cfg.n_kv % nm:
+            return ()
+        spec[ndim - 2] = "model"
+        return tuple(spec)
+    from repro_torch.models.ssm import tp_splits  # ssm imports this module
+    if not tp_splits(cfg, nm):
+        return ()
+    spec[1 if name == "h" else ndim - 1] = "model"
+    return tuple(spec)
+
+
+def cache_segments(cfg: Any, code: str, name: str):
+    """``((width, split), ...)`` of a cache leaf's ``model`` dim where a
+    rank holds a block of some segments and the whole of others
+    (Mamba-2's ``conv``: ``x``, then ``B`` and ``C``), else ``None``
+    (a plain block)."""
+    if code == "M2" and name == "conv":
+        return ((cfg.d_inner, True), (2 * cfg.ssm_state, False))
+    return None
+
+
+def cache_zeros(cfg: Any, code: str, name: str, shape: Tuple[int, ...],
+                dtype, device, nm: int = 1) -> torch.Tensor:
+    """A zero cache leaf of GLOBAL ``shape``, or on ``nm`` model ranks
+    this rank's block of it (``cache_spec``, ``cache_segments``)."""
+    spec = cache_spec(cfg, code, name, len(shape), nm)
+    return torch.zeros(local_shape(shape, spec, nm,
+                                   cache_segments(cfg, code, name)),
+                       dtype=dtype, device=device)
+
+
+def local_shape(shape: Tuple[int, ...], spec: Spec, nm: int,
+                segments=None) -> Tuple[int, ...]:
+    """A rank's shape of a leaf of GLOBAL ``shape`` under ``spec`` (and
+    ``segments``, ``cache_segments``) on ``nm`` model ranks."""
+    dim = model_dim(spec)
+    if dim is None:
+        return tuple(shape)
+    out = list(shape)
+    out[dim] = (out[dim] // nm if segments is None else
+                sum(w // nm if split_ else w for w, split_ in segments))
+    return tuple(out)
+
+
 def block_of(t: torch.Tensor, dim: int, n: int, idx: int) -> torch.Tensor:
     """Block ``idx`` of ``n`` equal blocks of ``t`` on ``dim`` (a view)."""
     size = t.shape[dim] // n

@@ -53,7 +53,8 @@ Under a ``ShardCtx`` (``ctx=``, tensor parallelism over ``model``, where
   squares over the whole ``d_inner`` both ways; ``gamma``, ``A_log_m2``,
   ``D`` and ``dt_bias`` are sliced by heads after ``copy_in``.
 
-Decode takes no ``ctx``.
+Decode (``mamba1_decode``, ``mamba2_decode``) splits the same way, each
+rank's state holding its channels or heads (``sharding.cache_spec``).
 """
 from __future__ import annotations
 
@@ -67,6 +68,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.models.layers import Params, dense_init, normal, rms_norm
 from repro_torch.models.sharding import (
     block_of,
+    cache_zeros,
     cols_of,
     copy_in,
     reblock,
@@ -211,36 +213,43 @@ def mamba1_forward(cfg: ModelConfig, p: Params, u, ctx=None):
     return row_parallel(y, p["out_proj"], tp)
 
 
-def mamba1_decode(cfg: ModelConfig, p: Params, u1, state):
+def mamba1_decode(cfg: ModelConfig, p: Params, u1, state, ctx=None):
     """One-token update. u1: (B, 1, d); state = {"h": (B,di,n),
-    "conv": (B, k-1, di)}. Returns (out, new_state)."""
+    "conv": (B, k-1, di)}, under ``ctx`` this rank's channels of both
+    (``mamba1_state_init(..., nm=)``). Returns (out, new_state)."""
     n, r = cfg.ssm_state, _dt_rank(cfg)
-    xz = u1[:, 0] @ p["in_proj"]
-    x, z = torch.chunk(xz, 2, dim=-1)
-    xc, conv_buf = _conv_step(state["conv"], x, p["conv_w"], p["conv_b"])
+    tp = ssm_ctx(cfg, ctx)
+    xz = copy_in(u1[:, 0], tp) @ p["in_proj"]
+    x, z = torch.chunk(reblock(xz, tp, in_proj_segments(cfg)), 2, dim=-1)
+    conv_w, conv_b, x_proj, dt_bias, A_log, D = _channels(
+        p, ("conv_w", "conv_b", "x_proj", "dt_bias", "A_log", "D"), tp)
+    xc, conv_buf = _conv_step(state["conv"], x, conv_w, conv_b)
     xc = F.silu(xc)
-    xdbl = xc @ p["x_proj"]
+    xdbl = row_parallel(xc, x_proj, tp, reduce_both)
     dt = softplus((xdbl[..., :r] @ p["dt_proj"]).to(torch.float32)
-                  + p["dt_bias"])
+                  + dt_bias)
     Bc = xdbl[..., r:r + n].to(torch.float32)
     Cc = xdbl[..., r + n:].to(torch.float32)
-    A = -torch.exp(p["A_log"])
+    A = -torch.exp(A_log)
     da = torch.exp(dt[..., None] * A)
     xf = xc.to(torch.float32)
     h = da * state["h"] + (dt * xf)[..., None] * Bc[:, None, :]
-    y = torch.einsum("bdn,bn->bd", h, Cc) + xf * p["D"]
+    y = torch.einsum("bdn,bn->bd", h, Cc) + xf * D
     y = y.to(u1.dtype) * F.silu(z)
-    out = (y @ p["out_proj"])[:, None, :]
+    out = row_parallel(y, p["out_proj"], tp)[:, None, :]
     return out, {"h": h, "conv": conv_buf}
 
 
 def mamba1_state_init(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
-                      device=None):
+                      device=None, nm: int = 1):
+    """The decode state, or on ``nm`` model ranks one rank's
+    (``sharding.cache_spec``)."""
+    di = cfg.d_inner
     return {
-        "h": torch.zeros((batch, cfg.d_inner, cfg.ssm_state),
-                         dtype=torch.float32, device=device),
-        "conv": torch.zeros((batch, cfg.ssm_conv - 1, cfg.d_inner),
-                            dtype=dtype, device=device),
+        "h": cache_zeros(cfg, "M", "h", (batch, di, cfg.ssm_state),
+                         torch.float32, device, nm),
+        "conv": cache_zeros(cfg, "M", "conv", (batch, cfg.ssm_conv - 1, di),
+                            dtype, device, nm),
     }
 
 
@@ -359,33 +368,47 @@ def mamba2_forward(cfg: ModelConfig, p: Params, u, *, chunk: int = 128,
     return row_parallel(y, p["out_proj"], tp)
 
 
-def mamba2_decode(cfg: ModelConfig, p: Params, u1, state):
-    """One-token SSD update. state = {"h": (B,nh,hp,n), "conv": (B,k-1,conv_ch)}."""
+def mamba2_decode(cfg: ModelConfig, p: Params, u1, state, ctx=None):
+    """One-token SSD update. state = {"h": (B, nh, hp, n), "conv": (B,
+    k-1, conv_ch)}, under ``ctx`` this rank's heads and its ``x``
+    channels with the whole ``B`` and ``C`` (``mamba2_state_init(...,
+    nm=)``)."""
+    tp = ssm_ctx(cfg, ctx)
+    nm = 1 if tp is None else tp.nm
     di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     hp = di // nh
-    proj = u1[:, 0] @ p["in_proj"]
+    proj = copy_in(u1[:, 0], tp) @ p["in_proj"]
+    proj = reblock(proj, tp, in_proj_segments(cfg))
+    di, nh = di // nm, nh // nm   # this rank's channels and heads
     z, xBC, dt = _mamba2_split(proj, di, n)
-    xBC, conv_buf = _conv_step(state["conv"], xBC, p["conv_w"], p["conv_b"])
+    xBC, conv_buf = _conv_step(state["conv"], xBC,
+                               *_mamba2_conv(cfg, p, tp))
     xBC = F.silu(xBC)
     x = xBC[..., :di].reshape(-1, nh, hp).to(torch.float32)
     Bc = xBC[..., di:di + n].to(torch.float32)
     Cc = xBC[..., di + n:].to(torch.float32)
-    dt = softplus(dt.to(torch.float32) + p["dt_bias"])  # (B, nh)
-    a = torch.exp(dt * -torch.exp(p["A_log_m2"]))  # (B, nh)
+    dt_bias, A_log, D, gamma = _channels(
+        p, ("dt_bias", "A_log_m2", "D", "gamma"), tp)
+    dt = softplus(dt.to(torch.float32) + dt_bias)  # (B, nh)
+    a = torch.exp(dt * -torch.exp(A_log))  # (B, nh)
     h = a[..., None, None] * state["h"] \
         + (x * dt[..., None])[..., None] * Bc[:, None, None, :]
-    y = torch.einsum("bhpn,bn->bhp", h, Cc) + x * p["D"][:, None]
+    y = torch.einsum("bhpn,bn->bhp", h, Cc) + x * D[:, None]
     y = y.reshape(-1, di).to(u1.dtype)
-    y = rms_norm(y * F.silu(z), p["gamma"] - 1.0, cfg.norm_eps)
-    return (y @ p["out_proj"])[:, None, :], {"h": h, "conv": conv_buf}
+    y = rms_norm(y * F.silu(z), gamma - 1.0, cfg.norm_eps, tp)
+    out = row_parallel(y, p["out_proj"], tp)[:, None, :]
+    return out, {"h": h, "conv": conv_buf}
 
 
 def mamba2_state_init(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
-                      device=None):
+                      device=None, nm: int = 1):
+    """The decode state, or on ``nm`` model ranks one rank's
+    (``sharding.cache_spec``)."""
     di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     return {
-        "h": torch.zeros((batch, nh, di // nh, n), dtype=torch.float32,
-                         device=device),
-        "conv": torch.zeros((batch, cfg.ssm_conv - 1, di + 2 * n),
-                            dtype=dtype, device=device),
+        "h": cache_zeros(cfg, "M2", "h", (batch, nh, di // nh, n),
+                         torch.float32, device, nm),
+        "conv": cache_zeros(cfg, "M2", "conv",
+                            (batch, cfg.ssm_conv - 1, di + 2 * n), dtype,
+                            device, nm),
     }

@@ -52,8 +52,13 @@ by heads (``ssm``), the MLP by ``d_ff`` and the experts by expert or
 ``d_ff`` (``layers``, ``moe``), the hybrid's shared block as an
 attention layer; the logits are this rank's vocab block where the
 vocab divides the axis. Every rank issues the same collectives in the
-same order, in the forward and again in each remat recompute. Decode
-takes no ``ctx``.
+same order, in the forward and again in each remat recompute. The
+serve path takes the same ``ctx``: the prefill is ``forward(...,
+collect_cache=True, ctx=)``, its cache this rank's heads (MLA's latents
+whole), and ``decode_step`` runs each layer split as the forward does
+against this rank's cache (``init_cache(..., ctx=)``,
+``sharding.cache_spec``); both give the whole vocab's logits on every
+rank (``layers.gather_vocab``).
 """
 from __future__ import annotations
 
@@ -78,11 +83,12 @@ from repro_torch.models.layers import (
     dtype_of,
     embed_params,
     embed_tokens,
+    gather_vocab,
     mlp_params,
     norm_params,
     unembed,
 )
-from repro_torch.models.sharding import split
+from repro_torch.models.sharding import cache_zeros, split
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -493,47 +499,83 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
 
 
 def _mixer_cache_spec(cfg: ModelConfig, code: str, batch: int, max_seq: int,
-                      dtype, device):
+                      dtype, device, nm: int = 1):
     if code == "M":
-        return ssm.mamba1_state_init(cfg, batch, dtype, device)
+        return ssm.mamba1_state_init(cfg, batch, dtype, device, nm)
     if code == "M2":
-        return ssm.mamba2_state_init(cfg, batch, dtype, device)
+        return ssm.mamba2_state_init(cfg, batch, dtype, device, nm)
     if code == "L":
         return {
-            "ckv": torch.zeros((batch, max_seq, cfg.kv_lora), dtype=dtype,
-                               device=device),
-            "krope": torch.zeros((batch, max_seq, cfg.qk_rope_dim),
-                                 dtype=dtype, device=device),
+            "ckv": cache_zeros(cfg, code, "ckv",
+                               (batch, max_seq, cfg.kv_lora), dtype, device,
+                               nm),
+            "krope": cache_zeros(cfg, code, "krope",
+                                 (batch, max_seq, cfg.qk_rope_dim), dtype,
+                                 device, nm),
         }
     w = window_for(cfg, code)
     s = min(w, max_seq) if w > 0 else max_seq
     shp = (batch, s, cfg.n_kv, cfg.hd)
-    return {"k": torch.zeros(shp, dtype=dtype, device=device),
-            "v": torch.zeros(shp, dtype=dtype, device=device)}
+    return {k: cache_zeros(cfg, code, k, shp, dtype, device, nm)
+            for k in ("k", "v")}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               dtype=torch.bfloat16, *, device: DeviceLike = None):
+               dtype=torch.bfloat16, *, device: DeviceLike = None, ctx=None):
     """Cache tree for decode: one entry per layer (+ the hybrid's shared
     block's KV slots, one a period). ``device`` ``None`` means ``cuda``;
-    ``"meta"`` gives shapes and dtypes alone."""
+    ``"meta"`` gives shapes and dtypes alone. Under ``ctx`` this rank's
+    block of each leaf (``sharding.cache_spec``)."""
     check_supported(cfg)
     dev = resolve_device(device)
     if isinstance(dtype, str):
         dtype = dtype_of(dtype)
+    nm = 1 if ctx is None else ctx.nm
     plan = make_plan(cfg)
     codes = (plan.lead_codes + plan.period_codes * plan.n_periods
              + plan.rem_codes)
     cache: Dict[str, Any] = {"layers": tuple(
-        _mixer_cache_spec(cfg, code, batch, max_seq, dtype, dev)
+        _mixer_cache_spec(cfg, code, batch, max_seq, dtype, dev, nm)
         for code in codes)}
     if plan.shared_attn:
-        shp = (batch, max_seq, cfg.n_kv, cfg.hd)
         cache["shared"] = tuple(
-            {"k": torch.zeros(shp, dtype=dtype, device=dev),
-             "v": torch.zeros(shp, dtype=dtype, device=dev)}
+            _mixer_cache_spec(cfg, "A", batch, max_seq, dtype, dev, nm)
             for _ in range(plan.n_periods))
     return cache
+
+
+def cache_from_prefill(cfg: ModelConfig, caches: Dict[str, Any], batch: int,
+                       max_seq: int, dtype, *, device: DeviceLike = None,
+                       ctx=None) -> Dict[str, Any]:
+    """A decode cache of ``max_seq`` positions (``init_cache``) holding a
+    prefill's ``caches`` (``forward(..., collect_cache=True)``, of a
+    prompt of S positions) in its first S: decode then goes on at
+    position S. Attention and MLA layers only: a prefill keeps no SSM
+    state, as the reference's keeps none; a sliding-window layer's
+    prompt must fit its window."""
+    plan = make_plan(cfg)
+    flat: List[Any] = list(caches["lead"])
+    for i in range(plan.n_periods):
+        for j in range(len(plan.period_codes)):
+            st = caches["stack"][f"p{j}"]
+            flat.append(None if st is None else tree_map(lambda x: x[i], st))
+    flat += list(caches["rem"])
+    out = init_cache(cfg, batch, max_seq, dtype, device=device, ctx=ctx)
+
+    def put(dst, src):
+        if src is None:
+            raise NotImplementedError("a prefill keeps no SSM state")
+        return {k: dst[k].index_copy(1, torch.arange(
+            src[k].shape[1], device=dst[k].device), src[k].to(dst[k].dtype))
+            for k in dst}
+
+    out["layers"] = tuple(put(d, c) for d, c in zip(out["layers"], flat,
+                                                    strict=True))
+    if plan.shared_attn:
+        out["shared"] = tuple(
+            put(d, tree_map(lambda x, i=i: x[i], caches["stack"]["shared"]))
+            for i, d in enumerate(out["shared"]))
+    return out
 
 
 def _layer_param_at(params: Params, plan: LayerPlan,
@@ -553,41 +595,46 @@ def _layer_param_at(params: Params, plan: LayerPlan,
     return params["rem"][idx], plan.rem_codes[idx], False
 
 
-def _decode_mixer(cfg, code, p, x1, cache, pos):
+def _decode_mixer(cfg, code, p, x1, cache, pos, ctx=None):
     if code == "M":
-        return ssm.mamba1_decode(cfg, p, x1, cache)
+        return ssm.mamba1_decode(cfg, p, x1, cache, ctx)
     if code == "M2":
-        return ssm.mamba2_decode(cfg, p, x1, cache)
+        return ssm.mamba2_decode(cfg, p, x1, cache, ctx)
     if code == "L":
         out, nckv, nkrope = mla_mod.mla_decode(
-            cfg, p, x1, cache["ckv"], cache["krope"], pos)
+            cfg, p, x1, cache["ckv"], cache["krope"], pos,
+            attn.heads_ctx(cfg, ctx))
         return out, {"ckv": nckv, "krope": nkrope}
     w = window_for(cfg, code)
     out, nk, nv = attn.self_attention_decode(
         cfg, p, x1, cache["k"], cache["v"], pos,
-        window=w if (w > 0 and cache["k"].shape[1] == w) else 0)
+        window=w if (w > 0 and cache["k"].shape[1] == w) else 0, ctx=ctx)
     return out, {"k": nk, "v": nv}
 
 
-def _decode_shared_block(cfg, p, x, slot, pos):
+def _decode_shared_block(cfg, p, x, slot, pos, ctx=None):
     """The hybrid's shared block on one token against its KV slot.
     Returns (x, new slot)."""
     h = apply_norm(cfg, p["norm1"], x)
-    out, slot = _decode_mixer(cfg, "A", p["attn"], h, slot, pos)
+    out, slot = _decode_mixer(cfg, "A", p["attn"], h, slot, pos, ctx)
     x = x + out
-    x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+    x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x), ctx)
     return x, slot
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, Any],
-                token, pos):
+                token, pos, *, ctx=None):
     """One decode step. token: (B,) integer; pos: int or 0-d integer
-    tensor, the position.
+    tensor, the position. Under ``ctx`` the params are this rank's
+    blocks, the cache this rank's (``init_cache(..., ctx=)``), and every
+    layer runs tensor-parallel over ``model`` as in ``forward``.
 
-    Returns (logits (B, vocab_padded), new_cache).
+    Returns (logits (B, vocab_padded), new_cache); the logits are whole
+    on every rank.
     """
     plan = make_plan(cfg)
-    x = embed_tokens(params["embed"], token[:, None]).to(dtype_of(cfg.dtype))
+    x = embed_tokens(params["embed"], token[:, None],
+                     split(ctx, cfg.d_model)).to(dtype_of(cfg.dtype))
     pos = attn.pos_tensor(pos, x.device)
     new_layers = []
     new_shared = list(cache.get("shared", ()))
@@ -597,15 +644,16 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, Any],
         p, code, period_end = _layer_param_at(params, plan, idx)
         h = apply_norm(cfg, p["norm1"], x)
         mix, nc = _decode_mixer(cfg, code, p["mixer"], h,
-                                cache["layers"][idx], pos)
+                                cache["layers"][idx], pos, ctx)
         new_layers.append(nc)
-        x, _ = _apply_ffn(cfg, p, x + mix)
+        x, _ = _apply_ffn(cfg, p, x + mix, ctx)
         if plan.shared_attn and period_end:
             app = (idx - n_lead) // per
             x, new_shared[app] = _decode_shared_block(
-                cfg, params["shared_attn"], x, new_shared[app], pos)
+                cfg, params["shared_attn"], x, new_shared[app], pos, ctx)
     x = apply_norm(cfg, params["final_norm"], x)
-    logits = unembed(params["embed"], x)[:, 0]
+    logits = gather_vocab(unembed(params["embed"], x, ctx)[:, 0],
+                          cfg.vocab_padded, ctx)
     new_cache: Dict[str, Any] = {"layers": tuple(new_layers)}
     if plan.shared_attn:
         new_cache["shared"] = tuple(new_shared)

@@ -185,9 +185,10 @@ def make_plain_train_step(api: ModelApi, opt: Optimizer,
                           mesh=None) -> Callable:
     """Lossless sync: ``step(state, batch, lr) -> (state, {"loss"})``.
     Without a mesh, one process takes the whole batch. With one, each
-    rank takes its block of dim 0 of the global batch over the mesh's
-    data axes (pod, data), and the loss and the gradients are the mean
-    over the whole batch (``_mean_loss_and_grads``, ``all_reduce``);
+    rank takes its block of dim 0 of the global batch (of dim 1 of a
+    VLM's ``positions3``) over the mesh's data axes (pod, data), and the
+    loss and the gradients are the mean over the whole batch
+    (``_mean_loss_and_grads``, ``all_reduce``);
     over a ``model`` axis the model runs tensor-parallel on the state's
     blocks."""
     axes = dp_axes(mesh) if mesh is not None else ()
@@ -203,8 +204,11 @@ def make_plain_train_step(api: ModelApi, opt: Optimizer,
             batch = tree_map(lambda x: _to(x, dev), batch)
             loss, grads = _loss_and_grads(api, state.params, batch)
         else:
+            # the M-RoPE ids (3, B, S) carry the batch on dim 1
             batch = tree_map_with_path(
-                lambda path, x: _block(x, split, mesh, dev), batch)
+                lambda path, x: _block(x, (None, *split) if path[-1]
+                                       == "positions3" else split, mesh,
+                                       dev), batch)
             loss, grads = _mean_loss_and_grads(api, state.params, batch,
                                                ctx, mesh, axes)
         updates, opt_state = opt.update(grads, state.opt_state,
@@ -294,8 +298,8 @@ def make_ltp_train_step(api: ModelApi, opt: Optimizer, mesh,
                                            mesh, inner)
         return ls.psum(loss.clone(), mesh, worker_axes) / n_workers, grads
 
-    def zero_step(state: TrainState, batch, frac, seed, lr, uniforms):
-        loss, grads = local(state, batch)
+    def zero_finish(state: TrainState, loss, grads, frac, seed, lr,
+                    uniforms):
         deltas, m_pkts, realized = ls.masked_rs_update_leafwise(
             grads, state.params, state.opt_state["m_pkts"], seed, frac, ltp,
             mesh, worker_axes, n_workers, lr, uniforms=uniforms,
@@ -312,10 +316,10 @@ def make_ltp_train_step(api: ModelApi, opt: Optimizer, mesh,
                            {"m_pkts": m_pkts}, state.step + 1),
                 {"loss": loss, "delivered_frac": realized})
 
-    def step(state: TrainState, batch, frac, seed, lr, *, uniforms=None):
+    def finish(state: TrainState, loss, grads, frac, seed, lr, *,
+               uniforms=None):
         if isinstance(state.opt_state, dict) and "m_pkts" in state.opt_state:
-            return zero_step(state, batch, frac, seed, lr, uniforms)
-        loss, grads = local(state, batch)
+            return zero_finish(state, loss, grads, frac, seed, lr, uniforms)
         synced, realized = ls.masked_psum_leafwise(
             grads, seed, frac, ltp, mesh, worker_axes, n_workers,
             uniforms=uniforms, specs=specs)
@@ -325,4 +329,15 @@ def make_ltp_train_step(api: ModelApi, opt: Optimizer, mesh,
                            state.step + 1),
                 {"loss": loss, "delivered_frac": realized})
 
+    def step(state: TrainState, batch, frac, seed, lr, *, uniforms=None):
+        # no name here holds the gradients, so the ZeRO variant frees
+        # them once their packets are scattered
+        return finish(state, *local(state, batch), frac, seed, lr,
+                      uniforms=uniforms)
+
+    # the two halves, for a caller that counts them apart
+    # (``launch/dryrun.py``): ``local(state, batch) -> (loss, grads)``,
+    # this rank's loss and gradient; ``finish(state, loss, grads, frac,
+    # seed, lr, *, uniforms=None)``, the sync and the update
+    step.local, step.finish = local, finish
     return step

@@ -31,6 +31,15 @@ rank task ends with a planted fault: the same case with the
 rank-to-worker mapping reversed (``tp``: the model ranks' blocks
 swapped), which the tests require to disagree with the reference.
 
+The ``serve12`` and ``serve22`` rank tasks (``tests/
+test_torch_serve_sharded.py``) serve ``SERVE_MODELS`` tensor-parallel on
+(data 1, model 2) and (data 2, model 2): prefill, then decode from
+``init_cache`` under ``ctx``, from params and inputs the test wrote (no
+JAX process: the test runs the reference itself). The ``dry12`` and
+``dry22`` tasks (``tests/test_torch_dryrun.py``) run REDUCED
+deepseek-v2's psum and ZeRO LTP steps and count their collectives by
+wrapping ``torch.distributed`` (``PyCollectives``) and the gate's calls.
+
 The ``train`` reference runs ``make_ltp_train_step`` with its
 ``shard_map`` check off. With the check on, as the JAX package calls it,
 JAX 0.9 hands each worker the gradient of its replicated params already
@@ -125,6 +134,18 @@ Z_JAX = {"z13_a": ("smollm", "mixtral_masked"),
 # (tests/test_torch_trainer_13e.py): its step on (data 2, model 1), and
 # on (2, 2) from its init moved by one ulp (``nudged``)
 Z_WITNESS = ("mixtral_bf16", "zero", "count")
+
+
+# the sharded serve path's models and meshes
+SERVE_MODELS = ("smollm_360m", "mixtral_8x22b", "deepseek_v2_236b",
+                "falcon_mamba_7b", "zamba2_7b", "whisper_small")
+SERVE_MESH = {"serve12": (1, 2), "serve22": (2, 2)}
+SERVE_B, SERVE_S, SERVE_STEPS = 4, 16, 8
+# the dry-run's collectives against real ranks: REDUCED deepseek-v2 at
+# float32, one LTP step of each variant, a (B, S) global batch
+DRY_MESH = {"dry12": (1, 2), "dry22": (2, 2)}
+DRY_ARCH, DRY_B, DRY_S = "deepseek_v2_236b", 4, 16
+DRY_VARIANTS = ("psum", "zero")
 
 
 def env() -> dict:
@@ -1260,6 +1281,231 @@ def rank_collectives() -> dict:
     return rec
 
 
+# ----------------------------------------------------------------------------
+# the sharded serve path and the dry-run's counts
+# ----------------------------------------------------------------------------
+
+
+def serve_cfg(get_reduced, arch: str):
+    return get_reduced(arch).replace(dtype="float32")
+
+
+def serve_inputs(cfg, seed: int = 0) -> dict:
+    """The prefill's inputs (``tokens``, and whisper's ``frames``) and
+    the decode's tokens, numpy, from a seed."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab, (SERVE_B, SERVE_S))
+           .astype(np.int32),
+           "decode": rng.integers(0, cfg.vocab, (SERVE_B, SERVE_STEPS))
+           .astype(np.int32)}
+    if cfg.family == "audio":
+        out["frames"] = (rng.normal(size=(SERVE_B, cfg.encoder_frames,
+                                          cfg.d_model)) * 0.02
+                         ).astype(np.float32)
+    return out
+
+
+def cache_code(cfg, name: str) -> str:
+    """The mixer code a cache leaf of ``name`` belongs to
+    (``sharding.cache_spec``)."""
+    if cfg.family == "audio":
+        return "X"
+    if name in ("ckv", "krope"):
+        return "L"
+    if name in ("h", "conv"):
+        return "M2" if "M2" in cfg.pattern_layers else "M"
+    return "A"
+
+
+def gather_cache(cfg, cache, mesh):
+    """A rank's (decode or prefill) cache made global: each leaf that
+    ``cache_spec`` splits gathered over ``model`` (Mamba-2's ``conv``:
+    its ``x`` blocks gathered, ``B`` and ``C`` its own); numpy leaves in
+    tree order, ``None`` leaves (an SSM layer's prefill) left out."""
+    import torch  # noqa: F401
+    from repro_torch.models.sharding import all_gather_dim, cache_segments, \
+        cache_spec, model_dim
+    from repro_torch.tree import tree_leaves_with_path
+
+    nm = mesh.size(mesh.mesh_dim_names.index("model"))
+    group = mesh.get_group("model")
+    out = []
+    for path, x in tree_leaves_with_path(cache):
+        if x is None:
+            continue
+        name = path[-1]
+        code = cache_code(cfg, name)
+        dim = model_dim(cache_spec(cfg, code, name, x.dim(), nm))
+        segs = cache_segments(cfg, code, name)
+        if dim is not None and segs is None:
+            x = all_gather_dim(x, group, nm, dim)
+        elif dim is not None:
+            w = segs[0][0] // nm
+            x = torch.cat([all_gather_dim(x[..., :w], group, nm, dim),
+                           x[..., w:]], dim=-1)
+        out.append(x.numpy())
+    return out
+
+
+def _rows(x, di: int, nd: int, dim: int = 0):
+    size = x.shape[dim] // nd
+    return np.take(x, range(di * size, (di + 1) * size), axis=dim)
+
+
+def rank_serve(z: dict, task: str) -> dict:
+    """Each of ``SERVE_MODELS`` served on this rank's block: the params
+    from ``z`` sharded over ``model``, this rank's rows of the batch over
+    ``data``; the prefill's logits (whole) and its cache gathered over
+    ``model``; ``SERVE_STEPS`` decode steps from ``init_cache(...,
+    ctx=)`` fed ``z``'s tokens, their logits, the local cache's shapes
+    and the cache gathered; and (decoder-only) the forward's logits on
+    the same tokens, each sequence alone."""
+    import torch
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build
+    from repro_torch.models.sharding import ShardCtx, gather, shard_params
+    from repro_torch.train.trainer import model_layout
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    nd, nm = SERVE_MESH[task]
+    mesh = make_host_mesh(nd, nm)
+    ctx = ShardCtx(mesh)
+    di = mesh.get_local_rank("data")
+    rec = {}
+    for arch in SERVE_MODELS:
+        cfg = serve_cfg(get_reduced, arch)
+        api = build(cfg)
+        shapes = api.init(None, device="meta")
+        n = len(tree_leaves(shapes))
+        params = tree_unflatten(shapes, [
+            torch.as_tensor(z[f"{arch}/param/{i}"]) for i in range(n)])
+        params = shard_params(params, model_layout(api, mesh), mesh)
+        inputs = {k: torch.as_tensor(_rows(z[f"{arch}/in/{k}"], di, nd))
+                  for k in ("tokens", "frames") if f"{arch}/in/{k}" in z}
+        toks = torch.as_tensor(_rows(z[f"{arch}/in/decode"], di, nd))
+        b = toks.shape[0]
+        with torch.no_grad():
+            logits, pc = api.prefill(params, inputs, ctx=ctx)
+            rec[f"{arch}/prefill_logits"] = logits.numpy()
+            for i, x in enumerate(gather_cache(cfg, pc, mesh)):
+                rec[f"{arch}/prefill_cache/{i}"] = x
+            cache = api.init_cache(b, SERVE_STEPS, torch.float32,
+                                   device="cpu", ctx=ctx)
+            for i, x in enumerate(tree_leaves(cache)):
+                rec[f"{arch}/cache_shape/{i}"] = np.asarray(x.shape)
+            out = []
+            for t in range(SERVE_STEPS):
+                lg, cache = api.decode_step(params, cache, toks[:, t], t,
+                                            ctx=ctx)
+                out.append(lg)
+            rec[f"{arch}/decode_logits"] = torch.stack(out, 1).numpy()
+            for i, x in enumerate(gather_cache(cfg, cache, mesh)):
+                rec[f"{arch}/decode_cache/{i}"] = x
+            if api.forward is not None:
+                fwd = torch.cat([gather(api.forward(
+                    params, {"tokens": toks[r:r + 1]}, ctx=ctx)[0], ctx, -1)
+                    for r in range(b)])
+                rec[f"{arch}/forward_logits"] = fwd.numpy()
+    return rec
+
+
+class PyCollectives:
+    """The calls and input bytes of ``torch.distributed``'s
+    ``all_reduce``, ``all_gather_into_tensor``, ``all_to_all_single`` and
+    ``reduce_scatter_tensor`` on each axis group of a mesh, counted by
+    wrapping the module's functions (as ``chip_smoke.py``'s
+    ``CollectiveCounter`` counts them)."""
+
+    INPUT_ARG = {"all_reduce": 0, "all_gather_into_tensor": 1,
+                 "all_to_all_single": 1, "reduce_scatter_tensor": 1}
+
+    def __init__(self, dist, mesh):
+        self.dist = dist
+        self.groups = {a: mesh.get_group(a) for a in mesh.mesh_dim_names}
+        self.orig = {n: getattr(dist, n) for n in self.INPUT_ARG}
+        self.counts = {}
+        for name, fn in self.orig.items():
+            setattr(dist, name, self._wrap(name, fn))
+
+    def _wrap(self, name, fn):
+        def counted(*args, **kw):
+            for a, group in self.groups.items():
+                if kw.get("group") is group:
+                    t = args[self.INPUT_ARG[name]]
+                    c = self.counts.setdefault(a, {}).setdefault(
+                        name, {"calls": 0, "bytes": 0})
+                    c["calls"] += 1
+                    c["bytes"] += t.numel() * t.element_size()
+            return fn(*args, **kw)
+        return counted
+
+    def close(self):
+        for name, fn in self.orig.items():
+            setattr(self.dist, name, fn)
+
+
+def dry_batch(cfg) -> dict:
+    rng = np.random.default_rng(0)
+    return {k: rng.integers(0, cfg.vocab, (DRY_B, DRY_S)).astype(np.int64)
+            for k in ("tokens", "labels")}
+
+
+def rank_dry(task: str) -> dict:
+    """One LTP step of each of ``DRY_VARIANTS`` on REDUCED ``DRY_ARCH`` at
+    float32 on ``DRY_MESH[task]`` (``sync_backend="cuda"``, the gate's
+    plain version on the CPU), its collectives counted by
+    ``PyCollectives`` and the gate's calls (``kernels.dropfill.dropfill``,
+    whose launches ``LAUNCHES`` counts on the card); as JSON."""
+    import json
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.config import LTPConfig
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build
+    from repro_torch.optim import sgd_momentum
+    from repro_torch.train.trainer import init_state, make_ltp_train_step, \
+        zero_opt_state
+
+    nd, nm = DRY_MESH[task]
+    mesh = make_host_mesh(nd, nm)
+    cfg = get_reduced(DRY_ARCH).replace(dtype="float32")
+    api, ltp = build(cfg), LTPConfig(sync_backend="cuda")
+    batch = {k: torch.as_tensor(v) for k, v in dry_batch(cfg).items()}
+    gate = kops._df.dropfill
+    calls = [0]
+
+    def counted_gate(*a, **kw):
+        calls[0] += 1
+        return gate(*a, **kw)
+
+    rec = {}
+    for variant in DRY_VARIANTS:
+        params = api.init(torch.Generator().manual_seed(0), device="cpu")
+        opt = sgd_momentum()
+        state = init_state(api, opt, params=params, mesh=mesh)
+        if variant == "zero":
+            state.opt_state = zero_opt_state(params, ltp, mesh, ("data",))
+        step = make_ltp_train_step(api, opt, mesh, ltp, ("data",),
+                                   {k: ("data",) for k in batch})
+        frac = torch.full((nd,), 0.9)
+        counter = PyCollectives(dist, mesh)
+        kops._df.dropfill = counted_gate
+        calls[0] = 0
+        try:
+            step(state, batch, frac, 1, 0.1)
+        finally:
+            counter.close()
+            kops._df.dropfill = gate
+        rec[variant] = {"collectives": counter.counts, "gate": calls[0]}
+    return {"json": np.asarray(json.dumps(rec))}
+
+
 def rank_main(task, rank, world, init, ref, out) -> None:
     import torch
     import torch.distributed as dist
@@ -1273,7 +1519,11 @@ def rank_main(task, rank, world, init, ref, out) -> None:
         for path in ref.split(os.pathsep):
             if os.path.exists(path):
                 z.update(np.load(path))
-        if task in TP_MESH or task in TPF_MESH:
+        if task in SERVE_MESH:
+            rec = rank_serve(z, task)
+        elif task in DRY_MESH:
+            rec = rank_dry(task)
+        elif task in TP_MESH or task in TPF_MESH:
             rec = rank_tp(z, int(world), task)
         elif task in Z_MESH:
             rec = rank_13e(z, task)
