@@ -2927,6 +2927,12 @@ TP_MODELS = [TP_MODEL,
 TP_DP_MODEL = {"arch": "smollm_360m", "reduced": False, "n_layers": 32,
                "dtype": "float32", "steps": 2, "batch": LM_BATCH,
                "seq": LM_SEQ, "lr": SHARDED_LR, "data_vocab": LM_DATA_VOCAB}
+# FSDP over data in the plain step: the same smollm-360m CONFIG at its
+# published widths (float32, 32 layers) on (data 2, model 1), the same two
+# ranks, SGD-momentum, 3 steps, held against the plain step at world size
+# 1 from the same init and batches, run in this process with its one-ulp
+# rounding control
+TP_FSDP_MODEL = dict(TP_DP_MODEL, steps=3, lr=SHARDED_LR, optimizer="sgdm")
 TP_REDUCED = ("smollm_360m", "mixtral_8x22b", "deepseek_v2_236b",
               "falcon_mamba_7b", "zamba2_7b")
 TP_CHILD_TIMEOUT_S = 900
@@ -3017,12 +3023,13 @@ def tp_expected_loss(cfg, labels=None) -> tuple:
 
 class CollectiveCounter:
     """Counts the calls and bytes of ``torch.distributed.all_reduce``,
-    ``all_gather_into_tensor`` and ``all_to_all_single`` on the groups of
-    ``axes`` of a mesh (bytes: the tensor each rank passes in), by
-    wrapping the functions of the module the port calls them through."""
+    ``all_gather_into_tensor``, ``all_to_all_single`` and
+    ``reduce_scatter_tensor`` on the groups of ``axes`` of a mesh (bytes:
+    the tensor each rank passes in), by wrapping the functions of the
+    module the port calls them through."""
 
     INPUT_ARG = {"all_reduce": 0, "all_gather_into_tensor": 1,
-                 "all_to_all_single": 1}
+                 "all_to_all_single": 1, "reduce_scatter_tensor": 1}
 
     def __init__(self, dist, mesh, axes=("model",)):
         self.dist = dist
@@ -3063,12 +3070,18 @@ class CollectiveCounter:
 
 def tp_train(torch, api, opt, mesh, params, backend, batches, frac, lr, *,
              uniforms=None, counter=None, profile=False, variant="psum",
-             worker_axes=("data",), keep_at=None, flops=False) -> dict:
+             worker_axes=("data",), keep_at=None, flops=False,
+             fsdp=False) -> dict:
     """``make_ltp_train_step`` (paper) from the GLOBAL ``params`` on
     ``mesh`` through ``backend``, over ``worker_axes`` (the batch split
     over the mesh's batch axes), the psum variant with ``opt`` or the
     ZeRO variant (``variant="zero"``: its own SGD-momentum), one step a
-    batch, the draws from seed 1 + step (or ``uniforms(step, state)``).
+    batch, the draws from seed 1 + step (or ``uniforms(step, state)``);
+    or (``variant="plain"``, ``backend`` and ``frac`` unused)
+    ``make_plain_train_step`` with ``opt`` (without a mesh one process
+    on the whole batch; with ``fsdp`` its state split over ``data``),
+    which also returns the bytes of a rank's state (``state_gb``) and,
+    with ``fsdp``, the state's ``FsdpCtx`` (``fsdp``).
     Every kernel's launch count is set to 0 just before the run and read
     just after. Returns the state's blocks, host ms a step, losses,
     delivered fractions, those launches, the peak memory (and what else
@@ -3088,19 +3101,25 @@ def tp_train(torch, api, opt, mesh, params, backend, batches, frac, lr, *,
     from repro_torch.kernels import randomk as rk_mod
     from repro_torch.models.sharding import dp_axes
     from repro_torch.train.trainer import init_state, make_ltp_train_step, \
-        zero_opt_state
+        make_plain_train_step, zero_opt_state
     from repro_torch.tree import tree_leaves, tree_map
 
     cuda = tree_leaves(params)[0].device.type == "cuda"
-    ltp = LTPConfig(sync_backend=backend)
-    state = init_state(api, opt, params=params, mesh=mesh)
-    if variant == "zero":
-        state.opt_state = zero_opt_state(params, ltp, mesh, worker_axes)
+    state = init_state(api, opt, params=params, mesh=mesh, fsdp=fsdp)
+    if variant == "plain":
+        plain = make_plain_train_step(api, opt, mesh)
+
+        def step(state, b, frac, seed, lr, uniforms=None):
+            return plain(state, b, lr)
+    else:
+        ltp = LTPConfig(sync_backend=backend)
+        if variant == "zero":
+            state.opt_state = zero_opt_state(params, ltp, mesh, worker_axes)
+        dp = dp_axes(mesh)
+        step = make_ltp_train_step(
+            api, opt, mesh, ltp, worker_axes,
+            {k: (dp[0] if len(dp) == 1 else dp,) for k in batches[0]})
     del params
-    dp = dp_axes(mesh)
-    step = make_ltp_train_step(
-        api, opt, mesh, ltp, worker_axes,
-        {k: (dp[0] if len(dp) == 1 else dp,) for k in batches[0]})
     other = 0.0
     if cuda:
         gc.collect()
@@ -3124,7 +3143,8 @@ def tp_train(torch, api, opt, mesh, params, backend, batches, frac, lr, *,
         u = None if uniforms is None else uniforms(s, state)
         state, m = step(state, b, frac, 1 + s, lr, uniforms=u)
         losses.append(float(m["loss"]))
-        delivered.append(float(m["delivered_frac"]))
+        if "delivered_frac" in m:
+            delivered.append(float(m["delivered_frac"]))
         if cuda:
             torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
@@ -3139,6 +3159,10 @@ def tp_train(torch, api, opt, mesh, params, backend, batches, frac, lr, *,
            "step_ms": [t * 1e3 for t in step_s],
            "median_step_ms": st.median(step_s[1:] or step_s) * 1e3,
            "loss": losses, "delivered": delivered}
+    if variant == "plain":
+        out["state_gb"] = state_gb(state)
+    if fsdp:
+        out["fsdp"] = state.fsdp
     if cuda:
         out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
         out["other_allocated_gb"] = other
@@ -3395,11 +3419,92 @@ def tp_dp_model(torch, dist, spec: dict, dev, t_start: float) -> dict:
     return rec
 
 
+def state_gb(state) -> dict:
+    """The bytes (GB) of a train state's params, their gradients (one
+    leaf a param, alike) and its optimizer state."""
+    from repro_torch.tree import tree_leaves
+
+    def gb(tree):
+        return sum(x.numel() * x.element_size()
+                   for x in tree_leaves(tree)) / 1e9
+
+    p = gb(state.params)
+    return {"params": p, "grads": p, "optimizer_state": gb(state.opt_state)}
+
+
+def tp_fsdp_model(torch, dist, spec: dict, dev, t_start: float) -> dict:
+    """``spec`` (``TP_FSDP_MODEL`` with ``ws1``, the world-size-1 plain
+    run's params at its last step, saved) on (data 2, model 1) over the
+    process group: the LM phase's init (a CPU generator seeded 0),
+    SGD-momentum, the plain step with FSDP over ``data`` (``tp_train``),
+    each rank on its half of the global batch. Returns its numbers (the
+    ``data`` axis's collectives a step), the digest of its gathered
+    params and their distance to ``ws1``."""
+    from repro_torch.launch.mesh import _mesh
+    from repro_torch.models import build
+    from repro_torch.models.sharding import gather_params
+    from repro_torch.optim import sgd_momentum
+
+    mesh = _mesh((2, 1), ("data", "model"))
+    api = build(tp_config(spec))
+    rec = {"mesh": {"data": 2, "model": 1},
+           "waited_s": wait_for(spec["ws1"], t_start)}
+    counter = CollectiveCounter(dist, mesh, ("data",))
+    try:
+        t0 = time.perf_counter()
+        params = api.init(torch.Generator().manual_seed(0), device=dev)
+        r = tp_train(torch, api, sgd_momentum(), mesh, params, None,
+                     tp_batches(spec), None, spec["lr"], variant="plain",
+                     fsdp=True, counter=counter)
+        del params
+    finally:
+        counter.close()
+    r.pop("delivered")
+    full = gather_params(r.pop("params"), r.pop("fsdp").specs, mesh)
+    got = against_saved(torch, full, spec["ws1"], dev)
+    del full
+    r["seconds"] = time.perf_counter() - t0
+    r["steps_seconds"] = sum(r["step_ms"]) / 1e3
+    rec.update(r, digest=got["digest"], d_ws1=got["d_saved"])
+    gc.collect()
+    if dev != "cpu":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def tp_fsdp_ws1(torch, dev) -> tuple:
+    """``TP_FSDP_MODEL``'s plain step at world size 1 in this process,
+    from its init and from it nudged by one ulp (the rounding control):
+    (its numbers, its params at the last step on the host)."""
+    from repro_torch.models import build
+    from repro_torch.optim import sgd_momentum
+    from repro_torch.tree import tree_leaves
+
+    api = build(tp_config(TP_FSDP_MODEL))
+    batches = tp_batches(TP_FSDP_MODEL)
+    runs = {}
+    for nudge in (0, 1):
+        params = api.init(torch.Generator().manual_seed(0), device=dev)
+        if nudge:
+            params = nudged(torch, params, 2)
+        runs[nudge] = tp_train(torch, api, sgd_momentum(), None, params,
+                               None, batches, None, TP_FSDP_MODEL["lr"],
+                               variant="plain")
+        del params
+    kept = [x.cpu() for x in tree_leaves(runs[0]["params"])]
+    part = {k: runs[0][k] for k in ("state_gb", "loss", "step_ms",
+                                    "median_step_ms", "launches")}
+    part["peak_memory_gb"] = runs[0].get("peak_memory_gb")
+    part["rounding_control_max_abs_diff"] = distance(runs[0].pop("params"),
+                                                     runs[1].pop("params"))
+    return part, kept
+
+
 def tp_full_rank(torch, dist, spec: dict) -> dict:
     """One of the two ranks of the full-width runs: each model of
     ``spec["models"]`` in turn (``tp_full_model``) on (data 1, model 2),
-    then ``spec["dp"]`` (``tp_dp_model``). Returns each model's
-    numbers."""
+    then ``spec["dp"]`` (``tp_dp_model``) and ``spec["fsdp"]``
+    (``tp_fsdp_model``). Returns each model's numbers."""
     from repro_torch.launch.mesh import make_host_mesh
 
     dev = spec["device"]
@@ -3419,6 +3524,7 @@ def tp_full_rank(torch, dist, spec: dict) -> dict:
     finally:
         counter.close()
     rec["dp"] = tp_dp_model(torch, dist, spec["dp"], dev, t0)
+    rec["fsdp"] = tp_fsdp_model(torch, dist, spec["fsdp"], dev, t0)
     return rec
 
 
@@ -3675,7 +3781,12 @@ def run_tp_phase(torch, timer, launches_of, ws1, *, device="cuda") -> tuple:
     ranks on (pod 1, data 2, model 1) train the sharded phase's smollm-360m
     (``TP_DP_MODEL``) from its init, held against that phase's world-size-1
     run (``ws1``: its params after step 2, its losses and delivered
-    fractions to there, and its rounding control). Meanwhile four gloo
+    fractions to there, and its rounding control), then the same
+    smollm-360m with FSDP over ``data`` on (data 2, model 1)
+    (``TP_FSDP_MODEL``: the plain step, SGD-momentum, 3 steps), held
+    against the plain step at world size 1 from the same init and batches,
+    which this process runs after the (1, 1) runs with its rounding
+    control (``tp_fsdp_ws1``). Meanwhile four gloo
     ranks run ``TP_REDUCED_RUNS`` on the card, and four more on the CPU
     twice, from the init and from it nudged (``tp_reduced_rank``).
 
@@ -3689,7 +3800,11 @@ def run_tp_phase(torch, timer, launches_of, ws1, *, device="cuda") -> tuple:
     there where a leaf is split (the SSM families' all-to-all too), none
     for papernet; the (pod 1, data 2) run the same against ``ws1``, its
     gate once a leaf a step a rank and its gradients all-reduced over
-    ``data``; the REDUCED
+    ``data``; the FSDP run's params within twice its world-size-1 twin's
+    rounding control, its losses within rtol 1e-3, no kernel launched,
+    its weights all-gathered and its gradients reduce-scattered over
+    ``data``, a rank's params, gradients and momentum at most 0.55 of
+    world size 1's; the REDUCED
     CUDA ranks against the CPU ranks within twice the CPU rounding
     control, every rank of a run holding the same global params. Then
     the gate (``sharded_gate_rows``) at Mixtral's and DeepSeek's layer's
@@ -3728,6 +3843,7 @@ def run_tp_phase(torch, timer, launches_of, ws1, *, device="cuda") -> tuple:
         dp = dict(TP_DP_MODEL, ws1=f"{tmp}/ws1.pt")
         torch.save(ws1["params"], dp["ws1"] + ".part")
         os.replace(dp["ws1"] + ".part", dp["ws1"])
+        fsdp = dict(TP_FSDP_MODEL, ws1=f"{tmp}/fsdp_ws1.pt")
         try:
             # the REDUCED ranks first: they take the CPU while this
             # process takes the card
@@ -3741,7 +3857,7 @@ def run_tp_phase(torch, timer, launches_of, ws1, *, device="cuda") -> tuple:
             # and the (1, 2) ranks, which wait for the (1, 1) runs' params
             procs["full"] = start_tp_ranks(2, {
                 "kind": "full", "device": device, "models": models,
-                "dp": dp}, tmp, "full")
+                "dp": dp, "fsdp": fsdp}, tmp, "full")
             gc.collect()
             torch.cuda.empty_cache()
             dev, tmp_pg = init_distributed(
@@ -3764,6 +3880,14 @@ def run_tp_phase(torch, timer, launches_of, ws1, *, device="cuda") -> tuple:
                     gc.collect()
                     torch.cuda.empty_cache()
                     part["model1_seconds"] = time.perf_counter() - t1
+                # the FSDP run's twin: the plain step at world size 1
+                t1 = time.perf_counter()
+                fsdp_one, kept = tp_fsdp_ws1(torch, dev)
+                torch.save(kept, fsdp["ws1"] + ".part")
+                del kept
+                gc.collect()
+                torch.cuda.empty_cache()
+                fsdp_one["seconds"] = time.perf_counter() - t1
             finally:
                 dist.destroy_process_group()
                 if tmp_pg is not None:
@@ -3775,6 +3899,7 @@ def run_tp_phase(torch, timer, launches_of, ws1, *, device="cuda") -> tuple:
                 for key in ("one", "one_zero", "serve_one"):
                     if key in m:
                         os.replace(m[key] + ".part", m[key])
+            os.replace(fsdp["ws1"] + ".part", fsdp["ws1"])
             t1 = time.perf_counter()
             line["model1_seconds"] = t1 - t0
             outs = finish_tp_ranks(procs)
@@ -3949,6 +4074,46 @@ def run_tp_phase(torch, timer, launches_of, ws1, *, device="cuda") -> tuple:
         by_model["smollm_360m_data2"] = sum(a["launches"]["dropfill"]
                                             for a in dps)
 
+        # FSDP over data in the plain step: (data 2, model 1) against the
+        # plain step at world size 1
+        fs = [rk["fsdp"] for rk in full]
+        one_gb = sum(fsdp_one["state_gb"].values())
+        for r, a in enumerate(fs):
+            calls = a["data_collectives"]["calls_per_step"]
+            share = sum(a["state_gb"].values()) / one_gb
+            if not (a["launches"] == launches_of()
+                    and calls["all_gather_into_tensor"] > 0
+                    and calls["reduce_scatter_tensor"] > 0
+                    and share <= 0.55
+                    and all(math.isfinite(x) for x in a["loss"])
+                    and all(abs(x - y) <= 1e-3 * abs(y) for x, y in zip(
+                        a["loss"], fsdp_one["loss"]))):
+                raise AssertionError(
+                    f"tp fsdp (data 2) rank {r}: launches {a['launches']}, "
+                    f"data collectives {a['data_collectives']}, state "
+                    f"{a['state_gb']} GB ({share:.3f} of world size 1's), "
+                    f"losses {a['loss']} vs {fsdp_one['loss']}")
+        if len({a["digest"] for a in fs}) != 1:
+            raise AssertionError("tp fsdp (data 2): the ranks' gathered "
+                                 "params differ")
+        d_fs = max(a["d_ws1"] for a in fs)
+        ctl_fs = fsdp_one["rounding_control_max_abs_diff"]
+        if not d_fs <= 2 * ctl_fs:
+            raise AssertionError(f"tp fsdp (data 2) vs world size 1: "
+                                 f"{d_fs:.4e}, over twice the rounding "
+                                 f"control's {ctl_fs:.4e}")
+        line["fsdp"] = {
+            "config": f"{TP_FSDP_MODEL['arch']} CONFIG, float32, 32 layers",
+            "step": "make_plain_train_step, init_state(fsdp=True)",
+            **{k: TP_FSDP_MODEL[k] for k in ("steps", "batch", "seq", "lr",
+                                             "optimizer")},
+            "mesh": {"data": 2, "model": 1}, "world_size": 2,
+            "backend": "gloo", "ranks": fs, "world_size_1": fsdp_one,
+            "state_share_of_world_size_1": [
+                sum(a["state_gb"].values()) / one_gb for a in fs],
+            "rounding": {"vs_world_size_1_max_abs_diff": d_fs,
+                         "rounding_control_max_abs_diff": ctl_fs}}
+
         # the REDUCED runs: the card against the CPU
         red = {"meshes": {"": {"data": 2, "model": 2},
                           "zero/": {"data": 2, "model": 2},
@@ -4032,7 +4197,9 @@ DRYRUN_ARCHS = {"dense": "smollm_360m", "vlm": "qwen2_vl_72b",
                 "hybrid": "zamba2_7b", "audio": "whisper_small"}
 DRYRUN_ROWS = [(arch, shape, shape == "train_4k")
                for arch in DRYRUN_ARCHS.values()
-               for shape in ("train_4k", "decode_32k")]
+               for shape in ("train_4k", "decode_32k")] + [
+    # the plain step, its weights split over data (FSDP)
+    ("deepseek_v2_236b", "train_4k", False)]
 DRYRUN_TOL = {"flops": 1e-3, "peak": 0.15}
 
 
@@ -4069,15 +4236,15 @@ def start_dryrun_rows(tmp: str) -> list:
     return procs
 
 
-def _model_axis(rec: dict) -> dict:
-    """A dry-run record's ``model``-axis collectives as
+def _model_axis(rec: dict, axis: str = "model") -> dict:
+    """A dry-run record's ``axis`` collectives as
     ``{"calls_per_step", "bytes_per_step"}`` over ``CollectiveCounter``'s
     kinds (any other kind counted there fails the comparison)."""
-    by = rec["cost"]["by_axis"].get("model", {})
+    by = rec["cost"]["by_axis"].get(axis, {})
     extra = set(by) - set(CollectiveCounter.INPUT_ARG)
     if extra:
-        raise AssertionError(f"dryrun: model-axis collectives {extra} that "
-                             f"the ranks do not count")
+        raise AssertionError(f"dryrun: {axis}-axis collectives {extra} "
+                             f"that the ranks do not count")
     return {"calls_per_step": {k: by.get(k, {}).get("calls", 0)
                                for k in CollectiveCounter.INPUT_ARG},
             "bytes_per_step": {k: by.get(k, {}).get("bytes", 0)
@@ -4095,9 +4262,12 @@ def run_dryrun_phase(torch, tp_line: dict, rows_procs: list) -> dict:
     launches a step, the predicted peak within 15 % of the measured
     ``peak_memory_gb`` less what the card held beside the run
     (``other_allocated_gb``); and the (1, 1) step's FLOPs within 0.1 % of what
-    ``FlopCounterMode`` counted around one real (1, 1) step. Then the
+    ``FlopCounterMode`` counted around one real (1, 1) step. The FSDP
+    plain step of smollm-360m on (data 2, model 1) likewise: its ``data``
+    collectives equal to rank 0's and its peak within 15 %. Then the
     production rows (``DRYRUN_ROWS``) from the background processes,
-    every one OK."""
+    every one OK and the plain train rows split over ``data``
+    (``"fsdp": true``)."""
     from repro_torch.launch import dryrun
     from repro_torch.shapes import InputShape
 
@@ -4180,6 +4350,32 @@ def run_dryrun_phase(torch, tp_line: dict, rows_procs: list) -> dict:
             raise AssertionError(f"dryrun {arch} (1, 1) FLOPs: "
                                  f"{out['model1_flops']}")
         line["configs"][arch] = out
+    # the plain step with FSDP over data on (data 2, model 1), against
+    # the tp phase's FSDP ranks (rank 0)
+    m = TP_FSDP_MODEL
+    got = tp_line["fsdp"]["ranks"][0]
+    shape = InputShape("tp_fsdp_train", m["seq"], m["batch"], "train")
+    rec = dryrun.run_one(m["arch"], shape.name, cfg=tp_config(m),
+                         shape=shape,
+                         mesh_shape=((2, 1), ("data", "model")))
+    if not rec["ok"]:
+        raise AssertionError(f"dryrun {m['arch']} fsdp: {rec['error']}\n"
+                             f"{rec['traceback']}")
+    pred, meas = _model_axis(rec, "data"), got["data_collectives"]
+    peak = got["peak_memory_gb"] - got["other_allocated_gb"]
+    row = {"fsdp": rec["fsdp"], "predicted_collectives": pred,
+           "measured_collectives": meas,
+           "predicted_peak_gb": rec["memory"]["peak"] / 1e9,
+           "measured_peak_gb": peak,
+           "predicted_state_gb": {k: rec["memory"][k] / 1e9 for k in (
+               "params", "grads", "optimizer_state")},
+           "measured_state_gb": got["state_gb"],
+           "flops": rec["cost"]["flops"], "bytes": rec["cost"]["bytes"],
+           "roofline": rec["roofline"], "lower_s": rec["lower_s"]}
+    line["configs"][f"{m['arch']}_fsdp"] = row
+    if not (rec["fsdp"] and pred == meas and abs(
+            row["predicted_peak_gb"] - peak) <= DRYRUN_TOL["peak"] * peak):
+        raise AssertionError(f"dryrun {m['arch']} fsdp: {row}")
     line["configs_seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     rows = []
@@ -4191,12 +4387,16 @@ def run_dryrun_phase(torch, tp_line: dict, rows_procs: list) -> dict:
             rows += [json.loads(x) for x in f]
     line["rows_wait_seconds"] = time.perf_counter() - t0
     line["rows"] = [{k: r.get(k) for k in (
-        "arch", "shape", "mesh", "step", "ltp", "ok", "skipped", "error",
-        "lower_s", "roofline")} | {
+        "arch", "shape", "mesh", "step", "ltp", "fsdp", "ok", "skipped",
+        "error", "lower_s", "roofline")} | {
         "flops": r.get("cost", {}).get("flops"),
         "collective_bytes": r.get("cost", {}).get("collective_bytes"),
+        "params_gb": r.get("memory", {}).get("params", 0) / 1e9,
         "peak_gb": r.get("memory", {}).get("peak", 0) / 1e9} for r in rows]
-    bad = [r for r in rows if not r["ok"] or "skipped" in r]
+    # the plain train step splits its weights over data; the LTP steps
+    # and the serve keep them whole there
+    bad = [r for r in rows if not r["ok"] or "skipped" in r or r["fsdp"]
+           != (r["step"] == "train_step" and not r["ltp"])]
     if bad or len(rows) != len(DRYRUN_ROWS):
         raise AssertionError(f"dryrun rows: {len(rows)} of "
                              f"{len(DRYRUN_ROWS)}, failed {bad}")

@@ -37,7 +37,6 @@ then agrees with the reference given the reference's draws.
 from __future__ import annotations
 
 import dataclasses
-import warnings
 from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -55,6 +54,7 @@ from repro_torch.models.sharding import (
     dp_axes,
     mesh_shape,
     model_dim,
+    reduce_scatter_dim,
     spec_at,
 )
 from repro_torch.tree import tree_leaves, tree_leaves_with_path, \
@@ -218,16 +218,8 @@ def psum_scatter(t: torch.Tensor, mesh,
     outermost)."""
     for a in axes:
         n = axis_size(mesh, a)
-        if n == 1:
-            continue
-        out = t.new_empty((t.shape[0] // n,) + tuple(t.shape[1:]))
-        with warnings.catch_warnings():
-            # torch 2.13 deprecates the name for reduce_scatter_single,
-            # which torch 2.11 lacks
-            warnings.simplefilter("ignore", FutureWarning)
-            dist.reduce_scatter_tensor(out, t.contiguous(),
-                                       group=mesh.get_group(a))
-        t = out
+        if n > 1:
+            t = reduce_scatter_dim(t, mesh.get_group(a), n, 0)
     return t
 
 
@@ -237,14 +229,8 @@ def all_gather(t: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
     ``all_gather_into_tensor`` an axis of size > 1)."""
     for a in reversed(tuple(axes)):
         n = axis_size(mesh, a)
-        if n == 1:
-            continue
-        out = t.new_empty((t.shape[0] * n,) + tuple(t.shape[1:]))
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore", FutureWarning)
-            dist.all_gather_into_tensor(out, t.contiguous(),
-                                        group=mesh.get_group(a))
-        t = out
+        if n > 1:
+            t = all_gather_dim(t, mesh.get_group(a), n, 0)
     return t
 
 

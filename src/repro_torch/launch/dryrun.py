@@ -25,9 +25,14 @@ failure is a ``FAIL`` and the exit code is 1.
 
 What the steps are:
 
-- train: ``make_plain_train_step`` (SGD-momentum), or with ``--ltp``
+- train: ``make_plain_train_step`` (SGD-momentum) on the state of
+  ``init_state(..., fsdp=True)``, its
+  weights, gradients and momentum split over ``data`` as well as
+  ``model`` (``sharding.fsdp_specs``), as the reference lowers its plain
+  step (``fsdp = not ltp``); or with ``--ltp``
   ``make_ltp_train_step`` with the worker axes ``("data",)`` (``("pod",
-  "data")`` on the multi-pod mesh), the psum variant, or with
+  "data")`` on the multi-pod mesh), its weights whole over the workers,
+  the psum variant, or with
   ``--ltp-zero`` the ZeRO variant (``zero_opt_state``). The LTP step
   gets ``uniforms=`` (shape-only draws) and ``sync_backend="cuda"``, what
   ``"auto"`` picks on the card, so the gate is counted as its operator
@@ -44,9 +49,12 @@ Where the port differs from the reference's dry-run:
 - It lowers in the config's own dtype: the reference lowers its LTP step
   in float32 to work around an XLA:CPU check failure, which the port
   does not meet.
-- The plain step is data-parallel and tensor-parallel with no FSDP over
-  ``data`` (the record says ``"fsdp": false``); the reference shards its
-  weights over ``data``.
+- The prefill and decode hold each rank's ``model`` block whole on every
+  data rank (their records say ``"fsdp": false``); the reference's
+  ``param_specs`` splits their weights over ``data`` as well.
+- A stacked leaf's ``data`` dim is one of its period's dims
+  (``sharding.fsdp_specs``); the reference's ``spec_for`` takes the
+  periods' axis where the period count divides ``data``.
 - The tensors are ``meta`` tensors, not fake CUDA tensors: autograd over
   fake CUDA tensors needs a CUDA build of torch, and the dry-run runs on
   the CPU. Inside ``kernels._build.shape_only`` the kernels' wrappers
@@ -56,7 +64,9 @@ Where the port differs from the reference's dry-run:
 Depth: a stack of L identical periods costs ``c(1) + (L - 1) (c(2) -
 c(1))``, c(k) the step traced at k periods (the leading and trailing
 unstacked layers in both); the enc-dec stacks extrapolate each on its
-own. The LTP step's sync cuts each leaf into whole packets, which is
+own. The plain step, and the enc-dec's prefill and decode, extrapolate
+from c(2) and c(3) (``first_periods``).
+The LTP step's sync cuts each leaf into whole packets, which is
 not linear in the depth, so its half (``make_ltp_train_step``'s
 ``finish``) is traced once at the config's own depth on a gradient
 shaped like the params, and only the loss and gradient half
@@ -184,7 +194,7 @@ def _train(cfg: ModelConfig, shape: InputShape, mesh, *, ltp: bool,
 
     api, opt = build(cfg), sgd_momentum()
     params = api.init(None, device=DEVICE)
-    state = init_state(api, opt, params=params, mesh=mesh)
+    state = init_state(api, opt, params=params, mesh=mesh, fsdp=not ltp)
     batch = input_specs(cfg, shape)
     extra: Tuple = ()
     if not ltp:
@@ -308,24 +318,41 @@ def with_periods(cfg: ModelConfig, k: int) -> Optional[ModelConfig]:
     return cfg.replace(n_layers=n)
 
 
-def depth_plan(cfg: ModelConfig, full: bool = False):
+def depth_plan(cfg: ModelConfig, full: bool = False, first: int = 1):
     """``[(coefficient, config)]``: the step's cost is the sum of each
-    config's traced cost times its coefficient (module docstring)."""
+    config's traced cost times its coefficient (module docstring), from
+    the traces at ``first`` and ``first + 1`` periods (layers of each of
+    the enc-dec's stacks)."""
+    f = first
     if cfg.family == "audio":
         e, d = cfg.encoder_layers, cfg.n_layers
-        if full or (e <= 2 and d <= 2):
+        if full or (e <= f + 1 and d <= f + 1):
             return [(1, cfg)]
-        c11 = cfg.replace(encoder_layers=1, n_layers=1)
-        return [(1 - (e - 1) - (d - 1), c11),
-                (e - 1, cfg.replace(encoder_layers=2, n_layers=1)),
-                (d - 1, cfg.replace(encoder_layers=1, n_layers=2))]
+        base = cfg.replace(encoder_layers=f, n_layers=f)
+        return [(1 - (e - f) - (d - f), base),
+                (e - f, cfg.replace(encoder_layers=f + 1, n_layers=f)),
+                (d - f, cfg.replace(encoder_layers=f, n_layers=f + 1))]
     if cfg.family == "cnn" or full:
         return [(1, cfg)]
     n = make_plan(cfg).n_periods
-    c1, c2 = with_periods(cfg, 1), with_periods(cfg, 2)
-    if n <= 2 or c1 is None or c2 is None:
+    ca, cb = with_periods(cfg, f), with_periods(cfg, f + 1)
+    if n <= f + 1 or ca is None or cb is None:
         return [(1, cfg)]
-    return [(2 - n, c1), (n - 1, c2)]
+    return [(f + 1 - n, ca), (n - f, cb)]
+
+
+def first_periods(cfg: ModelConfig, kind: str, ltp: bool = False,
+                  **_) -> int:
+    """The shallower of the two depths ``lower`` traces a step at. The
+    plain step's peak under FSDP sits elsewhere at one period than at
+    more (its stacked gradient blocks grow past a fixed term from two
+    periods on), so it extrapolates from two and three. So do the
+    enc-dec's prefill and decode: their peak grows by less from one
+    decoder layer to two than from then on (REDUCED whisper-small:
+    0.99 MB, then 1.18 MB, then 1.26 MB a prefill layer)."""
+    if kind == "train":
+        return 1 if ltp else 2
+    return 2 if cfg.family == "audio" else 1
 
 
 def lower(kind: str, cfg: ModelConfig, shape: InputShape, mesh, *,
@@ -334,7 +361,7 @@ def lower(kind: str, cfg: ModelConfig, shape: InputShape, mesh, *,
     over the periods, ``depth_plan``) and its memory (the state's and
     inputs' bytes at that depth, built and not run; the peak
     extrapolated like the cost)."""
-    plan = depth_plan(cfg, full)
+    plan = depth_plan(cfg, full, first_periods(cfg, kind, **kw))
     # the LTP step's sync cuts each leaf into whole packets (and the ZeRO
     # variant pads them to a multiple of the workers), which is not
     # linear in the depth: its half is traced at the config's own depth
@@ -391,7 +418,8 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
     rec: Dict[str, Any] = {
         "arch": arch, "shape": shape_name, "mesh": mesh_name(sizes),
         "step": STEP_NAMES[shape.kind], "ltp": ltp or zero, "zero": zero,
-        "ok": False, "fsdp": False, "device": DEVICE, "rank": 0,
+        "ok": False, "fsdp": shape.kind == "train" and not (ltp or zero),
+        "device": DEVICE, "rank": 0,
         "dtype": cfg.dtype}
     sup, why = shape_supported(cfg, shape)
     if not sup:
@@ -413,7 +441,9 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
         rec["roofline"] = roofline_terms(rec, cfg.dtype)
         rec["depth"] = [{"coef": coef, "n_layers": c.n_layers,
                          "encoder_layers": c.encoder_layers}
-                        for coef, c in depth_plan(cfg)]
+                        for coef, c in depth_plan(
+                            cfg, first=first_periods(cfg, shape.kind,
+                                                     **kw))]
         rec["ok"] = True
     except Exception as e:  # noqa: BLE001 - a failed row is a FAIL record
         rec["error"] = f"{type(e).__name__}: {e}"

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.sharding import whole
 from repro_torch.tree import tree_map
 
 Params = Dict[str, Any]
@@ -100,8 +101,11 @@ def init(generator: torch.Generator, cfg: ModelConfig, *,
     return tree_map(lambda x: x.to(device=dev, dtype=torch.float32), params)
 
 
-def forward(cfg: ModelConfig, params: Params, images: torch.Tensor):
-    """images: (B, 32, 32, 3) float32 -> logits (B, classes)."""
+def forward(cfg: ModelConfig, params: Params, images: torch.Tensor, *,
+            fsdp=None):
+    """images: (B, 32, 32, 3) float32 -> logits (B, classes). ``fsdp``:
+    the leaves split over ``data`` (``fc`` alone) gathered once."""
+    params = whole(fsdp, params)
     x = images.permute(0, 3, 1, 2)
     st = params["stem"]
     x = F.relu(_chan_norm(_conv(x, st["conv"]), st["scale"], st["offset"]))
@@ -119,13 +123,14 @@ def forward(cfg: ModelConfig, params: Params, images: torch.Tensor):
 
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
-            ctx=None, ce_weight=None):
+            ctx=None, ce_weight=None, fsdp=None):
     """Mean cross-entropy, times ``ce_weight`` where one is given (a
     data-parallel step's share of the labels). ``ctx`` (a
     ``sharding.ShardCtx``) is taken and ignored: the layout splits
     nothing of the CNN over ``model``, so every model rank computes it
-    whole."""
-    logits = forward(cfg, params, batch["images"]).to(torch.float32)
+    whole. ``fsdp``: ``forward``'s."""
+    logits = forward(cfg, params, batch["images"], fsdp=fsdp).to(
+        torch.float32)
     labels = batch["labels"].to(torch.int64)
     logp = F.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels[:, None])[:, 0]

@@ -68,7 +68,7 @@ from repro_torch.models.layers import (
     norm_params,
     unembed,
 )
-from repro_torch.models.sharding import cache_zeros, copy_in, split
+from repro_torch.models.sharding import cache_zeros, copy_in, split, whole
 from repro_torch.models.transformer import _Remat, _unstack
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -176,10 +176,20 @@ def _remat_layer(layer, p: Params, positions, *inputs, span=None):
     return _Remat.apply(body, positions, *inputs, *tree_leaves(p))[0]
 
 
+def _gathered(layer, fsdp, stack: str):
+    """``layer(p, ...)`` on a layer of ``stack`` whose blocks are first
+    gathered over ``data`` (``fsdp``; inside a remat body, so the
+    recompute gathers them again); ``layer`` itself without ``fsdp``."""
+    if fsdp is None:
+        return layer
+    return lambda p, *a: layer(whole(fsdp, p, stack, period=True), *a)
+
+
 def encode(cfg: ModelConfig, params: Params, frames, *, remat: bool = True,
-           ctx=None):
+           ctx=None, fsdp=None):
     """frames: (B, F, d) stubbed frontend output -> (B, F, d). Remat is
-    skipped where grad mode is off."""
+    skipped where grad mode is off. ``fsdp``: each layer gathered over
+    ``data`` where it runs."""
     with record_function(ENCODER_SPAN):
         b, f, _ = frames.shape
         dt = dtype_of(cfg.dtype)
@@ -187,54 +197,59 @@ def encode(cfg: ModelConfig, params: Params, frames, *, remat: bool = True,
         x = frames.to(dt) + sinusoid(pos, cfg.d_model, dt)
         positions = pos.expand(b, f)
         use_remat = remat and torch.is_grad_enabled()
+        layer = _gathered(functools.partial(_enc_layer, cfg, ctx=ctx), fsdp,
+                          "enc_stack")
         for p in _unstack(params["enc_stack"], cfg.encoder_layers):
             if use_remat:
-                x = _remat_layer(functools.partial(_enc_layer, cfg,
-                                                   ctx=ctx), p,
-                                 positions, x, span=ENCODER_SPAN)
+                x = _remat_layer(layer, p, positions, x, span=ENCODER_SPAN)
             else:
-                x = _enc_layer(cfg, p, x, positions, ctx=ctx)
+                x = layer(p, x, positions)
         return apply_norm(cfg, params["enc_norm"], x)
 
 
 def decode_train(cfg: ModelConfig, params: Params, tokens, enc_out, *,
-                 remat: bool = True, last_only: bool = False, ctx=None):
+                 remat: bool = True, last_only: bool = False, ctx=None,
+                 fsdp=None):
     """Teacher-forced decoder over ``tokens`` (B, S) against ``enc_out``
     -> logits (B, S or 1, vocab_padded; under ``ctx`` this rank's vocab
     block where the padded vocab divides ``model``). Remat is skipped
-    where grad mode is off."""
+    where grad mode is off. ``fsdp``: the embedding gathered over
+    ``data`` once, each layer where it runs."""
     b, s = tokens.shape
-    x = embed_tokens(params["embed"], tokens, split(ctx, cfg.d_model)).to(
+    embed = whole(fsdp, params["embed"], "embed")
+    x = embed_tokens(embed, tokens, split(ctx, cfg.d_model)).to(
         dtype_of(cfg.dtype))
     pos = torch.arange(s, device=x.device)
     x = x + sinusoid(pos, cfg.d_model, x.dtype)
     positions = pos.expand(b, s)
     use_remat = remat and torch.is_grad_enabled()
+    layer = _gathered(functools.partial(_dec_layer, cfg, ctx=ctx), fsdp,
+                      "dec_stack")
     for p in _unstack(params["dec_stack"], cfg.n_layers):
         if use_remat:
             # enc_out is an input of the Function, not a closure: the
             # encoder's grads flow back through it
-            x = _remat_layer(functools.partial(_dec_layer, cfg, ctx=ctx),
-                             p, positions, x, enc_out)
+            x = _remat_layer(layer, p, positions, x, enc_out)
         else:
             # one alias a layer: its two cross K/V grads sum first, then
             # the layers' sums add up in order, as the Functions' grads
             # do under remat, so both paths give the same bits
-            x = _dec_layer(cfg, p, x, enc_out.view_as(enc_out), positions,
-                           ctx=ctx)
+            x = layer(p, x, enc_out.view_as(enc_out), positions)
     x = apply_norm(cfg, params["final_norm"], x)
     if last_only:
         x = x[:, -1:]
-    return unembed(params["embed"], x, ctx)
+    return unembed(embed, x, ctx)
 
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
-            remat: bool = True, ctx=None, ce_weight=None):
+            remat: bool = True, ctx=None, ce_weight=None, fsdp=None):
     """The decoder's mean cross-entropy, times ``ce_weight`` where one is
-    given (a data-parallel step's share of the label tokens)."""
-    enc_out = encode(cfg, params, batch["frames"], remat=remat, ctx=ctx)
+    given (a data-parallel step's share of the label tokens). ``fsdp``:
+    the params split over ``data`` too (``encode``, ``decode_train``)."""
+    enc_out = encode(cfg, params, batch["frames"], remat=remat, ctx=ctx,
+                     fsdp=fsdp)
     logits = decode_train(cfg, params, batch["tokens"], enc_out,
-                          remat=remat, ctx=ctx)
+                          remat=remat, ctx=ctx, fsdp=fsdp)
     loss = cross_entropy(logits, batch["labels"], cfg.vocab,
                          split(ctx, cfg.vocab_padded))
     return loss if ce_weight is None else loss * ce_weight

@@ -85,6 +85,14 @@ dim), with two exceptions:
 ``moe_gate`` (the router), the norm scales and every 1-D leaf are
 replicated, as ``spec_for`` says.
 
+FSDP over ``data`` (the reference's plain step under ``spec_for(...,
+fsdp=True)``): ``fsdp_specs`` adds a ``data`` dim to the ``model``
+layout, ``shard_params`` / ``gather_params`` take both axes, and the
+model code, given an ``FsdpCtx``, gathers each leaf's ``data`` blocks
+where it uses it (``whole``: all-gather forward, reduce-scatter of the
+gradient backward, since each data rank uses the leaf on its own block
+of the batch).
+
 Not carried over: ``param_shardings`` (``NamedSharding`` trees): a
 rank's block is a plain tensor (``shard_params``).
 """
@@ -269,13 +277,27 @@ _SSM_LEAVES = ("in_proj", "out_proj", "dt_proj")
 _STACKS = ("stack", "enc_stack", "dec_stack")
 
 
-def model_dim(spec: Spec) -> Optional[int]:
-    """The dim of ``spec`` sharded over ``model``, or ``None``."""
+def _names(entry) -> Tuple[str, ...]:
+    """The axis names of one spec entry."""
+    return (entry,) if isinstance(entry, str) else tuple(entry or ())
+
+
+def axis_dim(spec: Spec, axis: str) -> Optional[int]:
+    """The dim of ``spec`` sharded over ``axis``, or ``None``."""
     for dim, entry in enumerate(spec):
-        names = (entry,) if isinstance(entry, str) else tuple(entry or ())
-        if "model" in names:
+        if axis in _names(entry):
             return dim
     return None
+
+
+def model_dim(spec: Spec) -> Optional[int]:
+    """The dim of ``spec`` sharded over ``model``, or ``None``."""
+    return axis_dim(spec, "model")
+
+
+def data_dim(spec: Spec) -> Optional[int]:
+    """The dim of ``spec`` sharded over ``data`` (FSDP), or ``None``."""
+    return axis_dim(spec, "data")
 
 
 def segments_split(segments: Tuple[Tuple[int, bool], ...], nm: int) -> bool:
@@ -303,6 +325,44 @@ def model_specs(cfg: Any, params_shape: Any, mesh: Any) -> Any:
         s = spec_for(path, tuple(leaf.shape)[lead:], {"model": nm},
                      fsdp=False)
         return (None,) * lead + s if s else ()
+
+    return tree_map_with_path(spec, params_shape)
+
+
+def fsdp_specs(cfg: Any, params_shape: Any, mesh: Any) -> Any:
+    """The plain step's layout under FSDP over ``data``: each leaf's
+    ``model_specs`` dim, and a ``data`` dim where ``spec_for(...,
+    fsdp=True)`` gives one that the model layout leaves unsplit; where
+    it gives the dim the model layout splits (the ``embed`` table's
+    ``d_model`` columns), the leaf's other dim, if ``data`` divides it.
+    A stacked leaf takes one period's spec, as ``model_specs`` does;
+    the reference's ``spec_for`` takes the periods' axis for a weight
+    dim (ROADMAP §3). The replicated names and 1-D leaves get no
+    ``data`` dim."""
+    nd = axis_size(mesh, "data")
+    sizes = {"data": nd, "model": axis_size(mesh, "model")}
+    model = model_specs(cfg, params_shape, mesh)
+
+    def spec(path, leaf):
+        mspec = spec_at(model, path)
+        lead = 1 if path[0] in _STACKS else 0
+        shape = tuple(leaf.shape)
+        if (nd == 1 or _leaf_name(path) in _REPLICATED_SUFFIXES
+                or len(shape) - lead <= 1):
+            return mspec
+        m = model_dim(mspec)
+        d = data_dim(spec_for(path, shape[lead:], sizes, fsdp=True))
+        if d is not None:
+            d += lead
+        if d is not None and d == m:
+            other = [i for i in (lead, lead + 1) if i != m]
+            d = (other[0] if len(shape) - lead == 2
+                 and _fits(shape[other[0]], nd) else None)
+        if d is None:
+            return mspec
+        out = list(mspec or (None,) * len(shape))
+        out[d] = "data"
+        return tuple(out)
 
     return tree_map_with_path(spec, params_shape)
 
@@ -398,33 +458,56 @@ def all_gather_dim(t: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
     return out.movedim(0, dim).contiguous()
 
 
+def reduce_scatter_dim(t: torch.Tensor, group, n: int,
+                       dim: int) -> torch.Tensor:
+    """The sum of ``t`` over the ``n`` ranks of ``group``, of which this
+    rank keeps its block on ``dim`` (no autograd)."""
+    x = t.movedim(dim, 0).contiguous()
+    out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+    with warnings.catch_warnings():
+        # torch 2.13 deprecates the name for reduce_scatter_single, which
+        # torch 2.11 lacks
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.reduce_scatter_tensor(out, x, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def _split_dims(spec: Spec, mesh: Any):
+    """``[(dim, axis, size)]`` of each axis of size > 1 that ``spec``
+    splits, outermost first."""
+    return [(dim, a, axis_size(mesh, a)) for dim, entry in enumerate(spec)
+            for a in _names(entry) if axis_size(mesh, a) > 1]
+
+
 def shard_params(params: Any, specs: Any, mesh: Any) -> Any:
     """This rank's block of every leaf of the GLOBAL ``params`` that
-    ``specs`` (``model_specs``) shards over ``model``, as a copy (the
-    global tree can be freed); other leaves as they are."""
-    nm = axis_size(mesh, "model")
-    if nm == 1:
+    ``specs`` (``model_specs``, or ``fsdp_specs`` with ``data`` too)
+    shards, as a copy (the global tree can be freed); other leaves as
+    they are. ``specs`` ``None`` (a layout that splits nothing): the
+    tree itself."""
+    if specs is None:
         return params
-    idx = mesh.get_local_rank("model")
 
     def take(path, leaf):
-        dim = model_dim(spec_at(specs, path))
-        return leaf if dim is None else block_of(leaf, dim, nm, idx).clone()
+        split_ = _split_dims(spec_at(specs, path), mesh)
+        for dim, a, n in split_:
+            leaf = block_of(leaf, dim, n, mesh.get_local_rank(a))
+        return leaf.clone() if split_ else leaf
 
     return tree_map_with_path(take, params)
 
 
 def gather_params(params: Any, specs: Any, mesh: Any) -> Any:
     """The global tree from every rank's blocks (``shard_params``'s
-    inverse); a collective: every rank of the ``model`` group calls it."""
-    nm = axis_size(mesh, "model")
-    if nm == 1:
+    inverse); a collective: every rank of each axis group that ``specs``
+    splits calls it."""
+    if specs is None:
         return params
-    group = mesh.get_group("model")
 
     def put(path, leaf):
-        dim = model_dim(spec_at(specs, path))
-        return leaf if dim is None else all_gather_dim(leaf, group, nm, dim)
+        for dim, a, n in reversed(_split_dims(spec_at(specs, path), mesh)):
+            leaf = all_gather_dim(leaf, mesh.get_group(a), n, dim)
+        return leaf
 
     return tree_map_with_path(put, params)
 
@@ -451,6 +534,72 @@ def tp_ctx(mesh: Any) -> Optional[ShardCtx]:
     if mesh is None or axis_size(mesh, "model") == 1:
         return None
     return ShardCtx(mesh)
+
+
+class FsdpCtx:
+    """The ``data`` axis of a mesh under FSDP (the plain step's
+    ``fsdp=True``): its size ``nd``, this rank's coordinate ``index`` on
+    it, its process group, and ``specs``, the layout of the GLOBAL
+    params (``fsdp_specs``). The model code gathers each leaf's ``data``
+    blocks where it uses the leaf (``whole``); ``None`` means no FSDP."""
+
+    def __init__(self, mesh: Any, specs: Any):
+        self.nd = axis_size(mesh, "data")
+        self.index = mesh.get_local_rank("data")
+        self.group = mesh.get_group("data")
+        self.specs = specs
+
+    def dim(self, path: Tuple[Any, ...]) -> Optional[int]:
+        """The ``data`` dim of the GLOBAL leaf at ``path``, or ``None``."""
+        return data_dim(spec_at(self.specs, path))
+
+
+def _unwrapped(t: torch.Tensor) -> torch.Tensor:
+    """The plain tensor beneath ``torch.func``'s wrappers of ``t``."""
+    while torch._C._functorch.is_functorch_wrapped_tensor(t):
+        t = torch._C._functorch.get_unwrapped(t)
+    return t
+
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(x, fsdp, dim):
+        return all_gather_dim(x, fsdp.group, fsdp.nd, dim)
+
+    @staticmethod
+    def setup_context(fctx, inputs, output):
+        _, fctx.fsdp, fctx.dim = inputs
+
+    @staticmethod
+    def backward(fctx, g):
+        # each rank used the whole leaf on its own block of the batch:
+        # the gradients summed over data, this rank's block kept. Gloo
+        # copies a reduce-scatter's result into its output when the call
+        # completes, which the grad transforms refuse for a tensor of
+        # theirs, so the collective runs on the plain tensor beneath
+        f = fctx.fsdp
+        with torch._C._DisableFuncTorch():
+            out = reduce_scatter_dim(_unwrapped(g), f.group, f.nd, fctx.dim)
+        return out, None, None
+
+
+def whole(fsdp: Optional[FsdpCtx], tree: Any, *prefix: Any,
+          period: bool = False) -> Any:
+    """``tree`` (the params subtree at ``prefix``; with ``period``, one
+    period's slice of a stacked subtree) with each leaf that the layout
+    splits over ``data`` all-gathered there: the forward all-gathers,
+    the backward reduce-scatters the gradient (its sum over ``data``,
+    this rank's block). With ``fsdp`` ``None``, ``tree`` itself."""
+    if fsdp is None:
+        return tree
+
+    def put(path, x):
+        dim = fsdp.dim(prefix + path)
+        if dim is None:
+            return x
+        return _FsdpGather.apply(x, fsdp, dim - 1 if period else dim)
+
+    return tree_map_with_path(put, tree)
 
 
 def split(ctx: Optional[ShardCtx], n: int) -> Optional[ShardCtx]:

@@ -88,7 +88,7 @@ from repro_torch.models.layers import (
     norm_params,
     unembed,
 )
-from repro_torch.models.sharding import cache_zeros, split
+from repro_torch.models.sharding import cache_zeros, split, whole
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -376,10 +376,13 @@ class _Remat(torch.autograd.Function):
 
 
 def _remat_body(cfg: ModelConfig, plan: LayerPlan, slice_tree: Params,
-                shared: Any, ctx=None):
+                shared: Any, ctx=None, fsdp=None):
     """One period's body, for ``_Remat``: the period slice's layers and,
     in the hybrid, the shared block, over the carry (x, aux) and the
-    flattened leaves of (slice, shared). Returns (body, leaves)."""
+    flattened leaves of (slice, shared). Under ``fsdp`` the body gathers
+    the period's blocks over ``data`` first (and the shared block's
+    before it runs), so the backward's recompute gathers them again and
+    one period's weights are whole at a time. Returns (body, leaves)."""
     tree = {"slice": slice_tree}
     if plan.shared_attn:
         tree["shared"] = shared
@@ -387,14 +390,16 @@ def _remat_body(cfg: ModelConfig, plan: LayerPlan, slice_tree: Params,
 
     def body(positions, x, aux, *flat):
         t = tree_unflatten(tree, list(flat))
+        sl = whole(fsdp, t["slice"], "stack", period=True)
         for j, code in enumerate(plan.period_codes):
-            x, a, _ = _apply_layer(cfg, code, t["slice"][f"p{j}"], x,
-                                   positions, ctx=ctx)
+            x, a, _ = _apply_layer(cfg, code, sl[f"p{j}"], x, positions,
+                                   ctx=ctx)
             if a is not None:
                 aux = aux + a
         if plan.shared_attn:
-            x, _ = _apply_shared_block(cfg, t["shared"], x, positions,
-                                       ctx=ctx)
+            x, _ = _apply_shared_block(
+                cfg, whole(fsdp, t["shared"], "shared_attn"), x, positions,
+                ctx=ctx)
         return x, aux
 
     return body, leaves
@@ -418,11 +423,16 @@ def forward(
     remat: bool = True,
     last_only: bool = False,
     ctx=None,
+    fsdp=None,
 ):
     """Full-sequence forward. With ``remat``, each stacked period is
     rematerialised in the backward (``_Remat``); the ``lead`` and
     ``rem`` layers are not, as in the reference. Remat is skipped when
     ``collect_cache`` is set (prefill) and where grad mode is off.
+    ``fsdp`` (a ``sharding.FsdpCtx``): the params are also split over
+    ``data``, and each part is gathered where it is used: the embedding
+    once, each ``lead`` / ``rem`` layer before it runs, each period (and
+    the hybrid's shared block) inside its body (``_remat_body``).
 
     Returns (logits, aux_loss, caches) — caches is a dict with 'lead'/'stack'/
     'rem'/'shared' entries when collect_cache else None; ``stack`` holds
@@ -431,6 +441,7 @@ def forward(
     this rank's vocab block where the padded vocab divides ``model``.
     """
     plan = make_plan(cfg)
+    params = dict(params, embed=whole(fsdp, params["embed"], "embed"))
     x, positions = embed_inputs(cfg, params, inputs, ctx)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches: Dict[str, Any] = {"lead": [], "rem": [], "stack": None,
@@ -444,8 +455,8 @@ def forward(
             aux = aux + a
         return x, c
 
-    for p, code in zip(params["lead"], plan.lead_codes):
-        x, c = layer(p, code, x)
+    for i, (p, code) in enumerate(zip(params["lead"], plan.lead_codes)):
+        x, c = layer(whole(fsdp, p, "lead", i), code, x)
         caches["lead"].append(c)
 
     if plan.n_periods > 0:
@@ -454,21 +465,23 @@ def forward(
         period_caches = []
         for sl in _unstack(params["stack"], plan.n_periods):
             if use_remat:
-                body, leaves = _remat_body(cfg, plan, sl, shared_p, ctx)
+                body, leaves = _remat_body(cfg, plan, sl, shared_p, ctx,
+                                           fsdp)
                 x, aux = _Remat.apply(body, positions, x, aux, *leaves)
                 continue
+            sl = whole(fsdp, sl, "stack", period=True)
             pc = {}
             for j, code in enumerate(plan.period_codes):
                 x, pc[f"p{j}"] = layer(sl[f"p{j}"], code, x)
             if plan.shared_attn:
                 x, pc["shared"] = _apply_shared_block(
-                    cfg, shared_p, x, positions, collect_cache=collect_cache,
-                    ctx=ctx)
+                    cfg, whole(fsdp, shared_p, "shared_attn"), x, positions,
+                    collect_cache=collect_cache, ctx=ctx)
             period_caches.append(pc)
         if collect_cache:
             caches["stack"] = _stack_caches(period_caches)
-    for p, code in zip(params["rem"], plan.rem_codes):
-        x, c = layer(p, code, x)
+    for i, (p, code) in enumerate(zip(params["rem"], plan.rem_codes)):
+        x, c = layer(whole(fsdp, p, "rem", i), code, x)
         caches["rem"].append(c)
 
     x = apply_norm(cfg, params["final_norm"], x)
@@ -479,11 +492,13 @@ def forward(
 
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
-            *, remat: bool = True, ctx=None, ce_weight=None):
+            *, remat: bool = True, ctx=None, ce_weight=None, fsdp=None):
     """The mean cross-entropy, times ``ce_weight`` where one is given (a
     data-parallel step's share of the label tokens), plus 0.01 times the
-    MoE balance loss, which ``ce_weight`` leaves alone."""
-    logits, aux, _ = forward(cfg, params, batch, remat=remat, ctx=ctx)
+    MoE balance loss, which ``ce_weight`` leaves alone. ``fsdp``: the
+    params split over ``data`` too (``forward``)."""
+    logits, aux, _ = forward(cfg, params, batch, remat=remat, ctx=ctx,
+                             fsdp=fsdp)
     loss = cross_entropy(logits, batch["labels"], cfg.vocab,
                          split(ctx, cfg.vocab_padded))
     if ce_weight is not None:

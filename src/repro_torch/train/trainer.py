@@ -6,7 +6,9 @@ The PyTorch counterpart of the JAX package's ``train/trainer.py``:
                            its shard of the batch, then an averaging
                            ``all_reduce`` of each leaf over the data
                            axes, which equals GSPMD's global mean when
-                           the batch splits evenly.
+                           the batch splits evenly; on a state from
+                           ``init_state(..., fsdp=True)`` the
+                           reference's FSDP baseline (below).
 ``make_ltp_train_step``    LTP as a first-class feature at scale: each
                            rank is one of the paper's workers; its
                            gradient is packet-masked leaf by leaf,
@@ -37,11 +39,24 @@ token-weighted mean over the worker's block and its mean over the
 routing groups, however unevenly the labels are masked. Every data
 rank of a worker then masks and syncs the same gradient, and holds the
 same result.
+
+The plain step on an FSDP state is the counterpart of the reference's
+plain step under ``spec_for(..., fsdp=True)`` shardings (its
+"GSPMD/fsdp baseline"): on a mesh whose ``data`` axis is larger than 1,
+each rank holds its ``data`` block of its ``model`` block of each leaf
+that ``sharding.fsdp_specs`` splits (``init_state(..., fsdp=True)``,
+which records the layout in the state's ``fsdp``), and so of its
+gradient and optimizer state. The model gathers each
+leaf where it uses it (``sharding.whole``: all-gather forward,
+reduce-scatter backward), so such a leaf's gradient arrives summed over
+``data``, this rank's block; it is then summed over ``pod``, over which
+the weights stay replicated, as ``spec_for`` leaves them. The LTP step
+keeps every weight whole over its workers, as the PS semantics ask.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -52,7 +67,8 @@ from repro_torch.core import ltp_sync as ls
 from repro_torch.device import DeviceLike
 from repro_torch.models.api import ModelApi
 from repro_torch.models.sharding import axis_size, block_of, dp_axes, \
-    mesh_shape, model_dim, model_specs, shard_params, spec_at, tp_ctx
+    FsdpCtx, fsdp_specs, mesh_shape, model_dim, model_specs, shard_params, \
+    spec_at, tp_ctx
 from repro_torch.optim import Optimizer
 from repro_torch.tree import tree_leaves, tree_leaves_with_path, tree_map, \
     tree_map_with_path, tree_unflatten
@@ -63,6 +79,9 @@ class TrainState:
     params: Any
     opt_state: Any
     step: torch.Tensor
+    # the FsdpCtx of params split over data (init_state(..., fsdp=True)),
+    # which the plain step gathers by; None: whole over data
+    fsdp: Optional[FsdpCtx] = None
 
 
 def model_layout(api: ModelApi, mesh) -> Any:
@@ -74,22 +93,38 @@ def model_layout(api: ModelApi, mesh) -> Any:
     return model_specs(api.cfg, api.init(None, device="meta"), mesh)
 
 
+def fsdp_layout(api: ModelApi, mesh) -> Any:
+    """The plain step's FSDP layout of ``api``'s params on ``mesh``
+    (``sharding.fsdp_specs`` over a meta init: the ``model`` dims and
+    the ``data`` dims), or ``None`` where the mesh has no ``data`` axis
+    larger than 1."""
+    if mesh is None or axis_size(mesh, "data") == 1:
+        return None
+    return fsdp_specs(api.cfg, api.init(None, device="meta"), mesh)
+
+
 def init_state(api: ModelApi, opt: Optimizer, seed: int = 0, *,
                device: DeviceLike = None, params: Any = None,
-               mesh=None) -> TrainState:
+               mesh=None, fsdp: bool = False) -> TrainState:
     """Params from ``api.init`` with a CPU generator seeded ``seed`` (or
     the given GLOBAL ``params``) on ``device`` (``None`` means ``cuda``),
     the optimizer's state and step 0. On a ``mesh`` whose ``model`` axis
     is larger than 1, the state holds this rank's blocks
-    (``model_layout``)."""
+    (``model_layout``); with ``fsdp``, its blocks over ``data`` too
+    (``fsdp_layout``), which the state's ``fsdp`` records for the plain
+    step."""
     if params is None:
         params = api.init(torch.Generator().manual_seed(seed), device=device)
-    specs = model_layout(api, mesh)
+    specs = fsdp_layout(api, mesh) if fsdp else None
+    fctx = None if specs is None else FsdpCtx(mesh, specs)
+    if specs is None:
+        specs = model_layout(api, mesh)
     if specs is not None:
         params = shard_params(params, specs, mesh)
     dev = tree_leaves(params)[0].device
     return TrainState(params=params, opt_state=opt.init(params),
-                      step=torch.zeros((), dtype=torch.int32, device=dev))
+                      step=torch.zeros((), dtype=torch.int32, device=dev),
+                      fsdp=fctx)
 
 
 def zero_opt_state(params: Any, ltp: LTPConfig, mesh,
@@ -143,9 +178,12 @@ def _block(x, spec, mesh, device) -> torch.Tensor:
     return x
 
 
-def _loss_and_grads(api: ModelApi, params, batch, ctx=None, **kw):
+def _loss_and_grads(api: ModelApi, params, batch, ctx=None, fsdp=None,
+                    **kw):
     if ctx is not None:
         kw["ctx"] = ctx
+    if fsdp is not None:
+        kw["fsdp"] = fsdp
     grads, loss = grad_and_value(
         lambda p: api.loss_fn(p, batch, **kw))(params)
     return loss.detach(), grads
@@ -158,22 +196,30 @@ def _label_count(batch) -> torch.Tensor:
 
 
 def _mean_loss_and_grads(api: ModelApi, params, batch, ctx, mesh,
-                         axes: Tuple[str, ...]):
+                         axes: Tuple[str, ...], fsdp=None):
     """The loss and its gradient over the batch whose blocks the ranks of
     ``axes`` hold, each rank holding one: each rank's cross-entropy
     weighted by n times its share of the label tokens (``ce_weight``),
     then the mean over the ranks. That is GSPMD's token-weighted mean
     over the whole batch, and the mean of the MoE balance loss over the
-    groups, one a rank (``moe.py``)."""
+    groups, one a rank (``moe.py``). Under ``fsdp`` a leaf split over
+    ``data`` has its gradient already summed there (the gather's
+    reduce-scatter), and is summed over the other axes alone."""
     n = ls.worker_count(mesh, axes)
     if n == 1:
-        return _loss_and_grads(api, params, batch, ctx)
+        return _loss_and_grads(api, params, batch, ctx, fsdp)
     count = _label_count(batch)
     total = ls.psum(count.clone(), mesh, axes)
     loss, grads = _loss_and_grads(
-        api, params, batch, ctx,
+        api, params, batch, ctx, fsdp,
         ce_weight=count * n / torch.clamp(total, min=1.0))
-    grads = tree_map(lambda g: ls.psum(g, mesh, axes) / n, grads)
+    rest = tuple(a for a in axes if a != "data")
+
+    def mean(path, g):
+        split_ = fsdp is not None and fsdp.dim(path) is not None
+        return ls.psum(g, mesh, rest if split_ else axes) / n
+
+    grads = tree_map_with_path(mean, grads)
     return ls.psum(loss.clone(), mesh, axes) / n, grads
 
 
@@ -190,7 +236,8 @@ def make_plain_train_step(api: ModelApi, opt: Optimizer,
     loss and the gradients are the mean over the whole batch
     (``_mean_loss_and_grads``, ``all_reduce``);
     over a ``model`` axis the model runs tensor-parallel on the state's
-    blocks."""
+    blocks. On a state from ``init_state(..., fsdp=True)`` the weights
+    are split over ``data`` as well (its ``fsdp``; module docstring)."""
     axes = dp_axes(mesh) if mesh is not None else ()
     ctx = None
     if mesh is not None:
@@ -210,11 +257,11 @@ def make_plain_train_step(api: ModelApi, opt: Optimizer,
                                        == "positions3" else split, mesh,
                                        dev), batch)
             loss, grads = _mean_loss_and_grads(api, state.params, batch,
-                                               ctx, mesh, axes)
+                                               ctx, mesh, axes, state.fsdp)
         updates, opt_state = opt.update(grads, state.opt_state,
                                         state.params, lr)
         return (TrainState(_apply(state.params, updates), opt_state,
-                           state.step + 1),
+                           state.step + 1, state.fsdp),
                 {"loss": loss})
 
     return step
@@ -290,6 +337,10 @@ def make_ltp_train_step(api: ModelApi, opt: Optimizer, mesh,
     nm = axis_size(mesh, "model")
 
     def local(state: TrainState, batch):
+        if state.fsdp is not None:
+            raise ValueError("the LTP step keeps the weights whole over "
+                             "its workers; an FSDP state is the plain "
+                             "step's")
         dev = tree_leaves(state.params)[0].device
         batch = tree_map_with_path(lambda path, x: _block(
             x, _restrict(spec_at(batch_specs, path), worker_axes, inner),

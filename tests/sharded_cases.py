@@ -136,6 +136,23 @@ Z_JAX = {"z13_a": ("smollm", "mixtral_masked"),
 Z_WITNESS = ("mixtral_bf16", "zero", "count")
 
 
+# FSDP over data in the plain step (tests/test_torch_fsdp.py): each rank
+# task's mesh (shape, axis names), against the JAX plain step on the same
+# mesh, its state placed by ``spec_for(fsdp=True)`` (one JAX process,
+# ``jax_fsdp``); every family's REDUCED config; ``FSDP_BF16`` (REDUCED
+# mixtral with 3 experts in its own bfloat16: the experts split d_ff over
+# model = 2) on (2, 2), and on (2, 1) for the reference's own spread;
+# the planted fault (a gather whose backward keeps this rank's block of
+# the gradient) on ``FSDP_PLANT``'s mesh and model
+FSDP_MESH = {"fsdp22": ((2, 2), ("data", "model")),
+             "fsdp221": ((2, 2, 1), ("pod", "data", "model")),
+             "fsdp21": ((2, 1), ("data", "model"))}
+FSDP_MODELS = ("smollm", "qwen2vl", "mixtral", "deepseek", "falcon",
+               "zamba2", "whisper", "papernet")
+FSDP_BF16 = "mixtral_e3_bf16"
+FSDP_PLANT = ("fsdp21", "smollm")
+
+
 # the sharded serve path's models and meshes
 SERVE_MODELS = ("smollm_360m", "mixtral_8x22b", "deepseek_v2_236b",
                 "falcon_mamba_7b", "zamba2_7b", "whisper_small")
@@ -482,12 +499,14 @@ def moe_cfg(get_reduced):
 def tp_cfg(get_reduced, name: str):
     """A tp case's config: ``TP_MODELS``, ``TPF_MODELS``,
     ``mixtral_e3``, REDUCED mixtral with 3 experts (which 2 does not
-    divide), ``mixtral_bf16``, REDUCED mixtral in its own bfloat16, and
-    ``<name>_masked``, ``name``'s."""
+    divide), ``mixtral_bf16``, REDUCED mixtral in its own bfloat16,
+    ``mixtral_e3_bf16``, both, and ``<name>_masked``, ``name``'s."""
     if name == "mixtral_e3":
         return tp_cfg(get_reduced, "mixtral").replace(n_experts=3)
     if name == "mixtral_bf16":
         return get_reduced("mixtral_8x22b")
+    if name == "mixtral_e3_bf16":
+        return get_reduced("mixtral_8x22b").replace(n_experts=3)
     if name.endswith("_masked"):
         return tp_cfg(get_reduced, name[:-len("_masked")])
     arch, over = {**TP_MODELS, **TPF_MODELS}[name]
@@ -786,6 +805,166 @@ def jax_13e(out: str, names) -> None:
     np.savez(out, **rec)
 
 
+DOWN_EINSUM = "gecf,efd->gecd"   # the reference's experts_down product
+
+
+def partial_rounding(hlo: str) -> dict:
+    """What a compiled step's HLO does with the experts' down product
+    split over ``model``: the all-reduces of its partial products, and
+    of those, how many sum operands rounded to bfloat16 first. An
+    all-reduce counts as rounded where its own element type is bf16, or
+    where the value it sums went through bf16 (a ``convert`` to bf16
+    whose result is converted back to f32) in the instruction or fusion
+    that feeds it: XLA:CPU promotes a bf16 all-reduce to f32 that way.
+    A down product kept in f32 reads as not rounded
+    (``rounding_controls``)."""
+    comps, cur = {}, None
+    for line in hlo.splitlines():
+        words = line.split(" ")
+        head = words[1] if words[0] == "ENTRY" else words[0]
+        if head.startswith("%") and line.rstrip().endswith("{"):
+            cur = comps.setdefault(head[1:], [])
+        elif line.startswith("}"):
+            cur = None
+        elif cur is not None:
+            cur.append(line)
+
+    def defs_of(lines):
+        out = {}
+        for line in lines:
+            lhs = line.strip().removeprefix("ROOT ").split(" = ", 1)
+            if len(lhs) == 2 and lhs[0].startswith("%"):
+                out[lhs[0][1:]] = lhs[1]
+        return out
+
+    defs = defs_of(line for body in comps.values() for line in body)
+
+    def round_trip(code: dict) -> bool:
+        to_bf16 = [n for n, rhs in code.items()
+                   if rhs.startswith("bf16[") and " convert(" in rhs]
+        return any(rhs.startswith("f32[") and f" convert(%{n})" in rhs
+                   for n in to_bf16 for rhs in code.values())
+
+    reduces = [rhs for rhs in defs.values()
+               if " all-reduce(" in rhs and DOWN_EINSUM in rhs]
+    rounded = 0
+    for rhs in reduces:
+        if rhs.lstrip("(").startswith("bf16["):
+            rounded += 1
+            continue
+        args = rhs.split(" all-reduce(", 1)[1].split(")", 1)[0]
+        for arg in args.split(","):
+            # the operand the down product feeds
+            name = arg.strip().lstrip("%")
+            src = defs.get(name, "")
+            if DOWN_EINSUM not in src:
+                continue
+            code = {name: src}
+            if "calls=%" in src:
+                callee = src.split("calls=%", 1)[1].split(",", 1)[0]
+                code.update(defs_of(comps.get(callee, [])))
+            else:
+                # an unfused convert back to f32: what it converts
+                inner = src.split(" convert(%", 1)[1].split(")", 1)[0] \
+                    if " convert(%" in src else ""
+                code[inner] = defs.get(inner, "")
+            rounded += round_trip(code)
+            break
+    return {"all_reduces": len(reduces), "rounded_to_bf16": rounded}
+
+
+def rounding_controls() -> dict:
+    """``partial_rounding`` of the experts' down einsum alone, its
+    contracted dim split over ``model`` on a (data 2, model 2) mesh of
+    host devices: in bfloat16 as the reference writes it (``bf16``),
+    and with ``preferred_element_type=float32`` (``f32``), the partial
+    products summed unrounded. Run in a JAX process."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding
+
+    mesh = _jax_mesh((2, 2))
+    h = jnp.ones((2, 3, 8, 64), jnp.bfloat16)
+    w = jnp.ones((3, 64, 32), jnp.bfloat16)
+    out = {}
+    for label, pet in (("bf16", None), ("f32", jnp.float32)):
+        f = jax.jit(lambda h, w, pet=pet: jnp.einsum(
+            DOWN_EINSUM, h, w, preferred_element_type=pet),
+            in_shardings=(NamedSharding(mesh, _P(("data", None, None,
+                                                  "model"))),
+                          NamedSharding(mesh, _P((None, "model", None)))),
+            out_shardings=NamedSharding(mesh, _P(("data",))))
+        out[label] = partial_rounding(f.lower(h, w).compile().as_text())
+    return out
+
+
+def jax_fsdp(out: str) -> None:
+    """The reference's plain step (``make_plain_train_step``, jitted,
+    GSPMD) on each ``FSDP_MESH`` mesh of host devices, its state placed
+    by ``spec_for(..., fsdp=True)`` shardings as its dry-run lowers it,
+    the batch over the mesh's batch axes, one step (SGD-momentum) from
+    the init of key 0 for every model of ``FSDP_MODELS``; and
+    ``FSDP_BF16`` on (2, 2) and (2, 1), its momentum too, and what its
+    compiled (2, 2) step does with the experts' partial products
+    (``partial_rounding``, with its ``rounding_controls``). The inputs (params as float32, batches) go to
+    ``tp_inputs(out)`` first."""
+    import json
+
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding
+
+    from repro import compat
+    from repro.configs import get_reduced
+    from repro.models import build
+    from repro.models.sharding import spec_for
+    from repro.optim import sgd_momentum
+    from repro.train.trainer import init_state, make_plain_train_step
+
+    rec, models = {}, {}
+    for name in FSDP_MODELS + (FSDP_BF16,):
+        api, opt = build(tp_cfg(get_reduced, name)), sgd_momentum()
+        # jitted: papernet's eager init dispatches for ~10 s
+        state = jax.jit(lambda k, api=api, opt=opt: init_state(api, opt, k))(
+            jax.random.PRNGKey(0))
+        batch = tp_batch(api.cfg, 1)
+        models[name] = (api, opt, state, batch)
+        for i, x in enumerate(jax.tree.leaves(state.params)):
+            rec[f"in/{name}/params/{i}"] = _f32(x)
+        rec.update({f"in/{name}/batch/{k}": v for k, v in batch.items()})
+    np.savez(out + ".tmp.npz", **rec)
+    os.replace(out + ".tmp.npz", tp_inputs(out))
+
+    runs = [(task, name) for task in FSDP_MESH for name in FSDP_MODELS]
+    runs += [("fsdp22", FSDP_BF16), ("fsdp21", FSDP_BF16)]
+    for task, name in runs:
+        shape, axes = FSDP_MESH[task]
+        mesh = _jax_mesh(shape, axes)
+        api, opt, state, batch = models[name]
+        dp = tuple(a for a in axes if a != "model")
+        with compat.set_mesh(mesh):
+            placed = jax.device_put(state, jax.tree_util.tree_map_with_path(
+                lambda path, x: NamedSharding(mesh, spec_for(
+                    path, x.shape, mesh, fsdp=True)), state))
+            jb = {k: jax.device_put(jnp.asarray(v), NamedSharding(
+                mesh, _P(spec))) for (k, v), spec in zip(
+                    batch.items(), tp_batch_specs(batch, dp).values())}
+            step = jax.jit(make_plain_train_step(api, opt, mesh)).lower(
+                placed, jb, jnp.float32(LR)).compile()
+            new, m = step(placed, jb, jnp.float32(LR))
+        base = f"out/{task}/{name}"
+        for i, x in enumerate(jax.tree.leaves(new.params)):
+            rec[f"{base}/params/{i}"] = _f32(x)
+        rec[f"{base}/loss"] = _f32(m["loss"])
+        if name == FSDP_BF16:
+            for i, x in enumerate(jax.tree.leaves(new.opt_state["m"])):
+                rec[f"{base}/mom/{i}"] = _f32(x)
+            rec[f"{base}/hlo"] = np.asarray(json.dumps(
+                partial_rounding(step.as_text())))
+    rec["hlo_controls"] = np.asarray(json.dumps(rounding_controls()))
+    np.savez(out, **rec)
+
+
 # ----------------------------------------------------------------------------
 # the port's ranks
 # ----------------------------------------------------------------------------
@@ -958,7 +1137,8 @@ def rank_train(z: dict, world: int) -> dict:
 
 
 def tp_run(api, mesh, params, batch, comp, *, uniforms=None,
-           blocks=None, variant="psum", worker_axes=("data",)) -> dict:
+           blocks=None, variant="psum", worker_axes=("data",),
+           fsdp=False, momentum=False) -> dict:
     """One step of the port on ``mesh`` from GLOBAL ``params``: the LTP
     step's ``variant`` (``psum``, or ``zero`` from ``zero_opt_state``)
     under ``comp`` over ``worker_axes``, the batch split over the mesh's
@@ -967,7 +1147,10 @@ def tp_run(api, mesh, params, batch, comp, *, uniforms=None,
     ``uniforms``. ``blocks``: this rank's blocks to start from instead
     of its share of ``params``. Returns the gathered global params (as
     float32), the loss, the delivered fraction and, for ``zero``, this
-    rank's momentum rows."""
+    rank's momentum rows. ``fsdp``: the plain step with its weights
+    split over ``data`` too (``init_state(..., fsdp=True)``),
+    with the bytes of this rank's params (``bytes``); ``momentum``: the
+    plain step's gathered momentum (``mom/``) too."""
     import torch
 
     from repro_torch.config import LTPConfig
@@ -978,8 +1161,10 @@ def tp_run(api, mesh, params, batch, comp, *, uniforms=None,
         make_plain_train_step, model_layout, zero_opt_state
 
     opt = sgd_momentum()
-    st = (init_state(api, opt, params=params, mesh=mesh) if blocks is None
-          else init_state(api, opt, params=blocks))
+    st = (init_state(api, opt, params=params, mesh=mesh, fsdp=fsdp)
+          if blocks is None else init_state(api, opt, params=blocks))
+    n_bytes = sum(x.numel() * x.element_size()
+                  for x in tree_leaves(st.params))
     if comp == "plain":
         new, m = make_plain_train_step(api, opt, mesh)(st, batch, LR)
     else:
@@ -990,11 +1175,18 @@ def tp_run(api, mesh, params, batch, comp, *, uniforms=None,
                                    tp_batch_specs(batch, dp_axes(mesh)))
         new, m = step(st, batch, torch.as_tensor(TRAIN_FRAC), TP_SEED, LR,
                       uniforms=uniforms)
-    specs = model_layout(api, mesh)
+    specs = st.fsdp.specs if st.fsdp else model_layout(api, mesh)
     full = new.params if specs is None else gather_params(new.params,
                                                           specs, mesh)
     rec = {f"params/{i}": x.float().numpy()
            for i, x in enumerate(tree_leaves(full))}
+    if fsdp:
+        rec["bytes"] = np.asarray(n_bytes)
+    if momentum:
+        mom = new.opt_state["m"]
+        mom = mom if specs is None else gather_params(mom, specs, mesh)
+        rec.update({f"mom/{i}": x.float().numpy()
+                    for i, x in enumerate(tree_leaves(mom))})
     if variant == "zero":
         rec.update({f"m/{i}": x.numpy()
                     for i, x in enumerate(new.opt_state["m_pkts"])})
@@ -1506,6 +1698,74 @@ def rank_dry(task: str) -> dict:
     return {"json": np.asarray(json.dumps(rec))}
 
 
+@contextlib.contextmanager
+def own_block_backward():
+    """Plant a fault: the FSDP gather's backward keeps this rank's block
+    of its own gradient (``sharding._Gather``'s backward), where each
+    rank used the gathered leaf on its own block of the batch."""
+    from repro_torch.models import sharding
+
+    real = sharding._FsdpGather.backward
+
+    def own(fctx, g):
+        f = fctx.fsdp
+        return (sharding.block_of(g, fctx.dim, f.nd, f.index).contiguous(),
+                None, None)
+
+    sharding._FsdpGather.backward = staticmethod(own)
+    try:
+        yield
+    finally:
+        sharding._FsdpGather.backward = staticmethod(real)
+
+
+def rank_fsdp(z: dict, task: str) -> dict:
+    """The ranks of ``FSDP_MESH[task]``: for each model of
+    ``FSDP_MODELS`` (and ``FSDP_BF16`` on (2, 2) and (2, 1)), from the
+    JAX init and batch, one plain step with FSDP over ``data``
+    (``fsdp/``) and one without (``plain/``); the ``fsdp_specs`` blocks'
+    round trip (``shard_params`` then ``gather_params``); on
+    ``FSDP_PLANT``, the FSDP step with ``own_block_backward``."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import build
+    from repro_torch.models.sharding import gather_params, shard_params
+    from repro_torch.tree import tree_leaves
+    from repro_torch.train.trainer import fsdp_layout
+
+    shape, names = FSDP_MESH[task]
+    mesh = init_device_mesh("cpu", shape, mesh_dim_names=names)
+    rec = {}
+
+    def put(prefix, r):
+        rec.update({f"{prefix}/{k}": v for k, v in r.items()})
+
+    models = FSDP_MODELS + ((FSDP_BF16,) if task in ("fsdp22", "fsdp21")
+                            else ())
+    for name in models:
+        api = build(tp_cfg(get_reduced, name))
+        params = tp_params(api, z, name)
+        batch = {k[len(f"in/{name}/batch/"):]: v for k, v in z.items()
+                 if k.startswith(f"in/{name}/batch/")}
+        specs = fsdp_layout(api, mesh)
+        back = gather_params(shard_params(params, specs, mesh), specs, mesh)
+        rec[f"{name}/roundtrip"] = np.asarray(all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(back),
+                                              tree_leaves(params),
+                                              strict=True)))
+        bf16 = name == FSDP_BF16
+        for label, fsdp in (("fsdp", True), ("plain", False)):
+            put(f"{name}/{label}", tp_run(api, mesh, params, batch, "plain",
+                                          fsdp=fsdp, momentum=bf16))
+        if (task, name) == FSDP_PLANT:
+            with own_block_backward():
+                put(f"plant/{name}/fsdp", tp_run(api, mesh, params, batch,
+                                                 "plain", fsdp=True))
+    return rec
+
+
 def rank_main(task, rank, world, init, ref, out) -> None:
     import torch
     import torch.distributed as dist
@@ -1527,6 +1787,8 @@ def rank_main(task, rank, world, init, ref, out) -> None:
             rec = rank_tp(z, int(world), task)
         elif task in Z_MESH:
             rec = rank_13e(z, task)
+        elif task in FSDP_MESH:
+            rec = rank_fsdp(z, task)
         elif task == "tpcoll":
             rec = rank_collectives()
         else:
@@ -1542,6 +1804,8 @@ if __name__ == "__main__":
         jax_tp(sys.argv[3], TPF_JAX[sys.argv[2]])
     elif sys.argv[1] == "jax" and sys.argv[2] in Z_JAX:
         jax_13e(sys.argv[3], Z_JAX[sys.argv[2]])
+    elif sys.argv[1] == "jax" and sys.argv[2] == "fsdp":
+        jax_fsdp(sys.argv[3])
     elif sys.argv[1] == "jax":
         {"sync": jax_sync, "train": jax_train, "tp": jax_tp}[sys.argv[2]](
             sys.argv[3])

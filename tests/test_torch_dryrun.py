@@ -65,7 +65,7 @@ from repro.models import build as jbuild
 from repro.models.api import shape_supported as jshape_supported
 from repro.configs import get_config as jget_config
 from repro.shapes import get_shape as jget_shape
-from repro_torch.configs import get_reduced
+from repro_torch.configs import get_config, get_reduced
 from repro_torch.kernels import _build
 from repro_torch.kernels import dropfill as df_mod
 from repro_torch.kernels import ops, ref
@@ -74,7 +74,9 @@ from repro_torch.kernels import randomk as rk_mod
 from repro_torch.launch import cost, dryrun
 from repro_torch.launch.cost import CostCounter
 from repro_torch.models import build
+from repro_torch.models.sharding import model_dim, model_specs, spec_at
 from repro_torch.shapes import InputShape
+from repro_torch.tree import tree_leaves_with_path
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -244,7 +246,7 @@ def test_flops_match_the_jax_walker(arch):
 # ----------------------------------------------------------------------------
 
 DEPTH_CFGS = {"smollm_360m": {"n_layers": 4}, "zamba2_7b": {"n_layers": 4},
-              "whisper_small": {"n_layers": 3, "encoder_layers": 3}}
+              "whisper_small": {"n_layers": 4, "encoder_layers": 4}}
 STEPS = [("train", {"ltp": False, "zero": False}),
          ("train", {"ltp": True, "zero": False}),
          ("train", {"ltp": True, "zero": True}),
@@ -256,7 +258,9 @@ STEPS = [("train", {"ltp": False, "zero": False}),
 def test_depth_extrapolation_equals_the_full_trace(arch, step):
     kind, kw = STEPS[step]
     cfg = get_reduced(arch).replace(dtype="float32", **DEPTH_CFGS[arch])
-    assert len(dryrun.depth_plan(cfg)) > 1
+    # the depths ``lower`` traces, so the case extrapolates
+    assert len(dryrun.depth_plan(
+        cfg, first=dryrun.first_periods(cfg, kind, **kw))) > 1
     shape = InputShape("t", 16, 4, kind)
     with dryrun.fake_world(4):
         mesh = dryrun.make_mesh((2, 2), ("data", "model"))
@@ -316,6 +320,7 @@ def test_dryrun_counts_what_the_ranks_do(dry_ranks, task, variant):
 CLI_ROWS = [("dense", "smollm_360m", "train_4k", ["--ltp"]),        # 5.0 s
             ("vlm", "qwen2_vl_72b", "decode_32k", []),               # 2.4 s
             ("moe", "deepseek_v2_236b", "train_4k", ["--ltp-zero"]),  # 7.8 s
+            ("plain", "deepseek_v2_236b", "train_4k", []),           # 6.6 s
             ("ssm", "falcon_mamba_7b", "long_500k", []),             # 3.8 s
             ("hybrid", "zamba2_7b", "decode_32k", []),               # 3.0 s
             ("audio", "whisper_small", "decode_32k", []),            # 2.5 s
@@ -326,21 +331,21 @@ CLI_ROWS = [("dense", "smollm_360m", "train_4k", ["--ltp"]),        # 5.0 s
 def cli_runs():
     """Every row of ``CLI_ROWS`` through ``python -m
     repro_torch.launch.dryrun``, the processes run together; (exit code,
-    JSON lines, stderr) by architecture."""
+    JSON lines, stderr) by family."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                OMP_NUM_THREADS="1")
-    procs = {arch: subprocess.Popen(
+    procs = {family: subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
          "--shape", shape, "--multi-pod", "single", *flags],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
-        for _, arch, shape, flags in CLI_ROWS}
+        for family, arch, shape, flags in CLI_ROWS}
     out = {}
     try:
-        for arch, p in procs.items():
+        for family, p in procs.items():
             so, se = p.communicate(timeout=300)
-            out[arch] = (p.returncode, [json.loads(x) for x in
-                                        so.splitlines() if x.startswith("{")],
-                         se)
+            out[family] = (p.returncode, [json.loads(x) for x in
+                                          so.splitlines()
+                                          if x.startswith("{")], se)
     finally:
         for p in procs.values():
             if p.poll() is None:
@@ -350,7 +355,7 @@ def cli_runs():
 
 @pytest.mark.parametrize("family,arch,shape,flags", CLI_ROWS)
 def test_cli_row(cli_runs, family, arch, shape, flags):
-    rc, lines, err = cli_runs[arch]
+    rc, lines, err = cli_runs[family]
     assert rc == 0, err[-3000:]
     rec, summary = lines
     ok, why = jshape_supported(jget_config(arch), jget_shape(shape))
@@ -359,7 +364,11 @@ def test_cli_row(cli_runs, family, arch, shape, flags):
         return
     assert rec["ok"] and summary["summary"] == {"OK": 1, "SKIP": 0,
                                                 "FAIL": 0}
-    assert rec["mesh"] == "16x16" and rec["fsdp"] is False
+    # the plain train step shards its weights over data, as the
+    # reference's does (fsdp = not ltp); the LTP steps and the serve
+    # hold them whole there
+    assert rec["mesh"] == "16x16" and rec["fsdp"] is (
+        not flags and rec["step"] == "train_step")
     assert rec["ltp"] == bool(flags) and rec["zero"] == ("--ltp-zero"
                                                          in flags)
     c = rec["cost"]
@@ -369,3 +378,18 @@ def test_cli_row(cli_runs, family, arch, shape, flags):
     assert set(rec["roofline"]) == {"compute_s", "memory_s", "collective_s"}
     if "--ltp" in flags:
         assert c["kernels"]["dropfill_into"]["calls"] > 0
+    if rec["fsdp"]:
+        # the weights' data blocks gathered, their gradients
+        # reduce-scattered; a rank's params at most an eighth of its
+        # model blocks whole (30.87 GB for deepseek-v2 before FSDP)
+        data = c["by_axis"]["data"]
+        assert data["all_gather_into_tensor"]["calls"] > 0
+        assert data["reduce_scatter_tensor"]["calls"] > 0
+        cfg = get_config(arch)
+        shapes = build(cfg).init(None, device="meta")
+        specs = model_specs(cfg, shapes, {"model": 16})
+        whole = sum(x.numel() * x.element_size()
+                    // (16 if model_dim(spec_at(specs, p)) is not None
+                        else 1)
+                    for p, x in tree_leaves_with_path(shapes))
+        assert rec["memory"]["params"] <= whole / 8
