@@ -17,13 +17,22 @@ stays O(1) amortized.
 
 ``MetricsRegistry.snapshot()`` flattens everything into plain floats —
 the dict ``Tracker.log_summary`` ships at end of run.
+
+``Span`` is the one instrument that reads the wall clock: a
+``torch.profiler.record_function`` span that also adds its duration in
+``time.perf_counter_ns`` to two counters, so a host phase is timed both
+in a profiler trace and, with no profiler running, in the registry. The
+runtime keeps such readings in a registry of their own
+(``ClusterRuntime.host_metrics``), never in the simulated-time one.
 """
 from __future__ import annotations
 
 import random
+import time
 from typing import Dict, List, Mapping, Optional
 
 import numpy as np
+from torch.profiler import record_function
 
 
 class Counter:
@@ -114,6 +123,37 @@ class Histogram:
         }
 
 
+class Span:
+    """A named wall-clock span: entered, it opens ``record_function(name)``
+    (a no-op but for the call itself when no profiler runs); left, it adds
+    the ``perf_counter_ns`` time between the two to counter
+    ``span/<name>/ns`` and 1 to ``span/<name>/calls``. The timed interval
+    lies inside the profiler's span. A span is not entered again while it
+    is open; spans of different names nest."""
+
+    __slots__ = ("name", "ns", "calls", "_rf", "_t0")
+
+    def __init__(self, name: str, ns: Counter, calls: Counter) -> None:
+        self.name = name
+        self.ns = ns
+        self.calls = calls
+        self._rf = None
+        self._t0 = 0
+
+    # replint: hotpath
+    def __enter__(self) -> "Span":
+        self._rf = record_function(self.name)
+        self._rf.__enter__()
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    # replint: hotpath
+    def __exit__(self, *exc) -> None:
+        self.ns.inc(time.perf_counter_ns() - self._t0)
+        self.calls.inc()
+        self._rf.__exit__(*exc)
+
+
 class MetricsRegistry:
     """Named instrument registry. ``counter``/``gauge``/``histogram``
     are get-or-create (same name -> same instrument), so independent
@@ -147,6 +187,12 @@ class MetricsRegistry:
             h = self.histograms[name] = Histogram(
                 name, reservoir or self._reservoir, seed=self._seed)
         return h
+
+    def span(self, name: str) -> Span:
+        """A ``Span`` over this registry's counters ``span/<name>/ns`` and
+        ``span/<name>/calls``; bind it once, as any instrument."""
+        return Span(name, self.counter(f"span/{name}/ns"),
+                    self.counter(f"span/{name}/calls"))
 
     def absorb(self, prefix: str, stats: Mapping[str, float],
                as_gauges: bool = False) -> None:

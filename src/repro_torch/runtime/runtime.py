@@ -50,6 +50,27 @@ both, like the node faults, leave a run untouched when absent or empty.
 
 Truncation safety: if the event loop stops on ``max_events`` mid-run the
 runtime raises instead of returning a partial history.
+
+Wall-clock spans and ``host_metrics``: everything above runs on the
+simulated clock. The process's own wall time is named by one span
+mechanism, ``torch.profiler.record_function``, so a profile's host spans
+share a clock with its device trace and each device operation falls in
+the span it was launched in. The fused step opens its spans
+(``runtime/step.py``: ``worker_grads``, then ``step.PS_SYNC_SPANS``);
+the runtime opens ``draw_delivery_masks`` around the analytic close's
+mask draw, and ``bsp_commit`` around the fused step, inside which
+``stage_inputs`` holds the three host-to-device copies (batch, masks,
+fractions). These three are ``MetricsRegistry.span`` instruments of
+``host_metrics``, a registry of their own, bound once in ``__init__``:
+each adds its ``perf_counter_ns`` time to ``span/<name>/ns`` and 1 to
+``span/<name>/calls``. ``h2d/bytes`` counts the bytes of every host
+array copied to the device and ``h2d/batch_misses`` the device batch
+cache's misses. The counters are always on, one integer add each, so
+they read a run with no profiler, where the host may wait inside a
+blocking copy for the previous step's device work. ``host_metrics`` is
+kept out of ``metrics``: that registry rides into the tracker's summary,
+which with ``history`` and the event stream is held equal to the JAX
+runtime's, and wall-clock readings differ from run to run.
 """
 from __future__ import annotations
 
@@ -197,6 +218,17 @@ class ClusterRuntime:
                                     run_name=self.obs_cfg.run_name)
         self.metrics = MetricsRegistry(reservoir=self.obs_cfg.reservoir,
                                        seed=seed)
+        # wall-clock readings of this process (the module's docstring):
+        # the host phases of a bsp step, timed with or without a
+        # profiler, and the bytes copied to the device. Kept apart from
+        # ``metrics``, the simulated cluster's, so the run summary and
+        # ``history`` stay the same whatever the host's speed.
+        self.host_metrics = MetricsRegistry()
+        self._span_draw = self.host_metrics.span("draw_delivery_masks")
+        self._span_stage = self.host_metrics.span("stage_inputs")
+        self._span_commit = self.host_metrics.span("bsp_commit")
+        self._h2d_bytes = self.host_metrics.counter("h2d/bytes")
+        self._h2d_misses = self.host_metrics.counter("h2d/batch_misses")
         self._perf0: Dict[str, int] = {}
         self.tel = Telemetry(telemetry, tracker=self.tracker)
         self.policy: AggregationPolicy = make_policy(policy,
@@ -380,9 +412,10 @@ class ClusterRuntime:
         tensors, as ``PSTrainer`` shapes it."""
         shaped = self._shaped_cache.get(it)
         if shaped is None:
+            self._h2d_misses.inc()
             shaped = {}
             for k, x in self._batches[it].items():
-                t = torch.as_tensor(np.asarray(x)).to(self.device)
+                t = self._to_device(np.asarray(x))
                 shaped[k] = t.reshape((self.w, t.shape[0] // self.w)
                                       + tuple(t.shape[1:]))
             self._shaped_cache[it] = shaped
@@ -394,7 +427,13 @@ class ClusterRuntime:
         return shaped
 
     def _mask_on_device(self, mask) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(mask, np.float32)).to(self.device)
+        return self._to_device(np.asarray(mask, np.float32))
+
+    def _to_device(self, x: np.ndarray) -> torch.Tensor:
+        """Host array ``x`` copied to the device, its bytes counted."""
+        t = torch.as_tensor(x)
+        self._h2d_bytes.inc(t.nbytes)
+        return t.to(self.device)
 
     def on_grad_ready(self, actor: WorkerActor, it: int) -> None:
         if self._ps_down:
@@ -590,10 +629,11 @@ class ClusterRuntime:
                 self.net, self.model_bytes, n_ps=self.n_ps
             ) * self.gather_models[0].loss_inflation()
             frac = np.ones(self.w)
-        masks = (stp.draw_delivery_masks(self.plan, self.w, self._mask_rng,
-                                         frac)
-                 if self.protocol == "ltp"
-                 else np.ones((self.w, self.plan.n_packets), np.float32))
+        with self._span_draw:
+            masks = (stp.draw_delivery_masks(self.plan, self.w,
+                                             self._mask_rng, frac)
+                     if self.protocol == "ltp"
+                     else np.ones((self.w, self.plan.n_packets), np.float32))
         if self.protocol == "ltp" and float(np.mean(frac)) < 1.0 - 1e-9:
             self.tel.record("early_close", self.sim.now + close,
                             iteration=it, delivered=float(np.mean(frac)))
@@ -650,14 +690,17 @@ class ClusterRuntime:
         # the arguments the lockstep PSTrainer passes, so both engines
         # run the same step on the same inputs. A profile finds each bsp
         # commit's device work, full or degraded, by its span.
-        with record_function("bsp_commit"):
+        with self._span_commit:
+            # blocking copies from pageable memory: the host may wait in
+            # them for the device to finish the step before
+            with self._span_stage:
+                batch = self._shaped_batch(it)
+                masks_d = self._mask_on_device(masks)
+                frac_d = self._to_device(np.asarray(frac, np.float32))
             (self.params, self.opt_state, self.residual, loss,
              realized) = self._fused_step(
-                self.params, self.opt_state, self.residual,
-                self._shaped_batch(it), self._mask_on_device(masks),
-                torch.as_tensor(np.asarray(frac, np.float32)).to(
-                    self.device),
-                lr)
+                self.params, self.opt_state, self.residual, batch, masks_d,
+                frac_d, lr)
         # the iteration commits when the broadcast lands: history record,
         # params visibility, and the barrier release all happen there.
         # ``t_anchor`` is the gather start (analytic: last grad-ready;
@@ -761,7 +804,7 @@ class ClusterRuntime:
         def commit():
             if epoch != self._ps_epoch:
                 return
-            with record_function("bsp_commit"):
+            with self._span_commit:
                 if self._grad_fn is None:
                     self._grad_fn = stp.build_worker_grad_fn(self.api,
                                                              self.plan)

@@ -9,6 +9,12 @@ of an admitted batch) and the host-side mask draws.
 they are, so both packages draw the same masks from the same seed.
 
 PyTorch runs eagerly, so nothing here is jit-compiled or cached.
+
+The fused step and the apply open ``record_function`` spans at their
+phases' boundaries, once a step or once a chunk of workers, never inside
+a per-leaf loop: ``worker_grads`` (one chunk's forward and backward),
+then the PS sync path, ``PS_SYNC_SPANS``. A profile attributes each
+device operation to the span it was launched in.
 """
 from __future__ import annotations
 
@@ -34,6 +40,12 @@ from repro_torch.tree import tree_leaves, tree_map
 # and the example LMs keep one vmap of all W: fewer chunks, fewer
 # dispatches.
 WORKER_CHUNK_FLOATS = 3 << 29
+
+# the spans of the PS sync path, in the order a step opens them: the
+# gradients written into the packet stream, the error-feedback gate, the
+# masked reduction, the reduced stream back to leaves, the update
+PS_SYNC_SPANS = ("flatten_into", "ef_gate", "reduce_packet_stream",
+                 "unflatten", "opt_update")
 
 
 def worker_chunk(plan, w: int) -> int:
@@ -72,9 +84,11 @@ def build_fused_step(api, opt: Optimizer, ltp: LTPConfig, plan, w: int,
                              dtype=torch.float32, device=dev)
         losses = []
         for a in range(0, w, chunk):
-            grads, loss = per_worker(
-                params, {k: v[a:a + chunk] for k, v in batch.items()})
-            pk.flatten_into(plan, grads, flat_w[a:a + chunk])
+            with record_function("worker_grads"):
+                grads, loss = per_worker(
+                    params, {k: v[a:a + chunk] for k, v in batch.items()})
+            with record_function("flatten_into"):
+                pk.flatten_into(plan, grads, flat_w[a:a + chunk])
             losses.append(loss)
             del grads
         return flat_w, torch.cat(losses)
@@ -83,6 +97,7 @@ def build_fused_step(api, opt: Optimizer, ltp: LTPConfig, plan, w: int,
         flat_w, losses = grads_stream(params, batch)
         if use_ltp:
             # the PS hot loop: ONE fused masked multi-worker reduction
+            sent, premasked, new_residual = flat_w, False, None
             if residual is not None:
                 # error feedback materializes the gated stream anyway —
                 # gate once (one dropfill pass under cuda), reduce the
@@ -92,27 +107,36 @@ def build_fused_step(api, opt: Optimizer, ltp: LTPConfig, plan, w: int,
                     sent, new_residual = ls.apply_delivery_ef(
                         flat_w.reshape(rows), residual.reshape(rows),
                         masks.reshape(-1), backend=ltp.sync_backend)
-                sent = sent.reshape(flat_w.shape)
+                sent, premasked = sent.reshape(flat_w.shape), True
                 new_residual = new_residual.reshape(flat_w.shape)
+            with record_function("reduce_packet_stream"):
                 mean_flat = ls.reduce_packet_stream(
                     sent, masks, ltp, w, expected_frac=frac,
-                    premasked=True)
-            else:
-                new_residual = None
-                mean_flat = ls.reduce_packet_stream(
-                    flat_w, masks, ltp, w, expected_frac=frac)
+                    premasked=premasked)
             realized = masks.mean()
         else:
-            mean_flat = flat_w.mean(dim=0)
+            # lossless: the PS's reduction is the plain mean
+            with record_function("reduce_packet_stream"):
+                mean_flat = flat_w.mean(dim=0)
             new_residual = residual
             realized = torch.ones((), device=flat_w.device)
-        dtypes = [x.dtype for x in tree_leaves(params)]
-        mean_grads = pk.unflatten(plan, mean_flat, dtypes)
-        updates, opt_state = opt.update(mean_grads, opt_state, params, lr)
-        params = tree_map(lambda p, u: p + u, params, updates)
+        params, opt_state = _ps_update(opt, plan, params, opt_state,
+                                       mean_flat, lr)
         return params, opt_state, new_residual, losses.mean(), realized
 
     return step
+
+
+def _ps_update(opt: Optimizer, plan, params, opt_state, mean_flat, lr):
+    """The PS's update from the reduced stream, the tail of the fused
+    step and of the apply -> (params, opt_state)."""
+    dtypes = [x.dtype for x in tree_leaves(params)]
+    with record_function("unflatten"):
+        mean_grads = pk.unflatten(plan, mean_flat, dtypes)
+    with record_function("opt_update"):
+        updates, opt_state = opt.update(mean_grads, opt_state, params, lr)
+        params = tree_map(lambda p, u: p + u, params, updates)
+    return params, opt_state
 
 
 def build_worker_grad_fn(api, plan):
@@ -158,14 +182,11 @@ def build_apply_fn(api, opt: Optimizer, ltp: LTPConfig, plan, w: int,
     """
 
     def apply(params, opt_state, stacked, masks, weights, frac, lr):
-        mean_flat = ls.reduce_packet_stream(
-            stacked, masks, ltp, w, expected_frac=frac,
-            worker_weights=weights, premasked=premasked)
-        dtypes = [x.dtype for x in tree_leaves(params)]
-        mean_grads = pk.unflatten(plan, mean_flat, dtypes)
-        updates, opt_state = opt.update(mean_grads, opt_state, params, lr)
-        params = tree_map(lambda p, u: p + u, params, updates)
-        return params, opt_state
+        with record_function("reduce_packet_stream"):
+            mean_flat = ls.reduce_packet_stream(
+                stacked, masks, ltp, w, expected_frac=frac,
+                worker_weights=weights, premasked=premasked)
+        return _ps_update(opt, plan, params, opt_state, mean_flat, lr)
 
     return apply
 

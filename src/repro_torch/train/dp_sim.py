@@ -130,12 +130,14 @@ class PSTrainer:
             self.controller = self._rt.controller
             self.gather_models = self._rt.gather_models
             self.telemetry = self._rt.tel
+            self.host_metrics = self._rt.host_metrics
             self.n_ps = n_ps
             self.sim_time = 0.0
             self.step_idx = 0
             self.history: List[Dict] = self._rt.history
             return
         self.telemetry = None
+        self.host_metrics = None
         self._mask_rng = np.random.default_rng(seed + 23)
         if params is None:
             gen = torch.Generator().manual_seed(seed)
