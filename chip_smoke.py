@@ -26,6 +26,13 @@ From the root of a checkout it:
    packet_reduce launch per call, and times it beside packet_reduce. No
    training path calls tree_reduce: its launches in the ``kernels`` line
    are these check calls, and say so;
+3b. holds the fused attention (``kernels/fused_attention.py``, CUDA C++)
+   against the chunk loop it replaces on CUDA tensors at Whisper's
+   encoder, cross and decode shapes, forward O and the grads of q, k, v
+   within twice a one-ulp rounding control, two runs equal bit for bit,
+   and times forward and forward + backward beside the loop and
+   ``F.scaled_dot_product_attention`` (``attention`` line; the kernels
+   line's ``attention`` entry counts every phase's launches);
 4. drives the LTP path through the user's entry points: full-width
    papernet (configs/papernet.py) trained by 8 workers and one PS over
    the LTP path on ``PSTrainer``'s lockstep engine, one ``run`` call a
@@ -644,6 +651,85 @@ def check_tree_reduce(torch, timer):
                  lambda a, b: torch.einsum("wnp,wn->np", a, b) / w, inputs),
              "bound_ms": bound_ms, "bound_by": bound_by}
     return rows, timed, n_launches
+
+
+def check_attention(torch, timer):
+    """The fused attention (``kernels/fused_attention.py``) against the
+    chunk loop it replaces on CUDA tensors, at Whisper's shapes: the
+    encoder's self-attention and the cross-attention of a worker chunk
+    (5 workers x batch 4), and decode's cross-attention at one query row.
+    Forward O and the grads of q, k, v held to twice the distance between
+    the loop and the loop on inputs nudged one ulp; forward and forward +
+    backward timed for the kernels, the loop (``plain_ms``) and
+    ``F.scaled_dot_product_attention`` (``library_ms``, timed only: the
+    port never calls it); ``bound_ms`` the tensor-core operations over
+    989 TFLOP/s or the bytes over 3.35 TB/s, the larger. Returns the
+    kernels line's rows."""
+    from repro_torch.kernels import fused_attention as fa
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16
+    from repro_torch.models import attention
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def fused(q, k, v):
+        return fa.fused_attention(q, k, v)
+
+    def loop(q, k, v):
+        return attention.chunked_attention(q, k, v, causal=False)
+
+    def library(q, k, v):
+        g = q.shape[2] // k.shape[2]
+        k, v = (t.repeat_interleave(g, 2) if g > 1 else t for t in (k, v))
+        return sdpa(*(t.transpose(1, 2) for t in (q, k, v))).transpose(1, 2)
+
+    def fwd_bwd(fn):
+        def run(q, k, v, do):
+            q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+            o = fn(q, k, v)
+            return (o.detach(),) + torch.autograd.grad(o, (q, k, v), do)
+        return run
+
+    def forward(fn):
+        def run(q, k, v, do):
+            with torch.no_grad():
+                return fn(q, k, v)
+        return run
+
+    rows = []
+    for name, qs, ks in (("encoder", (20, 1500, 12, 64), (20, 1500, 12, 64)),
+                         ("cross", (20, 128, 12, 64), (20, 1500, 12, 64)),
+                         ("decode_cross", (4, 1, 12, 64), (4, 1500, 12, 64))):
+        q, do = (torch.randn(qs, device="cuda", generator=gen).to(
+            torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn(ks, device="cuda", generator=gen).to(
+            torch.bfloat16) for _ in range(2))
+        got = fwd_bwd(fused)(q, k, v, do)
+        plain = fwd_bwd(loop)(q, k, v, do)
+        ctl = fwd_bwd(loop)(*nudged(torch, (q, k, v, do), 31))
+        row = {"name": name, "q": list(qs), "kv": list(ks),
+               "dtype": "bfloat16"}
+        for i, out in enumerate(("o", "dq", "dk", "dv")):
+            err = distance(got[i:i + 1], plain[i:i + 1])
+            tol = 2 * distance(ctl[i:i + 1], plain[i:i + 1])
+            row[f"{out}_max_abs_err"], row[f"{out}_tol"] = err, tol
+            if not err <= tol:
+                raise AssertionError(f"attention {name} {out}: {err} > "
+                                     f"{tol}, twice the rounding control")
+        again = fwd_bwd(fused)(q, k, v, do)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"attention {name}: two runs differ")
+        inputs = timer.copies(q, k, v, do)
+        for key, fn in (("", fused), ("plain_", loop), ("library_", library)):
+            row[f"{key}ms"] = timer.ms(forward(fn), inputs)
+            row[f"{key}fwd_bwd_ms"] = timer.ms(fwd_bwd(fn), inputs)
+        for part, bwd in (("", False), ("bwd_", True)):
+            n_bytes, n_ops = cost().attention_cost(qs, ks, 2, bwd)
+            row[f"{part}bound_ms"], row[f"{part}bound_by"] = \
+                cost().bound(n_bytes, n_ops, PEAK_FLOPS_BF16)
+        row["bwd_ms"] = row["fwd_bwd_ms"] - row["ms"]
+        rows.append(row)
+    return rows
 
 
 def trainer(torch, engine: str, steps: int, sync_backend: str,
@@ -1884,7 +1970,7 @@ MOE_LR = 3e-4                # examples/train_lm.py's
 
 def train_and_check(torch, zero_counts, read_counts, launches_of, label,
                     cfg, line, tc, workers, loss_step1, *, span=None,
-                    device="cuda"):
+                    full_attention_layers=0, device="cuda"):
     """``cfg`` at its published widths in its own dtype, weights from a
     generator on the card seeded with 0 (their init times here), trained
     ``tc.steps`` steps through the kernels on ``train.lm.lm_trainer``,
@@ -1893,7 +1979,11 @@ def train_and_check(torch, zero_counts, read_counts, launches_of, label,
     the analytic transport) with ``workers`` workers and the ``tc``
     batch, optimizer and lr, data from ``SyntheticLM(vocab=8192)``.
 
-    Checks: one packet_reduce launch a step and no other; finite losses;
+    Checks: one packet_reduce launch a step and no other; the fused
+    attention's launches, zeroed with the others just before the run:
+    for each of ``full_attention_layers`` (the model's non-causal ones),
+    two forward (remat's recompute) and one backward a worker chunk a
+    step, none for a model without; finite losses;
     step 1 within 1.0 of ``loss_step1``; the first step's reduced stream
     through the kernel against the plain route on the same stream
     (``capture_first_reduction``) within 1e-6 of its largest element.
@@ -1907,6 +1997,7 @@ def train_and_check(torch, zero_counts, read_counts, launches_of, label,
     from repro_torch.config import LTPConfig
     from repro_torch.core import packets as pk
     from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import fused_attention as fa
     from repro_torch.models import build
     from repro_torch.runtime import step as stp
     from repro_torch.train.lm import audio_frames, lm_trainer
@@ -1936,6 +2027,7 @@ def train_and_check(torch, zero_counts, read_counts, launches_of, label,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
+    fa.LAUNCHES = fa.BWD_LAUNCHES = 0
     try:
         tr.run(data, epoch_steps=100)
         torch.cuda.synchronize()
@@ -1943,10 +2035,17 @@ def train_and_check(torch, zero_counts, read_counts, launches_of, label,
         undo()
     stamps.append(time.perf_counter())
     launches = read_counts()
+    attention = {"forward": fa.LAUNCHES, "backward": fa.BWD_LAUNCHES}
+    calls = full_attention_layers * tc.steps * -(
+        -workers // line["worker_chunk"])
+    attention_want = {"forward": 2 * calls, "backward": calls}
     hist = tr.history
     step_s = [b - a for a, b in zip(stamps, stamps[1:])]
     if launches != launches_of(packet_reduce=tc.steps):
         raise AssertionError(f"{label}: launches {launches}")
+    if attention != attention_want:
+        raise AssertionError(f"{label}: fused attention launches "
+                             f"{attention}, not {attention_want}")
     if len(hist) != tc.steps or len(step_s) != tc.steps or not all(
             math.isfinite(h["loss"]) and 0.0 < h["delivered"] <= 1.0
             and h["bst"] > 0.0 for h in hist):
@@ -1958,7 +2057,8 @@ def train_and_check(torch, zero_counts, read_counts, launches_of, label,
         raise AssertionError(f"{label}: first reduced stream {first}")
     steady = statistics.median(step_s[1:])
     line.update(
-        launches=launches, loss=[h["loss"] for h in hist],
+        launches=launches, attention_launches=attention,
+        loss=[h["loss"] for h in hist],
         loss_step1_expected=loss_step1, ln_vocab=math.log(cfg.vocab),
         first_step_reduced_stream=first,
         step_ms=[t * 1e3 for t in step_s], median_step_ms=steady * 1e3,
@@ -2284,7 +2384,9 @@ def run_encdec_phase(torch, zero_counts, read_counts, launches_of, *,
     expect = math.log(cfg.vocab) + 0.5 * 0.02 ** 2 * cfg.d_model
     line, launches, shape = train_and_check(
         torch, zero_counts, read_counts, launches_of, "encdec", cfg, line,
-        tc, LM_W, expect, span=ENCODER_SPAN, device=device)
+        tc, LM_W, expect, span=ENCODER_SPAN,
+        full_attention_layers=cfg.encoder_layers + cfg.n_layers,
+        device=device)
     if line["n_params"] != 278_098_944:
         raise AssertionError(f"encdec: {line['n_params']} parameters")
     return line, launches, shape
@@ -4477,6 +4579,8 @@ def run_phases(torch, phases: dict, t_start: float, rows_dir: str,
         torch, timer)
     print("tree_reduce_checks " + json.dumps(tree_checks))
     t0 = emit("tree_reduce", tree_timed, t0)
+    attention_rows = check_attention(torch, timer)
+    t0 = emit("attention", {"rows": attention_rows}, t0)
 
     counters = {"packet_reduce": (pr_mod, "LAUNCHES"),
                 "tree_reduce": (pr_mod, "TREE_LAUNCHES"),
@@ -4857,6 +4961,17 @@ def run_phases(torch, phases: dict, t_start: float, rows_dir: str,
                     **{k: encdec_kernel[k] for k in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms", "library_call")}}
+    line.append({
+        "name": "attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_attention.cu",
+        "replaces": ("no pallas_call (the JAX package leaves attention to "
+                     "XLA): the chunk loop of models/attention.py on CUDA "
+                     "tensors"),
+        "launches": encdec_line["attention_launches"],
+        "launches_from": (f"main paths: encdec, {ENCDEC_STEPS} steps, 2 "
+                          f"forward and 1 backward a full-attention layer "
+                          f"and worker chunk a step, zeroed before the run"),
+        "shapes": attention_rows})
     print(json.dumps({"kernels": line}))
     phases["kernels line"] = time.perf_counter() - t0
     print("phases " + json.dumps({"seconds": phases,

@@ -1,6 +1,7 @@
-"""Build and load the port's CUDA kernels (``csrc/ltp_kernels.cu``).
+"""Build and load the port's CUDA kernels (``csrc/ltp_kernels.cu`` and
+``csrc/fused_attention.cu``, one library).
 
-The source has a plain C interface, so ``nvcc`` compiles it in seconds
+The sources have a plain C interface, so ``nvcc`` compiles it in seconds
 into a shared library that ``ctypes`` loads; nothing here includes
 PyTorch's headers. The library is built on first use into
 ``build/<hash>/`` beside this module (``src/repro_torch/kernels/build/``
@@ -26,7 +27,8 @@ from typing import Optional
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
 
-SOURCES = (Path(__file__).resolve().parent / "csrc" / "ltp_kernels.cu",)
+SOURCES = tuple(Path(__file__).resolve().parent / "csrc" / name
+                for name in ("ltp_kernels.cu", "fused_attention.cu"))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_ROOT = Path(__file__).resolve().parent / "build"
@@ -114,6 +116,11 @@ def load() -> ctypes.CDLL:
     lib.ltp_dropfill_ef.restype = ci
     lib.ltp_randomk.argtypes = [vp, vp, cf, vp, ll, ci, vp]
     lib.ltp_randomk.restype = ci
+    strides = ctypes.POINTER(ll)
+    lib.ltp_attn_fwd.argtypes = [vp] * 5 + [ci] * 7 + [strides, cf, vp]
+    lib.ltp_attn_fwd.restype = ci
+    lib.ltp_attn_bwd.argtypes = [vp] * 9 + [ci] * 7 + [strides, cf, vp]
+    lib.ltp_attn_bwd.restype = ci
     lib.ltp_error_string.argtypes = [ci]
     lib.ltp_error_string.restype = ctypes.c_char_p
     _LIB = lib

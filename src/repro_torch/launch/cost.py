@@ -29,7 +29,8 @@ counts per rank:
                     the counter starts (``adopt``)
 
 The kernels' byte and operation formulas (``reduce_cost``,
-``dropfill_cost``, ``dropfill_ef_cost``, ``randomk_cost``) and ``bound``
+``dropfill_cost``, ``dropfill_ef_cost``, ``randomk_cost``,
+``attention_cost``) and ``bound``
 live here, and ``chip_smoke.py`` reads its kernels' bounds from them.
 
 A step's cost is additive over its periods of identical layers, so
@@ -53,12 +54,13 @@ from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_F32
 # ----------------------------------------------------------------------------
 
 
-def bound(n_bytes: int, n_ops: int):
+def bound(n_bytes: int, n_ops: int, peak: float = PEAK_FLOPS_F32):
     """The least time (ms) the card could take: the larger of the bytes
-    moved over the memory rate and the float32 operations over the
-    float32 rate (``launch/mesh.py``); and which of the two it is."""
+    moved over the memory rate and the operations over ``peak`` (the
+    float32 rate unless said; ``launch/mesh.py``); and which of the two
+    it is."""
     by_bytes = n_bytes / HBM_BW * 1e3
-    by_ops = n_ops / PEAK_FLOPS_F32 * 1e3
+    by_ops = n_ops / peak * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
                                    else "operations")
 
@@ -93,6 +95,25 @@ def randomk_cost(n: int, elem_size: int = 4):
     return n * (2 * elem_size + 4), n
 
 
+def attention_cost(q_shape, kv_shape, elem_size: int,
+                   backward: bool = False):
+    """Bytes and tensor-core operations of one fused attention call, q
+    (B, Sq, H, hd) against k, v (B, Sk, KV, hd) of ``elem_size`` bytes:
+    forward, q, k and v read once, O and the float32 LSE written once;
+    backward, q, dO, k, v and the LSE read once, dq, dk and dv written
+    once (the rows' D, written and read between its two kernels, not
+    counted). Operations: the products' FLOPs as ``FlopCounterMode``
+    counts the chunked path's, 4 B H Sq Sk hd forward and twice that
+    backward (the kernels' recompute of QK^T not counted)."""
+    b, sq, h, hd = q_shape
+    sk, kvh = kv_shape[1], kv_shape[2]
+    nq, nkv, rows = b * sq * h * hd, b * sk * kvh * hd, b * h * sq
+    ops = 4 * b * h * sq * sk * hd
+    if backward:
+        return (3 * nq + 4 * nkv) * elem_size + 4 * rows, 2 * ops
+    return (2 * nq + 2 * nkv) * elem_size + 4 * rows, ops
+
+
 def kernel_cost(name: str, args) -> tuple:
     """(bytes, operations) of one call of the operator
     ``repro_torch::<name>`` on ``args``."""
@@ -106,6 +127,10 @@ def kernel_cost(name: str, args) -> tuple:
         return dropfill_ef_cost(*args[0].shape)
     if name == "randomk_into":
         return randomk_cost(args[0].numel(), args[0].element_size())
+    if name in ("fused_attention_fwd_into", "fused_attention_bwd_into"):
+        return attention_cost(args[0].shape, args[1].shape,
+                              args[0].element_size(),
+                              name == "fused_attention_bwd_into")
     raise KeyError(f"no cost formula for repro_torch::{name}")
 
 

@@ -9,9 +9,12 @@ float32 softmax with the ``NEG_INF`` guard. Scores are never
 materialized for the whole (Sq, Sk) plane: a Python loop over query
 chunks (the reference's ``lax.scan``) bounds the live scores to (B, H,
 cq, Sk_band), and sliding-window layers slice a static-length KV band
-per chunk, so window attention is O(S*w). Chunk counts and band offsets
-are Python ints computed from shapes, so every function runs under
-``torch.func.vmap`` / ``grad``. The reference's head constraint
+per chunk, so window attention is O(S*w). Full attention (no causal
+mask, no window) on a CUDA tensor, Whisper's encoder and cross
+attention, runs the fused kernel of ``kernels/fused_attention.py``
+instead of the loop. Chunk counts and band offsets are Python ints
+computed from shapes, so every function runs under ``torch.func.vmap``
+/ ``grad``. The reference's head constraint
 (``_constrain_heads``) shards the heads over the ``model`` axis; here,
 under a ``ShardCtx`` (``ctx=``) whose axis both ``n_heads`` and
 ``n_kv`` divide, a rank projects with its column blocks of ``wq`` /
@@ -28,6 +31,8 @@ import math
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.kernels import _build
+from repro_torch.kernels.fused_attention import fused_attention
 from repro_torch.models.layers import (
     Params,
     apply_mrope,
@@ -102,8 +107,22 @@ def multi_head_attention(
     ``q_offset``: absolute position of q[0] (k positions start at 0).
     ``window`` > 0: sliding-window causal attention over a static KV band.
     (The reference's ``kv_len``, a per-batch valid KV length that no
-    caller passes, is left out.)
+    caller passes, is left out.) Full attention (``causal=False``,
+    ``window=0``) on a CUDA tensor runs the fused kernel
+    (``kernels/fused_attention.py``) instead of the chunk loop; a CPU
+    tensor, and every causal or windowed call, takes the loop.
     """
+    if not causal and window == 0 and _build.on_device(q):
+        return fused_attention(q, k, v)
+    return chunked_attention(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset, chunk_q=chunk_q)
+
+
+def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                      q_offset: int = 0, chunk_q: int = 128):
+    """``multi_head_attention``'s loop over query chunks, on any device:
+    the CPU route of every call and the CUDA route of causal and windowed
+    ones."""
     b, sq, h, hd = q.shape
     sk = k.shape[1]
     scale = 1.0 / math.sqrt(hd)

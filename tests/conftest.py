@@ -98,3 +98,8 @@ def pytest_runtest_makereport(item, call):
     except Exception as exc:   # a broken dump must not mask the failure
         report.sections.append(
             ("chaos forensics", f"dump failed: {exc!r}"))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA device; skipped without one")
